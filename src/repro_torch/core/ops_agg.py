@@ -83,10 +83,10 @@ def _segments(table: Table, keys: Sequence[str]):
     seg = torch.where(valid, seg, -1)
     num_groups = boundary.sum().to(torch.int32)
     # one boundary row per group: its row index goes to slot seg[i]; other
-    # rows go to a dump slot that is cut off
+    # rows go to a dump slot that is cut off (a scatter, so no host sync)
     starts = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
     slot = torch.where(boundary, seg.to(torch.int64), cap)
-    starts[slot[boundary]] = torch.arange(cap, device=dev)[boundary]
+    starts.index_put_((slot,), torch.arange(cap, device=dev))
     return st, seg, num_groups, starts[:cap]
 
 
@@ -104,7 +104,9 @@ def _reduce(col: torch.Tensor, seg: torch.Tensor, slots: int, prim: str,
         col = col.to(torch.float32)
         col = col * col
         prim = "sum"
-    out = kops.segment_reduce(col, seg, slots, prim, use_kernel=use_kernel)
+    # seg comes from _segments: sorted runs, then -1 on the invalid tail
+    out = kops.segment_reduce(col, seg, slots, prim, use_kernel=use_kernel,
+                              contiguous_runs=True)
     # empty slots hold the op identity (e.g. +inf for min): zero them so rows
     # past row_count stay benign garbage
     return where_rows(group_valid, out)

@@ -31,7 +31,7 @@ _U = ctypes.c_uint
 SIGNATURES = {
     "repro_hash32": [_P, _P, _LL, _U, _I, _P],
     "repro_histogram": [_P, _P, _LL, _I, _P],
-    "repro_bitonic": [_P, _P, _P, _P, _LL, _I, _I, _P],
+    "repro_bitonic": [_P, _P, _P, _P, _LL, _I, _P],
     "repro_segment_reduce": [_P, _P, _P, _LL, _I, _I, _I, _P, _P, _P],
     "repro_segment_reduce_rows_per_block": [],
 }

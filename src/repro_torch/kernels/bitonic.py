@@ -6,6 +6,9 @@ Replaces ``repro/kernels/bitonic.py::bitonic_sort_tiles`` (the Pallas
 not bytes or operations: 66 dependent compare-exchange passes for a
 2048-pair tile. It keeps the tile in shared memory, one block per tile and
 one thread per pair, so global memory sees one read and one write per pair.
+
+Keys are int64 only: the path sorts ``ordered_u32`` keys, which the port
+holds in int64. The plain version (``ref.sort_tiles_ref``) takes any dtype.
 """
 from __future__ import annotations
 
@@ -16,7 +19,6 @@ from repro_torch.utils import next_pow2
 
 DEFAULT_TILE = 1 << 11
 MAX_TILE = 1 << 12  # 4096 int64 keys + int32 payloads = 48 KB of shared memory
-_KEY_KIND = {torch.int32: 0, torch.float32: 1, torch.int64: 2}
 
 
 def bitonic_sort_tiles(keys: torch.Tensor, payload: torch.Tensor, *,
@@ -24,7 +26,7 @@ def bitonic_sort_tiles(keys: torch.Tensor, payload: torch.Tensor, *,
     """Sort each contiguous ``tile`` of (keys, payload) ascending,
     lexicographically on (key, payload).
 
-    keys: (N,) int32, float32 or int64 (u32 values); payload: (N,) int32; N a
+    keys: (N,) int64 (u32 values on the path); payload: (N,) int32; N a
     multiple of ``tile``, a power of two in [256, 4096]. A CPU tensor takes
     the plain version; a CUDA tensor launches the kernel (counted in
     ``bitonic_sort_tiles.launches``) or raises.
@@ -32,8 +34,8 @@ def bitonic_sort_tiles(keys: torch.Tensor, payload: torch.Tensor, *,
     (n,) = keys.shape
     if payload.shape != keys.shape or payload.dtype != torch.int32:
         raise TypeError("payload must be int32 with the keys' shape")
-    if keys.dtype not in _KEY_KIND:
-        raise TypeError(f"unsupported key dtype {keys.dtype}")
+    if keys.dtype != torch.int64:
+        raise TypeError(f"keys must be int64, got {keys.dtype}")
     if tile != next_pow2(tile) or not 256 <= tile <= MAX_TILE or n % tile:
         raise ValueError(f"tile must be a power of two in [256, {MAX_TILE}] "
                          f"dividing N; got tile={tile}, N={n}")
@@ -48,7 +50,7 @@ def bitonic_sort_tiles(keys: torch.Tensor, payload: torch.Tensor, *,
     if n:
         check("bitonic_sort_tiles", library().repro_bitonic(
             keys.data_ptr(), payload.data_ptr(), ko.data_ptr(), vo.data_ptr(),
-            n, tile, _KEY_KIND[keys.dtype], stream_ptr(keys)))
+            n, tile, stream_ptr(keys)))
         bitonic_sort_tiles.launches += 1
     return ko, vo
 

@@ -7,10 +7,10 @@
 // 2^m, distance 2^p, pair i sits at lo = (i >> p) * 2^(p+1) + (i & (2^p - 1)),
 // hi = lo + 2^p, ascending when bit (m-p-1) of (i >> p) is 0, and swaps
 // unless (k_lo < k_hi) || (k_lo == k_hi && v_lo <= v_hi) equals that flag.
-// Keys are int32, float32 (compared as floats: -0.0 == +0.0 on the key) or
-// int64 (the port's holder for unsigned 32-bit keys).
+// Keys are int64: the port holds the unsigned 32-bit keys of the path
+// (ordered_u32) in int64, and any int64 key sorts the same way.
 //
-// Bound: on the path the tile is at most 2048 pairs (<= 24 KB), so the
+// Bound: on the path the tile is at most 2048 pairs (24 KB held), so the
 // kernel is bound by latency: log2(T)(log2(T)+1)/2 = 66 passes, each one
 // __syncthreads() apart. The design keeps the whole tile in shared memory
 // (one global read and one global write per pair), one block per tile and
@@ -21,7 +21,8 @@
 
 namespace {
 
-template <typename K>
+using K = long long;
+
 __global__ void bitonic_tile(const K* __restrict__ keys,
                              const int* __restrict__ vals,
                              K* __restrict__ ko, int* __restrict__ vo,
@@ -62,33 +63,21 @@ __global__ void bitonic_tile(const K* __restrict__ keys,
   }
 }
 
-template <typename K>
-void launch(const void* k, const int* v, void* ko, int* vo, long long n,
-            int tile, cudaStream_t s) {
-  int log_t = 0;
-  while ((1 << log_t) < tile) ++log_t;
-  int threads = tile / 2 < 1024 ? tile / 2 : 1024;
-  size_t shmem = (size_t)tile * (sizeof(K) + sizeof(int));
-  bitonic_tile<K><<<(unsigned int)(n / tile), threads, shmem, s>>>(
-      (const K*)k, v, (K*)ko, vo, tile, log_t);
-}
-
 }  // namespace
 
-// keys/payload: n pairs, n a multiple of tile (a power of two in
-// [2, 4096]); key_kind 0 = int32, 1 = float32, 2 = int64. Returns
-// cudaGetLastError().
-extern "C" int repro_bitonic(const void* keys, const int* payload,
-                             void* keys_out, int* payload_out, long long n,
-                             int tile, int key_kind, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+// keys (int64) / payload (int32): n pairs, n a multiple of tile (a power of
+// two in [2, 4096]). Returns cudaGetLastError().
+extern "C" int repro_bitonic(const long long* keys, const int* payload,
+                             long long* keys_out, int* payload_out, long long n,
+                             int tile, void* stream) {
   if (n > 0) {
-    if (key_kind == 0)
-      launch<int32_t>(keys, payload, keys_out, payload_out, n, tile, s);
-    else if (key_kind == 1)
-      launch<float>(keys, payload, keys_out, payload_out, n, tile, s);
-    else
-      launch<long long>(keys, payload, keys_out, payload_out, n, tile, s);
+    int log_t = 0;
+    while ((1 << log_t) < tile) ++log_t;
+    int threads = tile / 2 < 1024 ? tile / 2 : 1024;
+    size_t shmem = (size_t)tile * (sizeof(K) + sizeof(int));
+    bitonic_tile<<<(unsigned int)(n / tile), threads, shmem,
+                   (cudaStream_t)stream>>>(keys, payload, keys_out, payload_out,
+                                           tile, log_t);
   }
   return (int)cudaGetLastError();
 }

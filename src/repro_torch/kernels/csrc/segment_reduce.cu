@@ -6,8 +6,9 @@
 // op's identity (0, +max, -max). The TPU kernel compares every row with every
 // segment (a one-hot product, O(N * G)); at G = capacity (millions of slots
 // on the groupby path) that is quadratic, so this kernel does not carry it
-// over. It needs each id's rows to be one contiguous run, which the wrapper
-// guarantees (kernels/segment_reduce.py).
+// over. It needs each in-range id's rows to be one contiguous run (runs of
+// out-of-range ids may lie anywhere), which the caller promises or the
+// wrapper arranges (kernels/segment_reduce.py).
 //
 // Bound: bytes. Each row is read once (4 B value + 4 B id) and each segment
 // written once (4 B); the fold is one add/min/max per row.

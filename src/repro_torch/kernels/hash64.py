@@ -2,8 +2,9 @@
 
 Replaces ``repro/kernels/hash64.py::hash32`` (the Pallas ``_hash_kernel``):
 the hash-partition and hash-join hot spot. On this card it is bound by bytes
-(4 B read and 8 B written per row, a few integer ops); the kernel reads and
-writes each row once with 16-byte vector accesses (see the source's note).
+(the function needs 4 B in and 4 B out a row, a few integer ops; the int64
+holder writes 4 B more); the kernel reads and writes each row once with
+16-byte vector accesses (see the source's note).
 
 The result holds unsigned 32-bit hashes in int64 (values in [0, 2**32)),
 the port's convention for u32 values (``kernels/ref.py``).

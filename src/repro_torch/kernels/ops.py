@@ -85,7 +85,8 @@ def key_max(dtype: torch.dtype):
 
 def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor,
                    num_segments: int, op: str = "sum", *,
-                   use_kernel: bool | None = None) -> torch.Tensor:
+                   use_kernel: bool | None = None,
+                   contiguous_runs: bool = False) -> torch.Tensor:
     """Segmented sum/min/max: ``out[g] = op(values[i] where seg_ids[i] == g)``.
 
     values: (n, ...), reduced along the leading axis; seg_ids: (n,) int32,
@@ -93,6 +94,8 @@ def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor,
     ``ref.seg_init``. 1-D f32/i32 values go to the kernel; N-D or other
     dtypes take the plain scatter (as the reference leaves them to XLA);
     ``use_kernel=False`` and :func:`oracle_scope` force the plain version.
+    ``contiguous_runs=True`` is the caller's promise that each in-range id's
+    rows form one contiguous run; the kernel wrapper then skips its check.
     """
     if op not in ("sum", "min", "max"):
         raise ValueError(op)
@@ -109,7 +112,8 @@ def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor,
             f"use_kernel=None for the plain scatter.")
     if use_kernel and not oracle_only():
         return seg.segment_reduce_tiles(values, seg_ids.to(torch.int32),
-                                        num_segments, op)
+                                        num_segments, op,
+                                        contiguous_runs=contiguous_runs)
     return ref.segment_reduce_ref(values, seg_ids, num_segments, op)
 
 
@@ -117,6 +121,7 @@ def sort_pairs(keys: torch.Tensor, payload: torch.Tensor, *,
                tile: int = DEFAULT_TILE, use_kernel: bool | None = None):
     """Full ascending (keys, payload) sort, stable on the key.
 
+    keys: (n,) int64 (the port's holder of u32 keys); payload: (n,) int32.
     Up to one tile the bitonic kernel sorts (keys, payload) padded to a
     power of two (>= 256); beyond it, or with ``use_kernel=False``, a
     stable ``torch.sort`` on the key. The padding is (key max, payload

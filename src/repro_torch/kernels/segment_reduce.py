@@ -8,10 +8,14 @@ by bytes (one read of each row, one write of each segment). No float atomics:
 the same inputs give the same bits on every run. See the source's note for
 the summation order.
 
-The kernel needs each id's rows to form one contiguous run. Every caller on
-the groupby path passes sorted ids; for any other input the wrapper first
-permutes the rows by a stable sort of (id, row) (ids outside the range map
-to ``num_segments`` and so sort last).
+The kernel needs each in-range id's rows to form one contiguous run (ids
+outside the range may lie anywhere: the kernel skips their runs). Groupby,
+the only caller on the path, passes its segments sorted with a -1 tail and
+says so (``contiguous_runs=True``), so the wrapper launches straight away.
+For any other input the wrapper checks, on the host after one sync, that
+the ids are non-decreasing once out-of-range ids are read as
+``num_segments``, and permutes the rows by a stable sort of (id, row) when
+they are not.
 """
 from __future__ import annotations
 
@@ -23,11 +27,14 @@ OPS = ("sum", "min", "max")
 
 
 def segment_reduce_tiles(values: torch.Tensor, seg_ids: torch.Tensor,
-                         num_segments: int, op: str = "sum") -> torch.Tensor:
+                         num_segments: int, op: str = "sum", *,
+                         contiguous_runs: bool = False) -> torch.Tensor:
     """``out[g] = op(values[i] : seg_ids[i] == g)`` for 1-D f32/i32 values.
 
     seg_ids: (n,) int32; entries outside [0, num_segments) are ignored.
-    Empty segments hold ``ref.seg_init``. Any segment count. A CPU tensor
+    Empty segments hold ``ref.seg_init``. Any segment count.
+    ``contiguous_runs=True`` promises that each in-range id's rows are one
+    contiguous run, and skips the check (and its host sync). A CPU tensor
     takes the plain version; a CUDA tensor launches the kernel (counted in
     ``segment_reduce_tiles.launches``) or raises.
     """
@@ -46,12 +53,12 @@ def segment_reduce_tiles(values: torch.Tensor, seg_ids: torch.Tensor,
 
     g = int(num_segments)
     n = values.numel()
-    ids = torch.where((seg_ids >= 0) & (seg_ids < g), seg_ids,
-                      torch.full((), g, dtype=torch.int32, device=seg_ids.device))
-    vals = values
-    if n > 1 and not bool((ids[1:] >= ids[:-1]).all()):
-        ids, perm = torch.sort(ids, stable=True)
-        vals = values[perm]
+    ids, vals = seg_ids, values
+    if not contiguous_runs and n > 1:
+        mapped = torch.where((seg_ids >= 0) & (seg_ids < g), seg_ids, g)
+        if not bool((mapped[1:] >= mapped[:-1]).all()):
+            ids, perm = torch.sort(mapped, stable=True)
+            vals = values[perm]
     ids, vals = ids.contiguous(), vals.contiguous()
     out = torch.empty(g, dtype=values.dtype, device=values.device)
     lib = library()

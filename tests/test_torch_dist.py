@@ -239,18 +239,40 @@ def test_dist_table_numpy_roundtrip_and_limit():
     assert out.row_counts.tolist() == [3, 0, 2, 0]
 
 
-def _chip_smoke(*args):
-    return subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), *args],
+def _chip_smoke():
+    return subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
                           capture_output=True, text=True, timeout=300, cwd=ROOT)
 
 
 def test_chip_smoke_cpu_rehearsal_drives_the_main_path():
-    """chip_smoke.py's main path and its kernel-vs-plain comparison at a tiny
-    size on the CPU; by design it exits 3 and prints no result."""
-    out = _chip_smoke("--cpu-rehearsal")
-    assert out.returncode == 3, out.stdout + out.stderr
-    assert "cpu rehearsal passed" in out.stdout
-    assert '"ok"' not in out.stdout
+    """chip_smoke.py's main-path calls and its comparison of a run against
+    the ``oracle_scope()`` run, at 8 x 1024 rows on the CPU (plain versions
+    on both sides, so equal bit for bit)."""
+    import importlib.util
+
+    from repro_torch.core.context import DistContext
+    from repro_torch.kernels import ops as kops
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cpu = torch.device("cpu")
+    ctx = DistContext(num_shards=P, device=cpu)
+    a, b, g = smoke.make_tables(ctx, 1024, cpu)
+    names = []
+    for name, call in smoke.main_path_calls(ctx, a, b, g):
+        got = smoke.summarize(*call())
+        with kops.oracle_scope():
+            want = smoke.summarize(*call())
+        assert smoke.compare_results(name, got, want) == 0.0
+        assert sum(got["row_counts"]) > 0
+        names.append(name)
+    assert names == ["join_sort", "join_hash", "groupby_two_phase",
+                     "groupby_shuffle", "sort"]
+    with pytest.raises(smoke.CheckFailed):
+        bad = dict(got, row_counts=got["row_counts"][::-1] + [1])
+        smoke.compare_results("sort", bad, want)
 
 
 def test_chip_smoke_without_a_card_fails_with_no_result():

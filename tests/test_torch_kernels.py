@@ -111,8 +111,11 @@ def test_bitonic_plain_matches_pallas(tile, n, kind):
         k = r.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
         k[:3] = [0xFFFFFFFF, 0xFFFFFFFF, 0]
     v = r.permutation(n).astype(np.int32)  # distinct payloads
-    tk = torch.from_numpy(k.astype(np.int64) if kind == "u32" else k)
-    ko, vo = bitonic_sort_tiles(tk, torch.from_numpy(v), tile=tile)
+    if kind == "u32":  # the path's keys, in the int64 holder: the wrapper
+        ko, vo = bitonic_sort_tiles(torch.from_numpy(k.astype(np.int64)),
+                                    torch.from_numpy(v), tile=tile)
+    else:  # the kernel takes int64 keys only; the plain version any dtype
+        ko, vo = tref.sort_tiles_ref(torch.from_numpy(k), torch.from_numpy(v), tile)
     jk, jv = j_bitonic(jnp.asarray(k), jnp.asarray(v), tile=tile)
     np.testing.assert_array_equal(vo.numpy(), np.asarray(jv))
     np.testing.assert_array_equal(ko.numpy(), np.asarray(jk).astype(ko.numpy().dtype))
@@ -139,12 +142,15 @@ def test_sort_pairs_keeps_a_max_key_row():
 
 
 def test_bitonic_rejects_bad_tiles():
-    k = torch.zeros(300, dtype=torch.int32)
+    v = torch.zeros(300, dtype=torch.int32)
     with pytest.raises(ValueError):
-        bitonic_sort_tiles(k, k.clone(), tile=300)
+        bitonic_sort_tiles(torch.zeros(300, dtype=torch.int64), v, tile=300)
     with pytest.raises(ValueError):
-        bitonic_sort_tiles(torch.zeros(128, dtype=torch.int32),
+        bitonic_sort_tiles(torch.zeros(128, dtype=torch.int64),
                            torch.zeros(128, dtype=torch.int32), tile=128)
+    with pytest.raises(TypeError):  # int64 keys only
+        bitonic_sort_tiles(torch.zeros(256, dtype=torch.int32),
+                           torch.zeros(256, dtype=torch.int32), tile=256)
 
 
 # --- segment_reduce -------------------------------------------------------------
@@ -240,8 +246,7 @@ def test_cuda_histogram_matches_plain(cuda):
 def test_cuda_bitonic_matches_plain(cuda, tile):
     r = _rng(tile)
     n = 4 * tile
-    for keys in (r.integers(-9, 9, n).astype(np.int32),
-                 r.integers(-9, 9, n).astype(np.float32),
+    for keys in (r.integers(0, 9, n).astype(np.int64),
                  r.integers(0, 2**32, n, dtype=np.uint64).astype(np.int64)):
         k = torch.from_numpy(keys).to(cuda)
         v = torch.from_numpy(r.permutation(n).astype(np.int32)).to(cuda)
@@ -262,3 +267,10 @@ def test_cuda_segment_reduce_matches_plain(cuda, g, op):
             seg = torch.from_numpy(ids.astype(np.int32)).to(cuda)
             assert torch.equal(segment_reduce_tiles(vals, seg, g, op),
                                tref.segment_reduce_ref(vals, seg, g, op))
+        # groupby's layout: sorted runs, then a -1 tail, passed as runs
+        ids = np.concatenate([np.sort(r.integers(0, g, n - n // 8)),
+                              np.full(n // 8, -1)])
+        seg = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+        assert torch.equal(
+            segment_reduce_tiles(vals, seg, g, op, contiguous_runs=True),
+            tref.segment_reduce_ref(vals, seg, g, op))
