@@ -15,19 +15,26 @@ Phases (any failed check raises, and the script exits nonzero):
    (512 MiB a table), through ``DistContext``: the sort join, the hash join,
    groupby two_phase (bucket 256, so the combine sorts 2048 rows on the
    bitonic kernel) and groupby shuffle (segment counts of 8 M) on
-   ``key_range=1000``, and the global sort. Launch counts are zeroed just
-   before and read just after; every kernel must have launched.
+   ``key_range=1000``, the global sort, and the window functions (every
+   one of them) over a fourth table of 16 B rows with 12 groups, so most
+   groups span shards (range bucket 2**21, 2**24 slots a shard). Launch
+   counts are zeroed just before and read just after; every kernel must
+   have launched, segment_scan_tiles 6 times a shard.
 4. The same calls under ``oracle_scope()`` (every plain version, on the
    card, no launches): the same rows, per-shard row counts and shuffle
-   stats, bit for bit; float sums and what derives from them (sum, mean,
-   var) within the tolerance stated in ``compare_groupby``.
+   stats, bit for bit (the window's rows in order); groupby's float sums
+   and what derives from them (sum, mean, var) within the tolerance stated
+   in ``compare_groupby``.
 5. Each operator's median wall time through the kernels and through the
    plain versions, run in turns.
 6. One ``torch.profiler`` trace of each operator through the kernels (GPU
-   busy share, the kernels that took the most device time).
+   busy share, the device time of the port's own kernels, the kernels
+   that took the most device time).
 7. Each kernel's median time at the path's shape beside its plain
    version's, one PyTorch library call's where one computes the same
-   function, and the least time the card could take (``bound_ms``).
+   function (none computes a segmented scan: ``torch.cumsum`` of the same
+   column is printed beside it instead), and the least time the card
+   could take (``bound_ms``).
 
 It prints one JSON line with the main path's numbers, one with every
 kernel's, then the nvidia-smi line, then ``{"ok": true, "device": {...}}``
@@ -60,9 +67,15 @@ from repro_torch.kernels.bitonic import bitonic_sort_tiles  # noqa: E402
 from repro_torch.kernels.hash64 import hash32  # noqa: E402
 from repro_torch.kernels.histogram import bucket_histogram  # noqa: E402
 from repro_torch.kernels.segment_reduce import segment_reduce_tiles  # noqa: E402
+from repro_torch.kernels.segment_scan import segment_scan_tiles  # noqa: E402
 
 P = 8
 ROWS = 1 << 22  # rows per shard: 8 x 4 Mi rows, 512 MiB a table
+WINDOW_GROUPS = 12
+WINDOW_FUNCS = ["rank", "dense_rank", "row_number", ("lag", "d0"),
+                ("lead", "d0"), ("lag", "d1", 3), ("lead", "d1", 2),
+                ("cumsum", "d0"), ("cummax", "d0"), ("cummax", "d1"),
+                ("running_mean", "d0")]
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the float32 rate
 # outside the tensor cores, used for 32-bit scalar integer/float ops.
 HBM_BYTES_PER_S = 3.35e12
@@ -80,7 +93,17 @@ KERNELS = {
     "segment_reduce_tiles": (segment_reduce_tiles,
                              "src/repro_torch/kernels/csrc/segment_reduce.cu",
                              "src/repro/kernels/segment_reduce.py:79"),
+    "segment_scan_tiles": (segment_scan_tiles,
+                           "src/repro_torch/kernels/csrc/segment_scan.cu",
+                           "src/repro/kernels/segment_scan.py:101"),
 }
+
+
+# the __global__ functions of src/repro_torch/kernels/csrc/*.cu, as the
+# profiler names them
+PORTED_KERNELS = ("hash32_kernel", "hist_global", "hist_shared", "bitonic_tile",
+                  "seg_fill", "seg_pass1", "seg_pass2", "scan_reduce",
+                  "scan_carry", "scan_apply")
 
 
 class CheckFailed(RuntimeError):
@@ -230,7 +253,57 @@ def phase_kernels(dev) -> None:
     check(torch.equal(segment_reduce_tiles(empty, seg[:0], 3, "min"),
                       ref.segment_reduce_ref(empty, seg[:0], 3, "min")),
           "segment_reduce empty")
+    check_segment_scan(dev, rng)
     torch.cuda.synchronize()
+
+
+def _bits(c: torch.Tensor) -> torch.Tensor:
+    return c.view(torch.int32) if c.dtype == torch.float32 else c
+
+
+def check_segment_scan(dev, rng) -> None:
+    """segment_scan: sum/min/max x f32/i32 x inclusive/exclusive over block
+    edges (4096 rows a block), 2**22 + 3 and 2**24 + 5 rows (a carry chain
+    through 4097 blocks); one run through every block, every row its own
+    segment, random runs with a -1 tail that starts mid-block; NaN in f32
+    min/max; int32 sums that wrap. Bit for bit (NaN keeps the first NaN's
+    bits on both sides), and the same bits on a second run."""
+    def scan_ids(n):
+        ids = np.sort(rng.integers(0, max(1, n // 37), n)).astype(np.int32)
+        ids[n - n // 3 - 5:] = -1
+        return ids
+
+    for n in (1, 33, 4095, 4096, 4097, 3 * 4096 + 1, (1 << 22) + 3,
+              (1 << 24) + 5):
+        for layout, ids in (("one run", np.zeros(n, np.int32)),
+                            ("singletons", np.arange(n, dtype=np.int32)),
+                            ("random runs", scan_ids(n))):
+            seg = torch.from_numpy(ids).to(dev)
+            for dt in (np.float32, np.int32):
+                for op in ("sum", "min", "max"):
+                    vals = rng.integers(-99, 99, n).astype(dt)
+                    if dt == np.float32 and op != "sum":
+                        vals[rng.integers(0, n, 3)] = np.nan
+                    v = torch.from_numpy(vals).to(dev)
+                    for inclusive in (True, False):
+                        got = segment_scan_tiles(v, seg, op, inclusive=inclusive)
+                        want = ref.segment_scan_ref(v, seg, op, inclusive)
+                        check(torch.equal(_bits(got), _bits(want)),
+                              f"segment_scan n={n} {layout} {dt} {op} "
+                              f"inclusive={inclusive}")
+                    once, again = (segment_scan_tiles(v, seg, op)
+                                   for _ in range(2))
+                    check(torch.equal(_bits(once), _bits(again)),
+                          f"segment_scan n={n} {layout} {dt} {op}: bits "
+                          f"differ between two runs")
+    # int32 sums that wrap: 2**30 a row in one run
+    n = 3 * 4096 + 7
+    v = torch.full((n,), 1 << 30, dtype=torch.int32, device=dev)
+    seg = torch.zeros(n, dtype=torch.int32, device=dev)
+    for inclusive in (True, False):
+        check(torch.equal(segment_scan_tiles(v, seg, "sum", inclusive=inclusive),
+                          ref.segment_scan_ref(v, seg, "sum", inclusive)),
+              f"segment_scan int32 wrap inclusive={inclusive}")
 
 
 def phase_semantics(dev) -> None:
@@ -276,7 +349,7 @@ def phase_semantics(dev) -> None:
 
 
 def main_path_calls(ctx: DistContext, a: DistTable, b: DistTable,
-                    g: DistTable):
+                    g: DistTable, w: DistTable):
     aggs = {"d0": ["sum", "count", "mean", "var", "min", "max"]}
     return [
         ("join_sort", lambda: ctx.join(a, b, "k", algorithm="sort")),
@@ -285,6 +358,7 @@ def main_path_calls(ctx: DistContext, a: DistTable, b: DistTable,
             g, "k", aggs, strategy="two_phase", bucket_capacity=256)),
         ("groupby_shuffle", lambda: ctx.groupby(g, "k", aggs, strategy="shuffle")),
         ("sort", lambda: ctx.sort(a, "k")),
+        ("window", lambda: ctx.window(w, "k", WINDOW_FUNCS, order_by="o")),
     ]
 
 
@@ -295,10 +369,6 @@ def summarize(out: DistTable, stats) -> dict:
             "row_counts": out.row_counts.cpu().tolist(),
             "overflow": [s.overflow.cpu().tolist() for s in stats],
             "received": [s.received.cpu().tolist() for s in stats]}
-
-
-def _bits(c: torch.Tensor) -> torch.Tensor:
-    return c.view(torch.int32) if c.dtype == torch.float32 else c
 
 
 def canonical(cols: dict[str, torch.Tensor], keys) -> dict[str, torch.Tensor]:
@@ -336,14 +406,33 @@ def compare_groupby(name: str, got: dict, want: dict) -> float:
     return worst
 
 
+def window_table(ctx: DistContext, rows: int, device, seed: int = 4):
+    """The window input, 16 B a row, 8 shards of ``rows``: ``k`` int32 over
+    12 groups (most groups span shards), ``o`` int32 a permutation of the
+    global row ids (a unique order), ``d0`` float32 integer-valued over
+    [-50, 50], ``d1`` int32 over [-9, 9]. Zero-mean integer data keeps
+    every running sum far below 2**24, so float sums are exact."""
+    rng = np.random.default_rng(seed)
+    n = P * rows
+    cols = {"k": rng.integers(0, WINDOW_GROUPS, n).astype(np.int32),
+            "o": rng.permutation(n).astype(np.int32),
+            "d0": rng.integers(-50, 50, n, endpoint=True).astype(np.float32),
+            "d1": rng.integers(-9, 9, n, endpoint=True).astype(np.int32)}
+    return ctx.from_local_parts([
+        Table.from_numpy({k: v[i * rows:(i + 1) * rows] for k, v in cols.items()},
+                         device=device) for i in range(P)])
+
+
 def make_tables(ctx: DistContext, rows: int, device):
-    """Three tables of the paper's relation, 8 shards each: two join sides
-    (keys uniform over [0, 8 * rows)) and a groupby input (1000 keys)."""
+    """Four tables, 8 shards each: two join sides of the paper's relation
+    (keys uniform over [0, 8 * rows)), a groupby input (1000 keys) and the
+    window input (:func:`window_table`)."""
     def dist(seed, key_range):
         return ctx.from_local_parts([
             random_table(rows, key_range=key_range, seed=seed, shard=i,
                          device=device) for i in range(P)])
-    return dist(1, P * rows), dist(2, P * rows), dist(3, 1000)
+    return (dist(1, P * rows), dist(2, P * rows), dist(3, 1000),
+            window_table(ctx, rows, device))
 
 
 def compare_results(name: str, got: dict, want: dict) -> float:
@@ -353,34 +442,49 @@ def compare_results(name: str, got: dict, want: dict) -> float:
         check(got[key] == want[key], f"{name}: {key} {got[key]} vs plain {want[key]}")
     if name.startswith("groupby"):
         return compare_groupby(name, got["rows"], want["rows"])
+    if name == "window":  # sorted output: every row, in order
+        check(sorted(got["rows"]) == sorted(want["rows"]),
+              f"window: columns {sorted(got['rows'])}")
+        for n, col in want["rows"].items():
+            check(torch.equal(_bits(got["rows"][n]), _bits(col)),
+                  f"window: column {n} differs")
+        return 0.0
     compare_rows(name, got["rows"], want["rows"])
     return 0.0
 
 
-def phase_main_path(ctx, a, b, g):
-    results, walls = {}, {}
+def phase_main_path(ctx, tabs):
+    """Each call once through the kernels, the launch counts zeroed just
+    before the first and read just after the last. Returns the results,
+    wall ms and peak device memory per call, and the counts."""
+    results, walls, peaks = {}, {}, {}
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     set_launches(0)
-    for name, call in main_path_calls(ctx, a, b, g):
+    for name, call in main_path_calls(ctx, *tabs):
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out, stats = call()
         torch.cuda.synchronize()
         walls[name] = (time.perf_counter() - t0) * 1e3
+        peaks[name] = torch.cuda.max_memory_allocated()
         results[name] = summarize(out, stats)
         del out, stats
     counts = launches()
-    peak = torch.cuda.max_memory_allocated()
     for k, v in counts.items():
         check(v > 0, f"kernel {k} was not launched on the main path")
-    return results, walls, counts, peak
+    # the window's six scans a shard (dense_rank, rank, cumsum,
+    # running_mean, two cummax) are the only segment_scan launches
+    check(counts["segment_scan_tiles"] == 6 * P,
+          f"segment_scan launched {counts['segment_scan_tiles']} times, "
+          f"want {6 * P}")
+    return results, walls, counts, peaks
 
 
-def phase_plain_path(ctx, a, b, g, kernel_results) -> dict:
+def phase_plain_path(ctx, tabs, kernel_results) -> dict:
     walls, worst = {}, 0.0
     set_launches(0)
     with kops.oracle_scope():
-        for name, call in main_path_calls(ctx, a, b, g):
+        for name, call in main_path_calls(ctx, *tabs):
             t0 = time.perf_counter()
             out, stats = call()
             torch.cuda.synchronize()
@@ -395,12 +499,12 @@ def phase_plain_path(ctx, a, b, g, kernel_results) -> dict:
     return {"walls": walls, "worst_float_diff": worst}
 
 
-def phase_operator_times(ctx, a, b, g, rounds: int = 2) -> dict[str, dict]:
+def phase_operator_times(ctx, tabs, rounds: int = 2) -> dict[str, dict]:
     """Wall ms per operator through the kernels and through the plain
     versions, in turns (plain, kernels, kernels, plain) x ``rounds``;
     medians of the host clock around each synchronised call."""
     out = {}
-    for name, call in main_path_calls(ctx, a, b, g):
+    for name, call in main_path_calls(ctx, *tabs):
         samples = {"kernels": [], "plain": []}
         for _ in range(rounds):
             for mode in ("plain", "kernels", "kernels", "plain"):
@@ -419,16 +523,17 @@ def phase_operator_times(ctx, a, b, g, rounds: int = 2) -> dict[str, dict]:
     return out
 
 
-def phase_profile(ctx, a, b, g, top: int = 8) -> dict[str, dict]:
+def phase_profile(ctx, tabs, top: int = 8) -> dict[str, dict]:
     """One ``torch.profiler`` run of each operator through the kernels: wall
     ms (with the profiler's overhead), the summed device time of its GPU
     kernels, their ratio (the device's busy share; the port uses one
-    stream) and the kernels that took the most device time."""
+    stream), the device time of the port's own CUDA kernels
+    (``PORTED_KERNELS``) and the kernels that took the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
-    for name, call in main_path_calls(ctx, a, b, g):
+    for name, call in main_path_calls(ctx, *tabs):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -444,8 +549,10 @@ def phase_profile(ctx, a, b, g, top: int = 8) -> dict[str, dict]:
                     ev.time_range.elapsed_us() / 1e3
         busy = sum(by_name.values())
         check(busy > 0, f"profile of {name}: no device time recorded")
+        ported = sum(ms for kname, ms in by_name.items()
+                     if any(k in kname for k in PORTED_KERNELS))
         out[name] = {"wall_ms": wall, "device_ms": busy,
-                     "busy_share": busy / wall,
+                     "busy_share": busy / wall, "ported_kernels_ms": ported,
                      "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:top]}
     return out
 
@@ -523,6 +630,27 @@ def phase_timing(dev, rows: int) -> dict[str, dict]:
     out["segment_reduce_tiles"] = dict(
         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
         max_abs_err=float(err))
+
+    # segment_scan: one shard's window input, P x the range bucket (2**21)
+    # = 2**24 slots, int32 values (dense_rank's run starts), ids sorted over
+    # ~2 groups on the first 2**22 rows, then the -1 tail
+    n = P * (4 * rows // P)
+    valid = rows
+    seg = np.full(n, -1, np.int32)
+    seg[:valid] = np.sort(rng.integers(0, 2, valid)).astype(np.int32)
+    seg_t = torch.from_numpy(seg).to(dev)
+    vals = torch.from_numpy(rng.integers(0, 2, n).astype(np.int32)).to(dev)
+    ms = timer(lambda: segment_scan_tiles(vals, seg_t, "sum"))
+    plain = timer(lambda: ref.segment_scan_ref(vals, seg_t, "sum"))
+    # no single PyTorch call computes a segmented scan; torch.cumsum of the
+    # same column is an unsegmented scan over the same bytes
+    cumsum_ms = timer(lambda: torch.cumsum(vals, 0, dtype=torch.int32))
+    bms, by = bound_ms(n * (4 + 4 + 4), n)
+    err = (segment_scan_tiles(vals, seg_t, "sum")
+           - ref.segment_scan_ref(vals, seg_t, "sum")).abs().max()
+    out["segment_scan_tiles"] = dict(
+        ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+        max_abs_err=float(err), cumsum_ms=cumsum_ms, n=n)
     return out
 
 
@@ -555,39 +683,44 @@ def main() -> None:
     rows = ROWS
     ctx = DistContext(num_shards=P)
     t0 = time.perf_counter()
-    a, b, g = make_tables(ctx, rows, dev)
+    tabs = make_tables(ctx, rows, dev)
     torch.cuda.synchronize()
-    say(f"[3] tables: 3 x {P} shards x {rows} rows made in "
+    say(f"[3] tables: {len(tabs)} x {P} shards x {rows} rows made in "
         f"{time.perf_counter() - t0:.1f} s")
-    res, walls, counts, peak = phase_main_path(ctx, a, b, g)
+    res, walls, counts, peaks = phase_main_path(ctx, tabs)
+    peak = max(peaks.values())
     for name, ms in walls.items():
         r = res[name]
         say(f"[3] {name}: {ms:.1f} ms wall, rows {sum(r['row_counts'])}, "
-            f"overflow {r['overflow']}")
+            f"overflow {r['overflow']}, peak {peaks[name] / 2**30:.2f} GiB")
     say(f"[3] peak device memory {peak / 2**30:.2f} GiB; launches {counts}")
     check(all(sum(o) == 0 for r in res.values() for o in r["overflow"]),
           "overflow on the main path")
 
-    plain = phase_plain_path(ctx, a, b, g, res)
+    plain = phase_plain_path(ctx, tabs, res)
     say(f"[4] plain run equal; largest float-sum difference "
         f"{plain['worst_float_diff']:.3g}")
     for name, ms in plain["walls"].items():
         say(f"[4] {name}: plain {ms:.1f} ms wall (kernels {walls[name]:.1f} ms)")
-    op_ms = phase_operator_times(ctx, a, b, g)
+    op_ms = phase_operator_times(ctx, tabs)
     for name, t in op_ms.items():
         say(f"[5] {name}: median {t['kernels']:.1f} ms through the kernels, "
             f"{t['plain']:.1f} ms plain ({t['samples']} runs each, in turns) "
             f"on {card}")
-    prof = phase_profile(ctx, a, b, g)
+    prof = phase_profile(ctx, tabs)
     for name, pr in prof.items():
         say(f"[6] {name}: profiled wall {pr['wall_ms']:.1f} ms, GPU kernels "
-            f"{pr['device_ms']:.1f} ms, busy share {pr['busy_share']:.2f}")
+            f"{pr['device_ms']:.1f} ms, busy share {pr['busy_share']:.2f}, "
+            f"ported kernels {pr['ported_kernels_ms']:.2f} ms")
         for kname, ms in pr["top"]:
             say(f"      {ms:8.2f} ms  {kname[:110]}")
-    del res, a, b, g
+    del res, tabs
     torch.cuda.empty_cache()
 
     times = phase_timing(dev, rows)
+    t = times["segment_scan_tiles"]
+    say(f"[7] torch.cumsum (unsegmented) of segment_scan's column, "
+        f"{t['n']} int32: {t['cumsum_ms']:.4f} ms on {card}")
     kernels = []
     for name, (fn, source, replaces) in KERNELS.items():
         t = times[name]
@@ -601,11 +734,13 @@ def main() -> None:
                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"]})
     say(json.dumps({"main_path": {
-        "rows_per_shard": rows, "peak_bytes": peak,
+        "rows_per_shard": rows, "peak_bytes": peak, "peak_bytes_by_call": peaks,
         "first_run_wall_ms": walls, "first_plain_run_wall_ms": plain["walls"],
         "operator_median_ms": op_ms,
         "profile": {k: {"wall_ms": v["wall_ms"], "device_ms": v["device_ms"],
-                        "busy_share": v["busy_share"]} for k, v in prof.items()},
+                        "busy_share": v["busy_share"],
+                        "ported_kernels_ms": v["ported_kernels_ms"]}
+                    for k, v in prof.items()},
     }}))
     say(json.dumps({"kernels": kernels}))
     say(nvidia_smi())

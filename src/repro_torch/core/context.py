@@ -13,7 +13,8 @@ reference's one-node eager plan resolves to when no table statistics exist
 ``default_bucket_capacity(C, p)`` (slack 2), sort buckets at slack
 ``FALLBACK_SLACK * SORT_SLACK_FACTOR``, join buckets the larger of the two
 sides' and ``out_capacity = JOIN_OUT_FACTOR * p * bucket``, groupby
-``"auto"`` -> ``"two_phase"``, and ``stages=None`` -> ``pick_stages``. So
+``"auto"`` -> ``"two_phase"``, window buckets at the sort's slack, and
+``stages=None`` -> ``pick_stages``. So
 each call returns the rows and :class:`ShuffleStats` the reference's eager
 ``ctx.<op>`` returns. The plan IR, plan cache, fault ladder, result
 validation and async futures are not ported yet.
@@ -287,6 +288,32 @@ class DistContext:
             samples_per_shard=samples_per_shard, report=report, stages=stages,
             shuffle_mode=shuffle_mode)
         part = RangePartitioning(by_t, self.num_shards, fresh_range_fingerprint())
+        return DistTable.from_shards(out, part), st
+
+    def window(self, t: DistTable, by, funcs, *, order_by=(),
+               bucket_capacity=None, samples_per_shard: int = 64,
+               stages: int | None = None, shuffle_mode: str = "alltoall",
+               report: list | None = None):
+        """Distributed window functions (rank/lag/running aggregates).
+
+        Range-partitions on (by + order_by) like :meth:`sort` (the bucket
+        at the sort's no-stats slack), then computes every function with
+        per-shard segment scans plus a boundary-carry ``all_gather`` for
+        groups spanning shards. An eager call always shuffles, as the
+        reference's eager plans do. The result carries a
+        :class:`RangePartitioning` tag on (by + order_by).
+        """
+        by_t = (by,) if isinstance(by, str) else tuple(by)
+        order_t = (order_by,) if isinstance(order_by, str) else tuple(order_by)
+        out, st = D.dist_window(
+            t.shards(), list(by_t), A.normalize_funcs(funcs), mesh=self.mesh,
+            order_by=list(order_t),
+            bucket_capacity=self._bucket(
+                t, bucket_capacity, S.FALLBACK_SLACK * S.SORT_SLACK_FACTOR),
+            samples_per_shard=samples_per_shard, report=report, stages=stages,
+            shuffle_mode=shuffle_mode)
+        part = RangePartitioning(by_t + order_t, self.num_shards,
+                                 fresh_range_fingerprint())
         return DistTable.from_shards(out, part), st
 
 

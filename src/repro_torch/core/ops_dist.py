@@ -1,5 +1,5 @@
 """Distributed relational operators (Cylon Fig. 3): local ops . shuffle.
-The port of ``repro.core.ops_dist`` without the window operator.
+The port of ``repro.core.ops_dist``.
 
 The reference runs each function as one SPMD body inside ``shard_map``; a
 body cannot pause for a collective, so here each function is split at its
@@ -13,6 +13,8 @@ Composition (paper section II-B):
   join                : hash_partition(key) -> AllToAll -> local join
   union/intersect/diff: hash_partition(whole row) -> AllToAll -> local op
   sort (global)       : sample splitters -> range partition -> local sort
+  window              : range partition on (by + order) -> local sort +
+                        segment scans -> boundary-carry all_gather + fold
 
 Every potential shuffle appends one record to ``report``: bucket, bytes per
 row and the dense wire bytes ``p^2 * bucket * row_bytes`` (0 when elided).
@@ -367,3 +369,186 @@ def dist_sort(tables: Sequence[Table], by: Sequence[str] | str, *,
                        seed=0, pids=pids, report=report, label="sort",
                        stages=stages, shuffle_mode=shuffle_mode)
     return [L.sort_by(t, by_l) for t in out], (st,)
+
+
+# ---------------------------------------------------------------------------
+# window functions
+# ---------------------------------------------------------------------------
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of equally shaped nested dicts."""
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _gather_summaries(summaries: Sequence[dict], mesh: VirtualMesh) -> dict:
+    """Every shard's summary -> one tree of ``(p, ...)`` leaves, by one
+    ``all_gather`` per leaf."""
+    return _tree_map(lambda *xs: mesh.all_gather(torch.stack(xs)), *summaries)
+
+
+def _fold_window_carry(gathered, p: int) -> list[dict]:
+    """Left-to-right fold of the all-gathered trailing-group summaries.
+
+    ``gathered`` holds every shard's :func:`ops_agg.window_summary` with a
+    leading (p,) axis on each leaf. Walking shards in global sort order,
+    the running state describes the trailing group of the prefix processed
+    so far; shard i's carry is the state BEFORE shard i is folded in.
+    Returns the p carries. Pure 0-d/(K,) tensor math on gathered data: no
+    host sync, and the only wire traffic was the p-sized all_gather.
+    """
+    def at(k):
+        return _tree_map(lambda x: x[k], gathered)
+
+    dev = gathered["rows"].device
+    eq = A._tuple_eq
+
+    def zero():
+        return torch.zeros((), dtype=torch.int32, device=dev)
+
+    s0 = at(0)
+    state = {
+        "has": torch.zeros((), dtype=torch.bool, device=dev),
+        "key": _tree_map(torch.zeros_like, s0["last_by"]),
+        "last_order": _tree_map(torch.zeros_like, s0["last_order"]),
+        "count": zero(), "runs": zero(), "run_eq": zero(),
+        "sums": _tree_map(torch.zeros_like, s0["sums"]),
+        "maxs": _tree_map(torch.zeros_like, s0["maxs"]),
+        "lag": _tree_map(torch.zeros_like, s0["lag"]),
+    }
+    states = [state]
+    for k in range(p - 1):
+        sk = at(k)
+        nonempty = sk["rows"] > 0
+        one_group = eq(sk["first_by"], sk["last_by"], dev)
+        cont_group = state["has"] & eq(sk["first_by"], state["key"], dev)
+        # the prefix's trailing group extends through shard k only when
+        # shard k is entirely ONE group continuing the carried key;
+        # otherwise shard k's own trailing group replaces the state
+        combine = nonempty & one_group & cont_group
+        cont_run = combine & eq(sk["first_order"], state["last_order"], dev)
+        run_merge = combine & eq(sk["last_order"], state["last_order"], dev)
+        new = {
+            "has": state["has"] | nonempty,
+            "key": dict(sk["last_by"]),
+            "last_order": dict(sk["last_order"]),
+            "count": torch.where(combine, state["count"] + sk["count"],
+                                 sk["count"]),
+            "runs": torch.where(combine, state["runs"] + sk["runs"]
+                                - cont_run.to(torch.int32), sk["runs"]),
+            "run_eq": torch.where(run_merge, state["run_eq"] + sk["run_eq"],
+                                  sk["run_eq"]),
+            "sums": {n: torch.where(combine, state["sums"][n] + v, v)
+                     for n, v in sk["sums"].items()},
+            "maxs": {n: torch.where(combine,
+                                    torch.maximum(state["maxs"][n], v), v)
+                     for n, v in sk["maxs"].items()},
+            "lag": {},
+        }
+        for col, buf in sk["lag"].items():
+            jj = torch.arange(buf.shape[0], dtype=torch.int32, device=dev)
+            prev = A._at(state["lag"][col], jj - sk["count"])
+            new["lag"][col] = torch.where(combine & (jj >= sk["count"]), prev,
+                                          buf)
+        # an empty shard leaves the prefix state untouched
+        state = _tree_map(lambda n, o: torch.where(nonempty, n, o), new, state)
+        states.append(state)
+    return states
+
+
+def _fold_window_lead_carry(gathered, p: int) -> list[dict]:
+    """Right-to-left fold of the heading-group summaries (the lead
+    counterpart of :func:`_fold_window_carry`): shard i's state describes
+    the heading group of shards i+1..p-1."""
+    def at(k):
+        return _tree_map(lambda x: x[k], gathered)
+
+    dev = gathered["rows"].device
+    eq = A._tuple_eq
+    s0 = at(0)
+    state = {"has": torch.zeros((), dtype=torch.bool, device=dev),
+             "key": _tree_map(torch.zeros_like, s0["first_by"]),
+             "head_count": torch.zeros((), dtype=torch.int32, device=dev),
+             "head": _tree_map(torch.zeros_like, s0["head"])}
+    states = [None] * p
+    for k in reversed(range(p)):
+        states[k] = state
+        if k == 0:
+            break
+        sk = at(k)
+        nonempty = sk["rows"] > 0
+        one_group = eq(sk["first_by"], sk["last_by"], dev)
+        cont = state["has"] & eq(sk["last_by"], state["key"], dev)
+        combine = nonempty & one_group & cont
+        new = {
+            "has": state["has"] | nonempty,
+            "key": dict(sk["first_by"]),
+            "head_count": torch.where(combine, sk["rows"] + state["head_count"],
+                                      sk["head_count"]),
+            "head": {},
+        }
+        for col, buf in sk["head"].items():
+            jj = torch.arange(buf.shape[0], dtype=torch.int32, device=dev)
+            nxt = A._at(state["head"][col], jj - sk["rows"])
+            new["head"][col] = torch.where(combine & (jj >= sk["rows"]), nxt,
+                                           buf)
+        state = _tree_map(lambda n, o: torch.where(nonempty, n, o), new, state)
+    return states
+
+
+def dist_window(tables: Sequence[Table], by: Sequence[str] | str, funcs, *,
+                mesh: VirtualMesh, bucket_capacity: int,
+                order_by: Sequence[str] | str = (),
+                samples_per_shard: int = 64, skip_shuffle: bool = False,
+                use_kernel=None, report: list | None = None,
+                stages: int | None = None, shuffle_mode: str = "alltoall"):
+    """Distributed window functions: range partition -> local sort ->
+    per-shard segment scans + cross-shard boundary carry.
+
+    The input is range-partitioned on (by + order_by) like
+    :func:`dist_sort`, so after the local sort every shard holds a
+    contiguous slice of the globally sorted frame. ``skip_shuffle`` is for
+    an input already range-partitioned on a (by + order_by) prefix.
+
+    Groups that span shard boundaries are stitched exactly: each shard
+    publishes its trailing-group state (and heading-group lead values), one
+    ``all_gather`` per leaf of 0-d/(K,) tensors, no AllToAll, and a fold
+    hands every shard the combined carry of all preceding (resp.
+    following) shards. Equal to the single-host ``ops_agg.window`` bit for
+    bit on integer-valued columns.
+    """
+    by_l = [by] if isinstance(by, str) else list(by)
+    order_l = [order_by] if isinstance(order_by, str) else list(order_by)
+    keys = by_l + order_l
+    pairs = A.normalize_funcs(funcs)
+    p = mesh.axis_size
+    A._window_validate(tables[0], by_l, order_l, pairs)
+
+    pids = None if skip_shuffle else _lex_splitter_pids(
+        tables, keys, mesh=mesh, samples_per_shard=samples_per_shard)
+    t2, st = _shuffle(tables, keys, mesh=mesh, bucket_capacity=bucket_capacity,
+                      seed=0, skip=skip_shuffle, pids=pids, report=report,
+                      label="window", stages=stages, shuffle_mode=shuffle_mode)
+    sorted_ts = [L.sort_by(L.pad_empty(t), keys) for t in t2]
+    states = [A.window_state(t, by_l, order_l) for t in sorted_ts]
+
+    carries = lead_carries = [None] * p
+    if p > 1:
+        gathered = _gather_summaries(
+            [A.window_summary(t, s, by_l, order_l, pairs)
+             for t, s in zip(sorted_ts, states)], mesh)
+        carries = _fold_window_carry(gathered, p)
+        if A.carry_requirements(pairs)[3]:
+            lgathered = _gather_summaries(
+                [A.window_lead_summary(t, s, by_l, pairs)
+                 for t, s in zip(sorted_ts, states)], mesh)
+            lead_carries = _fold_window_lead_carry(lgathered, p)
+
+    outs = []
+    for t, s, c, lc in zip(sorted_ts, states, carries, lead_carries):
+        cols = A.window_sorted(t, s, by_l, order_l, pairs, carry=c,
+                               lead_carry=lc, use_kernel=use_kernel)
+        outs.append(Table({**t.columns, **cols}, t.row_count))
+    return outs, (st,)

@@ -62,6 +62,16 @@ def project(table: Table, columns: Sequence[str]) -> Table:
     return Table({k: table.columns[k] for k in columns}, table.row_count)
 
 
+def pad_empty(table: Table) -> Table:
+    """A capacity-0 table padded to one (invalid) zero row, as the
+    reference pads one before a sort or a join; other tables unchanged."""
+    if table.capacity > 0:
+        return table
+    return Table({k: torch.zeros((1,) + v.shape[1:], dtype=v.dtype,
+                                 device=v.device)
+                  for k, v in table.columns.items()}, table.row_count)
+
+
 def head(table: Table, n: int) -> Table:
     cols = {k: v[:n] for k, v in table.columns.items()}
     return Table(cols, torch.clamp(table.row_count, max=n))
@@ -269,14 +279,7 @@ def join(left: Table, right: Table, on: Sequence[str] | str, *,
     if how not in ("inner", "left", "right", "full"):
         raise ValueError(how)
 
-    def _min_cap1(t: Table) -> Table:
-        if t.capacity > 0:
-            return t
-        return Table({k: torch.zeros((1,) + v.shape[1:], dtype=v.dtype,
-                                     device=v.device)
-                      for k, v in t.columns.items()}, t.row_count)
-
-    left, right = _min_cap1(left), _min_cap1(right)
+    left, right = pad_empty(left), pad_empty(right)
     dev = left.device
     c_l, c_r = left.capacity, right.capacity
     if out_capacity is None:

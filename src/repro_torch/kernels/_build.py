@@ -34,6 +34,8 @@ SIGNATURES = {
     "repro_bitonic": [_P, _P, _P, _P, _LL, _I, _P],
     "repro_segment_reduce": [_P, _P, _P, _LL, _I, _I, _I, _P, _P, _P],
     "repro_segment_reduce_rows_per_block": [],
+    "repro_segment_scan": [_P, _P, _P, _LL, _I, _I, _I, _P, _P, _P],
+    "repro_segment_scan_rows_per_block": [],
 }
 
 

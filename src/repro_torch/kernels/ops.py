@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.kernels import bitonic, hash64, histogram, ref
 from repro_torch.kernels import segment_reduce as seg
+from repro_torch.kernels import segment_scan as scan
 from repro_torch.kernels.bitonic import DEFAULT_TILE
 from repro_torch.utils import next_pow2
 
@@ -27,6 +28,7 @@ __all__ = [
     "bucket_histogram",
     "sort_pairs",
     "segment_reduce",
+    "segment_scan",
     "key_max",
     "oracle_scope",
     "oracle_only",
@@ -115,6 +117,39 @@ def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor,
                                         num_segments, op,
                                         contiguous_runs=contiguous_runs)
     return ref.segment_reduce_ref(values, seg_ids, num_segments, op)
+
+
+def segment_scan(values: torch.Tensor, seg_ids: torch.Tensor, op: str = "sum",
+                 *, inclusive: bool = True,
+                 use_kernel: bool | None = None) -> torch.Tensor:
+    """Segmented running sum/min/max along the rows (the window hot path).
+
+    ``out[i] = op(values[j] for j <= i with seg_ids[j] == seg_ids[i])``
+    (strict ``j < i`` when ``inclusive=False``; rows without an in-segment
+    predecessor hold ``ref.seg_init``). seg_ids: (n,) int32 contiguous runs,
+    the sorted-segment layout ``core/ops_agg`` produces, with trailing -1
+    padding allowed. 1-D f32/i32 values go to the kernel;
+    ``use_kernel=False`` and :func:`oracle_scope` take the plain version
+    on whatever device the tensors are; ``use_kernel=True`` with another
+    shape or dtype raises.
+    """
+    if op not in ("sum", "min", "max"):
+        raise ValueError(op)
+    if seg_ids.ndim != 1 or values.shape != seg_ids.shape:
+        raise ValueError(f"shape mismatch {tuple(values.shape)} vs "
+                         f"{tuple(seg_ids.shape)}")
+    shape_ok = values.ndim == 1 and values.dtype in (torch.float32, torch.int32)
+    if use_kernel is None:
+        use_kernel = shape_ok
+    elif use_kernel and not shape_ok:
+        raise ValueError(
+            f"segment_scan kernel needs 1-D f32/i32 values; got "
+            f"shape={tuple(values.shape)} dtype={values.dtype}. Use "
+            f"use_kernel=None for the plain scan.")
+    if use_kernel and not oracle_only():
+        return scan.segment_scan_tiles(values, seg_ids.to(torch.int32), op,
+                                       inclusive=inclusive)
+    return ref.segment_scan_ref(values, seg_ids, op, inclusive)
 
 
 def sort_pairs(keys: torch.Tensor, payload: torch.Tensor, *,

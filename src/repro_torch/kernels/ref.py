@@ -143,3 +143,54 @@ def segment_reduce_ref(values: torch.Tensor, seg_ids: torch.Tensor,
     else:
         raise ValueError(op)
     return out[:num_segments]
+
+
+# ---------------------------------------------------------------------------
+# segmented prefix scan
+# ---------------------------------------------------------------------------
+
+
+def _select_min(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a`` if it is NaN or below ``b``, else ``b``: NaN-propagating, and
+    always one of the two inputs' bit patterns (torch.minimum on the CPU
+    may hand back another NaN)."""
+    return torch.where(torch.isnan(a) | (a < b), a, b)
+
+
+def _select_max(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.where(torch.isnan(a) | (a > b), a, b)
+
+
+_SCAN_OPS = {"sum": torch.add, "min": _select_min, "max": _select_max}
+
+
+def segment_scan_ref(values: torch.Tensor, seg_ids: torch.Tensor,
+                     op: str = "sum", inclusive: bool = True) -> torch.Tensor:
+    """Segmented running sum/min/max over contiguous segment runs.
+
+    ``out[i] = op(values[j] for j <= i with seg_ids[j] == seg_ids[i])``
+    (strict ``j < i`` when ``inclusive=False``; a row with no in-segment
+    predecessor holds :func:`seg_init`). A segment is a maximal run of
+    equal ids, -1 included; min/max propagate NaN, and keep the bits of
+    the first NaN in row order.
+
+    A log-step (Hillis-Steele) scan: for d = 1, 2, 4, ... row i folds in
+    row i-d when both lie in one segment. The runs are contiguous, so that
+    test is exact. Equal to ``repro.kernels.ref.segment_scan_ref`` bit for
+    bit on integer-valued data (float sums there are exact in any order).
+    """
+    f = _SCAN_OPS[op]
+    (n,) = values.shape
+    v = values
+    d = 1
+    while d < n:
+        same = seg_ids[d:] == seg_ids[:-d]
+        v = torch.cat([v[:d], torch.where(same, f(v[:-d], v[d:]), v[d:])])
+        d *= 2
+    if inclusive:
+        return v
+    same_prev = torch.zeros(n, dtype=torch.bool, device=values.device)
+    same_prev[1:] = seg_ids[1:] == seg_ids[:-1]
+    init = torch.full((), seg_init(op, values.dtype), dtype=values.dtype,
+                      device=values.device)
+    return torch.where(same_prev, torch.roll(v, 1, 0), init)

@@ -31,6 +31,15 @@ P = 8
 CAP = 512
 AGGS = {"v": ["sum", "count", "min", "max", "mean", "var", "first"],
         "w": ["max"]}
+# window functions over `a` (v float32, w int32) and over `c` (d0 float32,
+# d1 int32); the offsets 700 and 900 reach past the ~512 rows a shard holds
+WIN_A = ["rank", "dense_rank", "row_number", ("lag", "v"), ("lead", "v", 2),
+         ("cumsum", "v"), ("cumsum", "w"), ("cummax", "v"),
+         ("running_mean", "v")]
+WIN_C = ["rank", "dense_rank", "row_number", ("lag", "d0"), ("lead", "d0"),
+         ("lag", "d1", 3), ("lead", "d1", 2), ("lag", "d0", 700),
+         ("lead", "d1", 900), ("cumsum", "d0"), ("cumsum", "d1"),
+         ("cummax", "d0"), ("cummax", "d1"), ("running_mean", "d0")]
 
 # name -> (method, input tables, positional args, keyword args)
 CASES = {
@@ -47,6 +56,12 @@ CASES = {
     "repartition_s1": ("partition_by", ("a",), ("k",), {"stages": 1}),
     "repartition_s3": ("partition_by", ("a",), ("k",), {"stages": 3}),
     "repartition_ring": ("partition_by", ("a",), ("k",), {"shuffle_mode": "ring"}),
+    # ties on (k, w), many groups
+    "window_ties": ("window", ("a",), ("k", WIN_A), {"order_by": "w"}),
+    # 3 groups, unique order: groups span shards, whole shards are one group
+    "window_spanning": ("window", ("c",), ("k", WIN_C), {"order_by": "o"}),
+    "window_ring": ("window", ("c",), ("k", WIN_C),
+                    {"order_by": "o", "shuffle_mode": "ring"}),
 }
 
 
@@ -54,7 +69,8 @@ def inputs() -> dict[str, list[tuple[dict, int]]]:
     """Per-shard (columns, valid rows) for each input table; garbage rows
     past the count on purpose."""
     out = {}
-    for ti, name in enumerate(("a", "b", "s1", "s2")):
+    order = np.random.default_rng(99).permutation(P * CAP).astype(np.int32)
+    for ti, name in enumerate(("a", "b", "s1", "s2", "c")):
         parts = []
         for i in range(P):
             r = np.random.default_rng([ti, i])
@@ -62,6 +78,11 @@ def inputs() -> dict[str, list[tuple[dict, int]]]:
                 cols = {"k": r.integers(0, 600, CAP).astype(np.int32),
                         "v": r.integers(-40, 40, CAP).astype(np.float32),
                         "w": r.integers(0, 5, CAP).astype(np.int32)}
+            elif name == "c":
+                cols = {"k": r.integers(0, 3, CAP).astype(np.int32),
+                        "o": order[i * CAP:(i + 1) * CAP],
+                        "d0": r.integers(-50, 50, CAP).astype(np.float32),
+                        "d1": r.integers(-9, 9, CAP).astype(np.int32)}
             else:
                 cols = {"x": r.integers(0, 6, CAP).astype(np.int32),
                         "y": r.integers(0, 4, CAP).astype(np.float32)}
@@ -247,7 +268,8 @@ def _chip_smoke():
 def test_chip_smoke_cpu_rehearsal_drives_the_main_path():
     """chip_smoke.py's main-path calls and its comparison of a run against
     the ``oracle_scope()`` run, at 8 x 1024 rows on the CPU (plain versions
-    on both sides, so equal bit for bit)."""
+    on both sides, so equal bit for bit). The window's output is also held
+    against the one-host window of all rows."""
     import importlib.util
 
     from repro_torch.core.context import DistContext
@@ -259,20 +281,41 @@ def test_chip_smoke_cpu_rehearsal_drives_the_main_path():
     spec.loader.exec_module(smoke)
     cpu = torch.device("cpu")
     ctx = DistContext(num_shards=P, device=cpu)
-    a, b, g = smoke.make_tables(ctx, 1024, cpu)
+    tabs = smoke.make_tables(ctx, 1024, cpu)
     names = []
-    for name, call in smoke.main_path_calls(ctx, a, b, g):
+    for name, call in smoke.main_path_calls(ctx, *tabs):
         got = smoke.summarize(*call())
         with kops.oracle_scope():
             want = smoke.summarize(*call())
         assert smoke.compare_results(name, got, want) == 0.0
         assert sum(got["row_counts"]) > 0
+        if name == "window":
+            _window_matches_one_host(smoke, tabs[3], got)
         names.append(name)
     assert names == ["join_sort", "join_hash", "groupby_two_phase",
-                     "groupby_shuffle", "sort"]
+                     "groupby_shuffle", "sort", "window"]
     with pytest.raises(smoke.CheckFailed):
         bad = dict(got, row_counts=got["row_counts"][::-1] + [1])
         smoke.compare_results("sort", bad, want)
+    with pytest.raises(smoke.CheckFailed):  # one row's value off
+        rows = dict(got["rows"], d0_cumsum=got["rows"]["d0_cumsum"].clone())
+        rows["d0_cumsum"][7] += 1
+        smoke.compare_results("window", dict(got, rows=rows), got)
+
+
+def _window_matches_one_host(smoke, w, got):
+    """The 8-shard window's rows, in shard order, equal the local window
+    of all the rows, and groups span shards."""
+    from repro_torch.core import ops_agg as TA
+
+    whole = TA.window(w.to_table(), "k", smoke.WINDOW_FUNCS, order_by="o")
+    want = whole.to_numpy()
+    assert sorted(got["rows"]) == sorted(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got["rows"][k].numpy(), v, err_msg=k)
+    counts = np.asarray(got["row_counts"])
+    starts = (np.cumsum(counts) - counts)[counts > 0]
+    assert (want["row_number"][starts] > 1).sum() >= 3  # shards start mid-group
 
 
 def test_chip_smoke_without_a_card_fails_with_no_result():

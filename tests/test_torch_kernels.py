@@ -20,12 +20,14 @@ from repro.kernels.bitonic import bitonic_sort_tiles as j_bitonic  # noqa: E402
 from repro.kernels.hash64 import hash32 as j_hash32  # noqa: E402
 from repro.kernels.histogram import bucket_histogram as j_hist  # noqa: E402
 from repro.kernels.segment_reduce import segment_reduce_tiles as j_seg  # noqa: E402
+from repro.kernels.segment_scan import segment_scan_tiles as j_scan  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.bitonic import bitonic_sort_tiles  # noqa: E402
 from repro_torch.kernels.hash64 import hash32  # noqa: E402
 from repro_torch.kernels.histogram import bucket_histogram  # noqa: E402
 from repro_torch.kernels.segment_reduce import segment_reduce_tiles  # noqa: E402
+from repro_torch.kernels.segment_scan import segment_scan_tiles  # noqa: E402
 from repro_torch.utils import resolve_device  # noqa: E402
 
 
@@ -195,12 +197,78 @@ def test_seg_init_matches_reference():
             assert tref.seg_init(op, t) == jref.seg_init(op, j).item()
 
 
+# --- segment_scan ---------------------------------------------------------------
+
+
+def _scan_ids(n, seed, tail=True):
+    """Sorted segment ids (runs of random length), then a -1 tail."""
+    r = _rng(seed)
+    ids = np.sort(r.integers(0, max(1, n // 9), n)).astype(np.int32)
+    if tail:
+        ids[n - n // 4:] = -1
+    return ids
+
+
+@pytest.mark.parametrize("n", [1, 1000, 3000])
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+@pytest.mark.parametrize("inclusive", [True, False])
+def test_segment_scan_plain_matches_pallas_and_ref(n, op, dtype, inclusive):
+    vals = _rng(n).integers(-1000, 1000, n).astype(dtype)  # integer-valued
+    if dtype == np.float32 and op != "sum" and n > 10:
+        vals[[3, n // 2]] = np.nan  # min/max propagate NaN
+    seg = _scan_ids(n, seed=n + 1)
+    got = segment_scan_tiles(torch.from_numpy(vals), torch.from_numpy(seg), op,
+                             inclusive=inclusive)
+    assert got.dtype == torch.from_numpy(vals).dtype
+    pallas = j_scan(jnp.asarray(vals), jnp.asarray(seg), op, inclusive=inclusive,
+                    interpret=True)
+    oracle = jref.segment_scan_ref(jnp.asarray(vals), jnp.asarray(seg), op,
+                                   inclusive)
+    bits = np.int32 if dtype == np.float32 else dtype
+    for want in (pallas, oracle):
+        np.testing.assert_array_equal(got.numpy().view(bits),
+                                      np.asarray(want).view(bits))
+    via_ops = tops.segment_scan(torch.from_numpy(vals), torch.from_numpy(seg), op,
+                                inclusive=inclusive, use_kernel=False)
+    np.testing.assert_array_equal(via_ops.numpy().view(bits), got.numpy().view(bits))
+
+
+def test_segment_scan_int32_sum_wraps_like_the_reference():
+    vals = np.full(64, 2**30, np.int32)
+    seg = np.zeros(64, np.int32)
+    got = tops.segment_scan(torch.from_numpy(vals), torch.from_numpy(seg), "sum")
+    want = jref.segment_scan_ref(jnp.asarray(vals), jnp.asarray(seg), "sum")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_segment_scan_seam_checks():
+    v = torch.zeros(8, 2)
+    seg = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError):  # N-D values: no kernel
+        tops.segment_scan(v, seg, "sum", use_kernel=True)
+    with pytest.raises(ValueError):
+        tops.segment_scan(v[:, 0], seg[:4], "sum")
+    with pytest.raises(ValueError):
+        tops.segment_scan(v[:, 0], seg, "prod")
+    with pytest.raises(TypeError):  # the kernel takes f32/i32 only
+        segment_scan_tiles(torch.zeros(8, dtype=torch.int64), seg)
+    with pytest.raises(TypeError):  # int32 ids of the values' shape
+        segment_scan_tiles(v[:, 0], seg.to(torch.int64))
+    # the plain scan takes any dtype
+    got = tops.segment_scan(torch.arange(6, dtype=torch.int64),
+                            torch.tensor([0, 0, 1, 1, 1, -1], dtype=torch.int32),
+                            "sum")
+    assert got.tolist() == [0, 1, 2, 5, 9, 5]
+
+
 # --- devices, counters, oracle scope ------------------------------------------
 
 
 def test_cpu_tensors_launch_nothing_and_oracle_scope_nests():
     before = (hash32.launches, bucket_histogram.launches,
-              bitonic_sort_tiles.launches, segment_reduce_tiles.launches)
+              bitonic_sort_tiles.launches, segment_reduce_tiles.launches,
+              segment_scan_tiles.launches)
     x = torch.arange(10, dtype=torch.int32)
     assert not tops.oracle_only()
     with tops.oracle_scope():
@@ -210,8 +278,10 @@ def test_cpu_tensors_launch_nothing_and_oracle_scope_nests():
         tops.hash_columns([x])
     assert not tops.oracle_only()
     tops.bucket_histogram(x, 4)
+    tops.segment_scan(x, torch.zeros(10, dtype=torch.int32), "max")
     assert before == (hash32.launches, bucket_histogram.launches,
-                      bitonic_sort_tiles.launches, segment_reduce_tiles.launches)
+                      bitonic_sort_tiles.launches, segment_reduce_tiles.launches,
+                      segment_scan_tiles.launches)
 
 
 def test_cuda_request_without_a_card_raises():
@@ -274,3 +344,25 @@ def test_cuda_segment_reduce_matches_plain(cuda, g, op):
         assert torch.equal(
             segment_reduce_tiles(vals, seg, g, op, contiguous_runs=True),
             tref.segment_reduce_ref(vals, seg, g, op))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_cuda_segment_scan_matches_plain(cuda, op):
+    r = _rng(5)
+    # block edges (4096 rows a block), one run across many blocks, all
+    # singletons, random runs with a -1 tail starting mid-block
+    for n in (4095, 4096, 4097, (1 << 22) + 3):
+        for ids in (np.zeros(n), np.arange(n), _scan_ids(n, seed=n)):
+            seg = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+            for dtype in (np.float32, np.int32):
+                vals = r.integers(-99, 99, n).astype(dtype)
+                if dtype == np.float32 and op != "sum":
+                    vals[r.integers(0, n, 3)] = np.nan
+                v = torch.from_numpy(vals).to(cuda)
+                for inclusive in (True, False):
+                    got = segment_scan_tiles(v, seg, op, inclusive=inclusive)
+                    want = tref.segment_scan_ref(v, seg, op, inclusive)
+                    bits = torch.int32
+                    assert torch.equal(got.view(bits), want.view(bits)), \
+                        (n, dtype, inclusive)
