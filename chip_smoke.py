@@ -36,13 +36,40 @@ Phases (any failed check raises, and the script exits nonzero):
    column is printed beside it instead), and the least time the card
    could take (``bound_ms``).
 
-It prints one JSON line with the main path's numbers, one with every
-kernel's, then the nvidia-smi line, then ``{"ok": true, "device": {...}}``
-as the last line. Without a card it exits 2 and prints no result.
+Then, with the relational tables freed, the serving path (the LM slice):
+
+8. llama3-8b at full width and depth (random bf16 weights from a
+   ``torch.Generator`` seeded 0) serves 4 prompts of 1024 token ids (a
+   seeded numpy rng, as the launcher makes them) and 32 greedy tokens each
+   through ``launch.serve.generate``. The counts are zeroed just before
+   and read just after: flash_attention launched once a layer (32), by the
+   prefill; a decode step launches it never. Every logit finite.
+9. The same prompts under ``oracle_scope()`` (the plain attention on the
+   card), the kernel run's tokens teacher-forced: prefill's and every
+   decode step's logits within ``LM_TOL`` of the kernel run's, and the
+   greedy token (the first and every step's) equal wherever the kernel
+   run's top-2 margin exceeds it. Then the serving invariant of
+   ``tests/test_serve.py``: prefill + decode logits against one causal
+   forward over prompt + generated tokens (1055 rows, through the
+   kernel), within ``LM_TOL``.
+10. Serving times: prefill median ms, decode ms a token, tokens/s, peak
+   device memory, and one ``torch.profiler`` trace of a prefill and of
+   decode steps (busy share, flash's device ms, the largest kernels, the
+   torch ops the host dispatched).
+Phase 2 also holds flash_attention against its plain version (S 1 to
+4096, causal or not, group size 1 and 4, hd 64 and 128, fp32 and bf16,
+scores up to +-1e4); phase 7 times it at the path's shape beside
+``F.scaled_dot_product_attention`` (``library_ms``).
+
+It prints one JSON line with the main path's numbers, one with the serving
+path's, one with every kernel's, then the nvidia-smi line, then
+``{"ok": true, "device": {...}}`` as the last line. Without a card it exits
+2 and prints no result.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -51,9 +78,11 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import ops_local as L  # noqa: E402
 from repro_torch.core.context import DistContext, DistTable  # noqa: E402
 from repro_torch.core.mesh import VirtualMesh  # noqa: E402
@@ -64,10 +93,14 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.bitonic import bitonic_sort_tiles  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.hash64 import hash32  # noqa: E402
 from repro_torch.kernels.histogram import bucket_histogram  # noqa: E402
 from repro_torch.kernels.segment_reduce import segment_reduce_tiles  # noqa: E402
 from repro_torch.kernels.segment_scan import segment_scan_tiles  # noqa: E402
+from repro_torch.launch.serve import generate, prompts  # noqa: E402
+from repro_torch.models.factory import build_model  # noqa: E402
+from repro_torch.train.steps import make_decode_step, make_prefill_step  # noqa: E402
 
 P = 8
 ROWS = 1 << 22  # rows per shard: 8 x 4 Mi rows, 512 MiB a table
@@ -76,10 +109,23 @@ WINDOW_FUNCS = ["rank", "dense_rank", "row_number", ("lag", "d0"),
                 ("lead", "d0"), ("lag", "d1", 3), ("lead", "d1", 2),
                 ("cumsum", "d0"), ("cummax", "d0"), ("cummax", "d1"),
                 ("running_mean", "d0")]
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the float32 rate
-# outside the tensor cores, used for 32-bit scalar integer/float ops.
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, the float32 rate
+# outside the tensor cores (32-bit scalar integer/float ops), and the dense
+# bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+TENSOR_BF16_OPS_PER_S = 989e12
+# the serving path: llama3-8b, 4 prompts of 1024 tokens, 32 greedy tokens
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "llama3-8b", 4, 1024, 32
+# Logits of two runs of the serving path that differ only in how prefill
+# attention rounds (the kernel rounds its probabilities to bf16 for the
+# tensor-core p v, the plain version keeps fp32, the decode einsums round
+# scores and probabilities to bf16) are held within 0.05 absolute: the
+# logits have std ~0.18 and reach ~1, where a bf16 ulp is 2^-8 = 0.0039,
+# and 32 layers carry the rounding of each attention output forward. A
+# wrong mask or a wrong head moves logits by their own scale (~0.2), four
+# times this.
+LM_TOL = 0.05
 
 KERNELS = {
     "hash32": (hash32, "src/repro_torch/kernels/csrc/hash32.cu",
@@ -96,14 +142,20 @@ KERNELS = {
     "segment_scan_tiles": (segment_scan_tiles,
                            "src/repro_torch/kernels/csrc/segment_scan.cu",
                            "src/repro/kernels/segment_scan.py:101"),
+    "flash_attention": (flash_attention,
+                        "src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:78"),
 }
+# the relational main path's kernels; flash_attention is the serving path's
+RELATIONAL = ("hash32", "bucket_histogram", "bitonic_sort_tiles",
+              "segment_reduce_tiles", "segment_scan_tiles")
 
 
 # the __global__ functions of src/repro_torch/kernels/csrc/*.cu, as the
 # profiler names them
 PORTED_KERNELS = ("hash32_kernel", "hist_global", "hist_shared", "bitonic_tile",
                   "seg_fill", "seg_pass1", "seg_pass2", "scan_reduce",
-                  "scan_carry", "scan_apply")
+                  "scan_carry", "scan_apply", "flash_fwd_bf16", "flash_fwd_f32")
 
 
 class CheckFailed(RuntimeError):
@@ -164,8 +216,9 @@ class Timer:
         return statistics.median(times)
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    tb, to = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
+def bound_ms(nbytes: float, ops: float,
+             ops_per_s: float = SCALAR_OPS_PER_S) -> tuple[float, str]:
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
@@ -254,6 +307,7 @@ def phase_kernels(dev) -> None:
                       ref.segment_reduce_ref(empty, seg[:0], 3, "min")),
           "segment_reduce empty")
     check_segment_scan(dev, rng)
+    check_flash(dev, rng)
     torch.cuda.synchronize()
 
 
@@ -304,6 +358,43 @@ def check_segment_scan(dev, rng) -> None:
         check(torch.equal(segment_scan_tiles(v, seg, "sum", inclusive=inclusive),
                           ref.segment_scan_ref(v, seg, "sum", inclusive)),
               f"segment_scan int32 wrap inclusive={inclusive}")
+
+
+def check_flash(dev, rng) -> None:
+    """flash_attention against attention_ref on the card: S at and around
+    the 64-row tiles and long (1, 63, 64, 65, 1024, 4096), causal or not,
+    group size 1 and 4, hd 64 and 128, B up to 4, fp32 within 2e-5 and
+    bf16 within 2e-2 (``tests/test_kernels.py``'s tolerances: the softmax
+    sums run in another order, and bf16 outputs of ~[2, 4) round one ulp,
+    2^-6, apart); one case with scores scaled to +-1e4 (the online
+    softmax's rescaling); the same bits on a second run."""
+    def qkv(b, s, h, kv, hd, dtype, scale=1.0):
+        def x(*shape, sc=1.0):
+            a = rng.standard_normal(shape).astype(np.float32) * sc
+            return torch.from_numpy(a).to(dev, dtype)
+        return x(b, s, h, hd, sc=scale), x(b, s, kv, hd), x(b, s, kv, hd)
+
+    cases = [(b, s, h, kv, hd, causal, 1.0)
+             for hd in (64, 128) for causal in (True, False)
+             for s, b in ((1, 4), (63, 3), (64, 2), (65, 4), (1024, 2),
+                          (4096, 1))
+             for h, kv in ((8, 8), (8, 2))]
+    # q ~ N(0, 1e8), k ~ N(0, 1): scores q.k / sqrt(hd) ~ N(0, 1e8)
+    cases.append((1, 130, 8, 2, 128, True, 1e4))
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        for b, s, h, kv, hd, causal, scale in cases:
+            q, k, v = qkv(b, s, h, kv, hd, dtype, scale)
+            got = flash_attention(q, k, v, causal=causal)
+            want = ref.attention_ref(q, k, v, causal=causal)
+            name = (f"flash {dtype} B={b} S={s} H={h} KV={kv} hd={hd} "
+                    f"causal={causal} q scale {scale:g}")
+            check(torch.allclose(got, want, atol=tol, rtol=tol),
+                  f"{name}: differs by {float((got - want).abs().max())}")
+            check(torch.equal(got, flash_attention(q, k, v, causal=causal)),
+                  f"{name}: bits differ between two runs")
+    # the scores of the last case reach past +-1e4
+    top = torch.einsum("bsd,btd->bst", q[:, :, 0].float(), k[:, :, 0].float())
+    check(float(top.abs().max()) / math.sqrt(128) > 1e4, "flash: scores < 1e4")
 
 
 def phase_semantics(dev) -> None:
@@ -470,8 +561,8 @@ def phase_main_path(ctx, tabs):
         results[name] = summarize(out, stats)
         del out, stats
     counts = launches()
-    for k, v in counts.items():
-        check(v > 0, f"kernel {k} was not launched on the main path")
+    for k in RELATIONAL:
+        check(counts[k] > 0, f"kernel {k} was not launched on the main path")
     # the window's six scans a shard (dense_rank, rank, cumsum,
     # running_mean, two cummax) are the only segment_scan launches
     check(counts["segment_scan_tiles"] == 6 * P,
@@ -524,37 +615,44 @@ def phase_operator_times(ctx, tabs, rounds: int = 2) -> dict[str, dict]:
 
 
 def phase_profile(ctx, tabs, top: int = 8) -> dict[str, dict]:
-    """One ``torch.profiler`` run of each operator through the kernels: wall
-    ms (with the profiler's overhead), the summed device time of its GPU
-    kernels, their ratio (the device's busy share; the port uses one
-    stream), the device time of the port's own CUDA kernels
-    (``PORTED_KERNELS``) and the kernels that took the most device time."""
+    """One :func:`profiled` run of each operator through the kernels."""
+    return {name: profiled(name, call, top)
+            for name, call in main_path_calls(ctx, *tabs)}
+
+
+def profiled(name: str, call, top: int = 8) -> dict:
+    """One ``torch.profiler`` run of ``call``: wall ms (with the profiler's
+    overhead), the summed device time of its GPU kernels, their ratio (the
+    device's busy share; the port uses one stream), the device time of the
+    port's own CUDA kernels (``PORTED_KERNELS``) and the kernels that took
+    the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    out = {}
-    for name, call in main_path_calls(ctx, *tabs):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = call()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            res = call()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        del res
-        by_name: dict[str, float] = {}
-        for ev in prof.events():
-            if ev.device_type == DeviceType.CUDA:
-                by_name[ev.name] = by_name.get(ev.name, 0.0) + \
-                    ev.time_range.elapsed_us() / 1e3
-        busy = sum(by_name.values())
-        check(busy > 0, f"profile of {name}: no device time recorded")
-        ported = sum(ms for kname, ms in by_name.items()
-                     if any(k in kname for k in PORTED_KERNELS))
-        out[name] = {"wall_ms": wall, "device_ms": busy,
-                     "busy_share": busy / wall, "ported_kernels_ms": ported,
-                     "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:top]}
-    return out
+        wall = (time.perf_counter() - t0) * 1e3
+    del res
+    by_name: dict[str, float] = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + \
+                ev.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    check(busy > 0, f"profile of {name}: no device time recorded")
+    ported = sum(ms for kname, ms in by_name.items()
+                 if any(k in kname for k in PORTED_KERNELS))
+    # torch ops the host dispatched (top-level: not those inside another op)
+    host_ops = sum(1 for ev in prof.events() if ev.device_type ==
+                   DeviceType.CPU and ev.cpu_parent is None and
+                   ev.name.startswith("aten::"))
+    return {"wall_ms": wall, "device_ms": busy, "busy_share": busy / wall,
+            "ported_kernels_ms": ported, "host_ops": host_ops,
+            "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:top]}
 
 
 # ---------------------------------------------------------------------------
@@ -651,7 +749,179 @@ def phase_timing(dev, rows: int) -> dict[str, dict]:
     out["segment_scan_tiles"] = dict(
         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
         max_abs_err=float(err), cumsum_ms=cumsum_ms, n=n)
+
+    # flash_attention: one layer of the serving path's prefill, llama3-8b's
+    # heads over 4 x 1024 tokens, bf16, causal
+    cfg = get_config(LM_ARCH)
+    b, s, h, kv, hd = LM_BATCH, LM_PROMPT, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    g = torch.Generator(device=dev).manual_seed(12)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+               for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+    ms = timer(lambda: flash_attention(q, k, v))
+    plain = timer(lambda: ref.attention_ref(q, k, v))
+    # the port never calls SDPA: it is timed here as the yardstick
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = timer(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    # q, k, v read once and out written once; the products of the
+    # s (s + 1) / 2 unmasked (query, key) pairs: 2 hd for q k and 2 hd for
+    # p v each, on the bf16 tensor cores
+    bms, by = bound_ms(2 * (2 * q.numel() + k.numel() + v.numel()),
+                       4 * b * h * hd * s * (s + 1) / 2, TENSOR_BF16_OPS_PER_S)
+    want = ref.attention_ref(q, k, v)
+    lib_out = F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+    out["flash_attention"] = dict(
+        ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+        max_abs_err=float((flash_attention(q, k, v) - want).float().abs().max()),
+        library_max_abs_err=float((lib_out - want).float().abs().max()))
     return out
+
+
+# ---------------------------------------------------------------------------
+# phases 8-10: the serving path (llama3-8b), through the kernel and plain
+# ---------------------------------------------------------------------------
+
+
+def logit_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def phase_serve(dev):
+    """Phase 8: the model at full width and depth, and one ``generate``
+    through the kernel, the counts zeroed just before and read just after;
+    then one more decode step, which must launch nothing."""
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = prompts(cfg, LM_BATCH, LM_PROMPT, 0, dev)
+    torch.cuda.reset_peak_memory_stats()
+    set_launches(0)
+    gen = generate(model, tokens, LM_GEN, keep_logits=True)
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(counts["flash_attention"] == cfg.num_layers,
+          f"flash_attention launched {counts['flash_attention']} times in "
+          f"generate, want {cfg.num_layers} (once a layer, in the prefill)")
+    check(all(counts[k] == 0 for k in RELATIONAL), f"serving launched {counts}")
+    check(tuple(gen.tokens.shape) == (LM_BATCH, LM_GEN), "generated shape")
+    check(bool(((gen.tokens >= 0) & (gen.tokens < cfg.padded_vocab)).all()),
+          "generated token ids out of range")
+    check(tuple(gen.logits[0].shape) == (LM_BATCH, cfg.padded_vocab) and
+          all(tuple(x.shape) == (LM_BATCH, cfg.vocab_size)
+              for x in gen.logits[1:]), "logits shapes")
+    check(all(bool(torch.isfinite(x).all()) for x in gen.logits),
+          "non-finite logits on the serving path")
+    set_launches(0)
+    with torch.no_grad():
+        last, _ = make_decode_step(model)(gen.cache, gen.tokens[:, -1:],
+                                          LM_PROMPT + LM_GEN - 1)
+    check(launches()["flash_attention"] == 0, "a decode step launched flash")
+    check(bool(torch.isfinite(last).all()), "non-finite decode logits")
+    gen.cache = None
+    return model, tokens, gen, counts, peak, init_s, n_params
+
+
+def phase_serve_plain(model, tokens, gen) -> dict:
+    """Phase 9: the plain run teacher-forced with the kernel run's tokens,
+    and the serving invariant against one causal forward."""
+    cfg = model.cfg
+    set_launches(0)
+    with kops.oracle_scope():
+        plain = generate(model, tokens, LM_GEN, forced=gen.tokens,
+                         keep_logits=True)
+    check(all(v == 0 for v in launches().values()),
+          f"plain serving run launched kernels: {launches()}")
+    plain_errs = [logit_err(a, b) for a, b in zip(gen.logits, plain.logits)]
+    check(max(plain_errs) <= LM_TOL,
+          f"serving logits differ from the plain run by {max(plain_errs)}")
+    # greedy tokens: with random weights the top-2 margins sit near bf16's
+    # resolution, so a token is held equal only where the kernel run's
+    # margin exceeds the tolerance; teacher forcing makes every step's
+    # token comparable, not only the first
+    margins = torch.stack([(lambda t: t[:, 0] - t[:, 1])(
+        torch.topk(x.float(), 2, dim=-1).values) for x in gen.logits], 1)
+    sure = margins > LM_TOL
+    check(torch.equal(gen.tokens[sure], plain.tokens[sure]),
+          f"a greedy token differs from the plain run where the margin "
+          f"exceeds {LM_TOL}")
+    same_plain = int((gen.tokens == plain.tokens).sum())
+    del plain
+
+    seq = torch.cat([tokens, gen.tokens[:, :LM_GEN - 1]], 1)
+    set_launches(0)
+    with torch.no_grad():
+        full, _, _ = model.forward(tokens=seq)
+    check(launches()["flash_attention"] == cfg.num_layers,
+          "the causal forward did not run flash once a layer")
+    rows = full[:, LM_PROMPT - 1:, :cfg.vocab_size]
+    del full
+    inv_errs = [logit_err(g[:, :cfg.vocab_size], rows[:, i])
+                for i, g in enumerate(gen.logits)]
+    check(max(inv_errs) <= LM_TOL,
+          f"prefill + decode differ from the causal forward by {max(inv_errs)}")
+    same = int((rows.argmax(-1).to(torch.int32) == gen.tokens).sum())
+    return {"plain_max_abs_err": max(plain_errs),
+            "plain_err_by_step": plain_errs,
+            "first_token_margins": margins[:, 0].tolist(),
+            "tokens_checked": int(sure.sum()),
+            "plain_same_greedy_tokens": same_plain,
+            "causal_max_abs_err": max(inv_errs),
+            "causal_err_by_step": inv_errs,
+            "causal_same_greedy_tokens": same}
+
+
+def phase_serve_times(model, tokens, reps: int = 5) -> dict:
+    """Phase 10: prefill median ms (host clock around a synchronised call),
+    decode ms a token and tokens/s (medians of three ``generate`` runs)."""
+    prefill = make_prefill_step(model, LM_PROMPT + LM_GEN)
+    walls = []
+    with torch.no_grad():
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = prefill({"tokens": tokens})
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            del res
+    decode_ms, decode_tok_s, e2e_tok_s = [], [], []
+    for _ in range(3):
+        g = generate(model, tokens, LM_GEN)
+        decode_ms.append(g.decode_s / (LM_GEN - 1) * 1e3)
+        decode_tok_s.append(LM_BATCH * (LM_GEN - 1) / g.decode_s)
+        e2e_tok_s.append(LM_BATCH * LM_GEN / (g.prefill_s + g.decode_s))
+        del g
+    return {"prefill_ms": statistics.median(walls), "prefill_runs": reps,
+            "decode_ms_per_token": statistics.median(decode_ms),
+            "decode_tokens_per_s": statistics.median(decode_tok_s),
+            "end_to_end_tokens_per_s": statistics.median(e2e_tok_s)}
+
+
+def phase_serve_profile(model, tokens, steps: int = 8) -> dict:
+    """Phase 10's traces: one prefill, then ``steps`` decode steps."""
+    prefill = make_prefill_step(model, LM_PROMPT + LM_GEN)
+    decode = make_decode_step(model)
+    held = {}
+
+    def run_prefill():
+        with torch.no_grad():
+            held["logits"], held["cache"] = prefill({"tokens": tokens})
+
+    def run_decode():
+        tok = torch.argmax(held["logits"], -1)[:, None].to(torch.int32)
+        with torch.no_grad():
+            for i in range(steps):
+                logits, _ = decode(held["cache"], tok, LM_PROMPT + i)
+                tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+
+    # the serving path launches no ported kernel but flash (phase 8's
+    # counts), so ``ported_kernels_ms`` is flash's device time
+    return {"prefill": profiled("prefill", run_prefill),
+            f"decode x{steps}": profiled("decode", run_decode)}
 
 
 # ---------------------------------------------------------------------------
@@ -721,18 +991,70 @@ def main() -> None:
     t = times["segment_scan_tiles"]
     say(f"[7] torch.cumsum (unsegmented) of segment_scan's column, "
         f"{t['n']} int32: {t['cumsum_ms']:.4f} ms on {card}")
+    say(f"[7] flash_attention: SDPA's output differs from the plain version's "
+        f"by {times['flash_attention']['library_max_abs_err']:.4g}")
+    torch.cuda.empty_cache()
+
+    model, tokens, gen, lm_counts, lm_peak, init_s, n_params = phase_serve(dev)
+    say(f"[8] {LM_ARCH}: {n_params} parameters drawn in {init_s:.1f} s; "
+        f"{LM_BATCH} x {LM_PROMPT}-token prompts, {LM_GEN} greedy tokens: "
+        f"prefill {gen.prefill_s * 1e3:.1f} ms, decode "
+        f"{gen.decode_s / (LM_GEN - 1) * 1e3:.2f} ms a token (first run); "
+        f"peak {lm_peak / 2**30:.2f} GiB; launches {lm_counts}; a decode step "
+        f"launches none")
+    say(f"[8] generated (first row): {gen.tokens[0].tolist()}")
+    agree = phase_serve_plain(model, tokens, gen)
+    say(f"[9] plain run, teacher-forced: logits within "
+        f"{agree['plain_max_abs_err']:.4g} (tolerance {LM_TOL}); greedy "
+        f"tokens equal on all {agree['tokens_checked']} of "
+        f"{LM_BATCH * LM_GEN} with a top-2 margin > {LM_TOL}, and on "
+        f"{agree['plain_same_greedy_tokens']} in all; first tokens' margins "
+        f"{[round(m, 4) for m in agree['first_token_margins']]}")
+    say(f"[9] prefill + decode vs one causal forward over "
+        f"{LM_PROMPT + LM_GEN - 1} tokens: within "
+        f"{agree['causal_max_abs_err']:.4g} (tolerance {LM_TOL}); its greedy "
+        f"tokens equal on {agree['causal_same_greedy_tokens']} of "
+        f"{LM_BATCH * LM_GEN}")
+    del gen
+    serve_times = phase_serve_times(model, tokens)
+    say(f"[10] prefill median {serve_times['prefill_ms']:.2f} ms, decode "
+        f"{serve_times['decode_ms_per_token']:.3f} ms a token, "
+        f"{serve_times['decode_tokens_per_s']:.1f} tokens/s decoding, "
+        f"{serve_times['end_to_end_tokens_per_s']:.1f} tokens/s end to end, "
+        f"peak {lm_peak / 2**30:.2f} GiB on {card}")
+    serve_prof = phase_serve_profile(model, tokens)
+    for name, pr in serve_prof.items():
+        say(f"[10] {name}: profiled wall {pr['wall_ms']:.1f} ms, GPU kernels "
+            f"{pr['device_ms']:.2f} ms, busy share {pr['busy_share']:.2f}, "
+            f"flash {pr['ported_kernels_ms']:.3f} ms, {pr['host_ops']} torch "
+            f"ops dispatched by the host, on {card}")
+        for kname, ms in pr["top"]:
+            say(f"      {ms:8.3f} ms  {kname[:110]}")
+    del model, tokens
+
     kernels = []
     for name, (fn, source, replaces) in KERNELS.items():
         t = times[name]
         say(f"[7] {name}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, library "
             f"{t['library_ms'] if t['library_ms'] is None else round(t['library_ms'], 4)}"
             f", bound {t['bound_ms']:.5f} by {t['bound_by']}) on {card}")
+        n = lm_counts[name] if name == "flash_attention" else counts[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": counts[name],
+                        "replaces": replaces, "launches": n,
                         "max_abs_err": t["max_abs_err"],
                         "ms": t["ms"], "plain_ms": t["plain_ms"],
                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"]})
+    say(json.dumps({"serve": {
+        "arch": LM_ARCH, "batch": LM_BATCH, "prompt_len": LM_PROMPT,
+        "gen": LM_GEN, "parameters": n_params, "peak_bytes": lm_peak,
+        "launches": lm_counts, **serve_times, **agree,
+        "profile": {k: {"wall_ms": v["wall_ms"], "device_ms": v["device_ms"],
+                        "busy_share": v["busy_share"],
+                        "flash_ms": v["ported_kernels_ms"],
+                        "host_ops": v["host_ops"]}
+                    for k, v in serve_prof.items()},
+    }}))
     say(json.dumps({"main_path": {
         "rows_per_shard": rows, "peak_bytes": peak, "peak_bytes_by_call": peaks,
         "first_run_wall_ms": walls, "first_plain_run_wall_ms": plain["walls"],

@@ -1,0 +1,45 @@
+"""Architecture registry of the port (``repro/configs/__init__.py``).
+
+The reference registers ten architectures; the port builds the dense GQA
+family only, so two are registered here. Asking for another raises
+``NotImplementedError``: ROADMAP.md lists the order in which they come.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.common import ModelConfig
+
+ARCH_IDS = [
+    "internvl2-76b",
+    "llama3-8b",
+    "minicpm3-4b",
+    "granite-3-2b",
+    "stablelm-12b",
+    "zamba2-1.2b",
+    "whisper-base",
+    "qwen2-moe-a2.7b",
+    "dbrx-132b",
+    "xlstm-1.3b",
+]
+
+PORTED = ("llama3-8b", "granite-3-2b")
+
+
+def _module(arch: str):
+    if arch not in ARCH_IDS:
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
+    if arch not in PORTED:
+        raise NotImplementedError(
+            f"{arch} is not ported to repro_torch yet (ported: {list(PORTED)});"
+            " ROADMAP.md queue 1 item 12 lists what the LM side still needs")
+    return importlib.import_module(
+        "repro_torch.configs." + arch.replace("-", "_").replace(".", "_"))
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_tiny(arch: str) -> ModelConfig:
+    return _module(arch).TINY

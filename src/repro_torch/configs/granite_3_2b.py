@@ -1,0 +1,12 @@
+"""granite-3-2b [dense]: GQA [hf:ibm-granite/granite-3.0-2b-base; hf]."""
+from repro_torch.models.common import ModelConfig
+
+CONFIG = ModelConfig(
+    arch="granite-3-2b", family="dense",
+    num_layers=40, d_model=2048, num_heads=32, num_kv_heads=8,
+    d_ff=8192, vocab_size=49155, head_dim=64,
+    tie_embeddings=True, rope_theta=10000.0,
+)
+
+TINY = CONFIG.replace(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
+                      head_dim=16, d_ff=128, vocab_size=512)

@@ -27,6 +27,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _U = ctypes.c_uint
+_F = ctypes.c_float
 # C entry point -> argtypes; every one returns cudaGetLastError() as int
 SIGNATURES = {
     "repro_hash32": [_P, _P, _LL, _U, _I, _P],
@@ -36,6 +37,8 @@ SIGNATURES = {
     "repro_segment_reduce_rows_per_block": [],
     "repro_segment_scan": [_P, _P, _P, _LL, _I, _I, _I, _P, _P, _P],
     "repro_segment_scan_rows_per_block": [],
+    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
+                              _P],
 }
 
 

@@ -16,7 +16,7 @@ from contextlib import contextmanager
 
 import torch
 
-from repro_torch.kernels import bitonic, hash64, histogram, ref
+from repro_torch.kernels import bitonic, flash_attention, hash64, histogram, ref
 from repro_torch.kernels import segment_reduce as seg
 from repro_torch.kernels import segment_scan as scan
 from repro_torch.kernels.bitonic import DEFAULT_TILE
@@ -29,6 +29,7 @@ __all__ = [
     "sort_pairs",
     "segment_reduce",
     "segment_scan",
+    "attention",
     "key_max",
     "oracle_scope",
     "oracle_only",
@@ -181,3 +182,13 @@ def sort_pairs(keys: torch.Tensor, payload: torch.Tensor, *,
     else:
         ko, vo = bitonic.bitonic_sort_tiles(kp, vp, tile=n_pad)
     return ko[:n], vo[:n]
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True) -> torch.Tensor:
+    """Self-attention (S == T) for the models' prefill: the flash kernel,
+    or its plain version under :func:`oracle_scope` on whatever device the
+    tensors are. q (B, S, H, hd); k, v (B, S, KV, hd)."""
+    if oracle_only():
+        return ref.attention_ref(q, k, v, causal=causal)
+    return flash_attention.flash_attention(q, k, v, causal=causal)

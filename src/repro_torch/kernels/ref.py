@@ -12,6 +12,8 @@ uint32 on the CPU, and int64 orders them as unsigned 32-bit numbers, so
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 U32 = 0xFFFFFFFF
@@ -194,3 +196,28 @@ def segment_scan_ref(values: torch.Tensor, seg_ids: torch.Tensor,
     init = torch.full((), seg_init(op, values.dtype), dtype=values.dtype,
                       device=values.device)
     return torch.where(same_prev, torch.roll(v, 1, 0), init)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True) -> torch.Tensor:
+    """Materialized-softmax GQA attention. q (B,S,H,hd); k/v (B,T,KV,hd),
+    H % KV == 0; query head h reads KV head ``h // (H // KV)``. fp32
+    inside, output in q's dtype (``repro.kernels.ref.attention_ref``)."""
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    qg = q.reshape(b, s, kv, g, hd).float()
+    scores = torch.einsum("bskgh,btkh->bkgst", qg, k.float())
+    scores = scores / math.sqrt(hd)
+    if causal:
+        mask = (torch.arange(t, device=q.device)[None, :]
+                <= torch.arange(s, device=q.device)[:, None])
+        scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkh->bskgh", probs, v.float())
+    return out.reshape(b, s, h, hd).to(q.dtype)

@@ -1,0 +1,93 @@
+"""``ModelConfig``: the port's copy of ``repro/models/common.py``'s config.
+
+One dataclass covers every architecture family of the JAX package; the
+port builds only the dense GQA family so far, but keeps every field so a
+config copies over value for value. The mesh and sharding helpers of the
+reference (``ShardingRules``, partition specs, ``fsdp_extend``, ``cast``)
+are multi-device machinery and are not carried over: the port serves on
+one card. The compile knobs (``scan_layers``, ``remat``, ``fsdp``,
+``layout``, the shuffle and seq-shard flags, ``time_unroll``) are kept as
+fields and ignored: PyTorch runs eagerly, layer by layer.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    arch: str
+    family: str                     # dense | moe | hybrid | ssm | audio | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0               # 0 -> d_model // num_heads
+
+    # --- MoE -----------------------------------------------------------------
+    moe_num_experts: int = 0
+    moe_top_k: int = 0
+    moe_num_shared: int = 0
+    moe_d_ff: int = 0
+    moe_capacity_factor: float = 1.25
+
+    # --- MLA -------------------------------------------------------------------
+    attn_kind: str = "gqa"          # gqa | mla
+    mla_q_lora: int = 0
+    mla_kv_lora: int = 0
+    mla_rope_dim: int = 0
+    mla_nope_dim: int = 0
+    mla_v_dim: int = 0
+
+    # --- SSM / hybrid / xLSTM --------------------------------------------------
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    ssm_heads: int = 0
+    ssm_chunk: int = 256
+    attn_every: int = 0
+    slstm_every: int = 0
+
+    # --- enc-dec -----------------------------------------------------------------
+    encoder_layers: int = 0
+
+    # --- modality frontend -------------------------------------------------------
+    frontend: str = "none"          # none | vision_stub | audio_stub
+    num_frontend_tokens: int = 0
+
+    # --- numerics ------------------------------------------------------------------
+    rope_theta: float = 500000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: Any = torch.bfloat16         # activation/compute dtype
+    param_dtype: Any = torch.bfloat16   # parameter dtype
+
+    # --- the reference's compile/sharding knobs (kept, ignored here) -------------
+    scan_layers: bool = True
+    remat: str = "full"
+    fsdp: bool = False
+    layout: str = "tp"
+    ep_shuffle: bool = True
+    moe_shuffle_stages: int | None = None
+    moe_shuffle_mode: str = "alltoall"
+    decode_seq_shard: bool = True
+    mla_seq_shard: bool = False
+    time_unroll: bool = False
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // self.num_heads)
+
+    @property
+    def padded_vocab(self) -> int:
+        """The vocab rounded up to a multiple of 128, as the reference pads
+        its embedding tables; the logical vocab stays ``vocab_size``."""
+        return -(-self.vocab_size // 128) * 128
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,232 @@
+"""Shared neural layers of the port (``repro/models/layers.py``): init
+helpers, RMSNorm, RoPE, embeddings, the SwiGLU/GELU MLP and GQA attention.
+
+Layers are functional, as in the reference: ``init_*`` returns a dict of
+tensors (weights in the reference's ``(in, out)`` layout, applied as
+``x @ w``), ``*_fwd`` consumes it; ``models/transformer.py`` holds them in
+``nn.Module``s. Compute runs in ``cfg.dtype`` with fp32 statistics and
+softmax, in the reference's order of operations and rounding points.
+
+Attention modes: ``causal`` / ``bidir`` (prefill: self-attention with
+S == T, through the flash kernel behind ``kernels/ops.attention``) and
+``decode`` (one new token against the KV cache, the reference's masked
+einsum math in plain torch). Left for later: MLA, the cross modes, the
+chunked paths for S > 8192, the multi-device flash-decode and
+``layer_norm``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models.common import ModelConfig
+
+NEG_INF = -1e30  # the reference's mask value (``_mask_scores``)
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+
+def _dense(shape, dtype, generator: torch.Generator, scale=None) -> torch.Tensor:
+    """Normal(0, 1) in fp32 times ``scale`` (1/sqrt(fan_in), fan-in the
+    second-to-last dim), cast to ``dtype``, on the generator's device."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    return (x * scale).to(dtype)
+
+
+def init_norm(d: int, dtype, device) -> torch.Tensor:
+    return torch.ones((d,), dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm: the mean square accumulated in fp32, ``rsqrt`` in fp32 then
+    cast to x's dtype, ``x * inv * scale`` in x's dtype."""
+    xf = x.float()
+    ms = (xf * xf).sum(-1) / x.shape[-1]
+    inv = torch.rsqrt(ms + eps).to(x.dtype)
+    return x * inv[..., None] * scale.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (llama half-split convention)
+# ---------------------------------------------------------------------------
+
+
+def rope_tables(positions: torch.Tensor, dim: int, theta: float):
+    """positions (S,) -> (sin, cos) each (S, dim/2), fp32."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32,
+                        device=positions.device) / dim
+    # a Python-float base: fp32 pow on the device, no host-to-device copy
+    inv = 1.0 / (theta ** exps)
+    ang = positions.float()[:, None] * inv[None, :]
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
+    """x (..., S, H, hd); sin/cos (S, hd/2). fp32 arithmetic, cast back."""
+    dt = x.dtype
+    x = x.float()
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2], x[..., d2:]
+    s = sin[..., :, None, :]
+    c = cos[..., :, None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], -1).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# embedding / unembedding
+# ---------------------------------------------------------------------------
+
+
+def init_embed(cfg: ModelConfig, generator: torch.Generator) -> torch.Tensor:
+    return _dense((cfg.padded_vocab, cfg.d_model), cfg.param_dtype, generator,
+                  scale=0.02)
+
+
+def embed_fwd(table: torch.Tensor, tokens: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    return table.to(cfg.dtype)[tokens]
+
+
+def unembed_fwd(table: torch.Tensor, x: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """x (B, S, d) -> logits (B, S, V) against a (V, d) table."""
+    return x @ table.to(cfg.dtype).t()
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU; GELU via kind='gelu')
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(d: int, d_ff: int, cfg: ModelConfig, generator: torch.Generator,
+             kind: str = "swiglu") -> dict[str, torch.Tensor]:
+    dt = cfg.param_dtype
+    if kind == "swiglu":
+        return {"wi": _dense((d, d_ff), dt, generator),
+                "wg": _dense((d, d_ff), dt, generator),
+                "wo": _dense((d_ff, d), dt, generator)}
+    if kind == "gelu":
+        return {"wi": _dense((d, d_ff), dt, generator),
+                "wo": _dense((d_ff, d), dt, generator)}
+    raise ValueError(f"unknown MLP kind {kind!r}")
+
+
+def mlp_fwd(p, x: torch.Tensor) -> torch.Tensor:
+    h = x @ p["wi"].to(x.dtype)
+    if "wg" in p:
+        h = F.silu(x @ p["wg"].to(x.dtype)) * h
+    else:
+        h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
+    return h @ p["wo"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+
+
+def init_attention(cfg: ModelConfig, generator: torch.Generator
+                   ) -> dict[str, torch.Tensor]:
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    dt = cfg.param_dtype
+    return {"wq": _dense((d, H * hd), dt, generator),
+            "wk": _dense((d, KV * hd), dt, generator),
+            "wv": _dense((d, KV * hd), dt, generator),
+            "wo": _dense((H * hd, d), dt, generator)}
+
+
+def _repeat_kv(k: torch.Tensor, g: int) -> torch.Tensor:
+    b, t, kv, hd = k.shape
+    return k[:, :, :, None, :].expand(b, t, kv, g, hd).reshape(b, t, kv * g, hd)
+
+
+def _mask_scores(scores: torch.Tensor, *, causal: bool, q_offset: int,
+                 kv_len: int | None, s: int, t: int) -> torch.Tensor:
+    tpos = torch.arange(t, device=scores.device)
+    if causal:
+        qpos = torch.arange(s, device=scores.device) + q_offset
+        scores = scores.masked_fill(tpos[None, :] > qpos[:, None], NEG_INF)
+    if kv_len is not None:
+        scores = scores.masked_fill(tpos >= kv_len, NEG_INF)
+    return scores
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+          q_offset: int = 0, kv_len: int | None = None) -> torch.Tensor:
+    """q (B,S,H,hd), k/v (B,T,KV,hd) -> (B,S,H,hd). fp32 softmax.
+
+    Self-attention (S == T, no offset, no kv_len: every prefill) goes
+    through ``kernels/ops.attention``, the flash kernel on the card, fp32
+    inside. Otherwise (decode against the cache) the reference's math: KV
+    heads repeated to H, scores and probabilities rounded to q's dtype by
+    the einsums, masked with -1e30 over the whole cache, fp32 softmax.
+    """
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    if s == t and q_offset == 0 and kv_len is None:
+        return kops.attention(q, k, v, causal=causal)
+    k = _repeat_kv(k, h // kv)
+    v = _repeat_kv(v, h // kv)
+    scores = torch.einsum("bshd,bthd->bhst", q, k).float()
+    scores = _mask_scores(scores / math.sqrt(hd), causal=causal,
+                          q_offset=q_offset, kv_len=kv_len, s=s, t=t)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhst,bthd->bshd", probs, v)
+
+
+def attention_fwd(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
+                  rope=None, cache=None, pos: int | None = None):
+    """GQA self-attention. Returns (out, cache).
+
+    mode 'causal' | 'bidir' (prefill; with a cache, k and v are written to
+    its first S rows) or 'decode' (k and v written at ``pos``, then the new
+    tokens attend over the cache up to ``pos + S``). cache: {'k', 'v'} each
+    (B, S_max, KV, hd), updated in place (the reference donates it); pos is
+    a Python int, so nothing is read back from the device.
+    """
+    B, S, _ = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    dt = x.dtype
+    q = (x @ p["wq"].to(dt)).reshape(B, S, H, hd)
+    k = (x @ p["wk"].to(dt)).reshape(B, S, KV, hd)
+    v = (x @ p["wv"].to(dt)).reshape(B, S, KV, hd)
+    if rope is not None:
+        sin, cos = rope
+        q = apply_rope(q, sin, cos)
+        k = apply_rope(k, sin, cos)
+
+    if mode in ("causal", "bidir"):
+        out = _sdpa(q, k, v, causal=(mode == "causal"))
+        if cache is not None:  # prefill into a bigger cache
+            cache["k"][:, :S] = k.to(cache["k"].dtype)
+            cache["v"][:, :S] = v.to(cache["v"].dtype)
+    elif mode == "decode":
+        cache["k"][:, pos:pos + S] = k.to(cache["k"].dtype)
+        cache["v"][:, pos:pos + S] = v.to(cache["v"].dtype)
+        out = _sdpa(q, cache["k"].to(dt), cache["v"].to(dt), causal=True,
+                    q_offset=pos, kv_len=pos + S)
+    else:
+        raise NotImplementedError(f"attention mode {mode!r} is not ported")
+    return out.reshape(B, S, H * hd) @ p["wo"].to(dt), cache
+
+
+def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, device,
+                    dtype=None) -> dict[str, torch.Tensor]:
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.hd)
+    dtype = dtype or cfg.dtype
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -4,8 +4,10 @@ On the CPU every wrapper takes its plain PyTorch version; those are held
 against the Pallas kernels run in interpret mode (as tests/test_kernels.py
 runs them) and against ``repro.kernels.ref``. Inputs come from numpy with a
 seed. Tolerance: exact everywhere (integer kernels, and float sums on
-integer-valued data). The cases marked ``cuda`` hold each CUDA kernel
-against its plain version on the card and skip without one.
+integer-valued data) but in flash attention, which holds the reference's
+own tolerances (``tests/test_kernels.py``: 2e-5 in fp32, 2e-2 in bf16; the
+softmax sums run in another order). The cases marked ``cuda`` hold each
+CUDA kernel against its plain version on the card and skip without one.
 """
 import pytest
 
@@ -17,6 +19,7 @@ import numpy as np  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.bitonic import bitonic_sort_tiles as j_bitonic  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as j_flash  # noqa: E402
 from repro.kernels.hash64 import hash32 as j_hash32  # noqa: E402
 from repro.kernels.histogram import bucket_histogram as j_hist  # noqa: E402
 from repro.kernels.segment_reduce import segment_reduce_tiles as j_seg  # noqa: E402
@@ -24,6 +27,7 @@ from repro.kernels.segment_scan import segment_scan_tiles as j_scan  # noqa: E40
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.bitonic import bitonic_sort_tiles  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.hash64 import hash32  # noqa: E402
 from repro_torch.kernels.histogram import bucket_histogram  # noqa: E402
 from repro_torch.kernels.segment_reduce import segment_reduce_tiles  # noqa: E402
@@ -262,13 +266,77 @@ def test_segment_scan_seam_checks():
     assert got.tolist() == [0, 1, 2, 5, 9, 5]
 
 
+# --- flash attention -------------------------------------------------------------
+
+
+def _qkv(b, s, h, kv, hd, seed, scale=1.0):
+    r = _rng(seed)
+    return (r.standard_normal((b, s, h, hd)) * scale,
+            r.standard_normal((b, s, kv, hd)) * scale,
+            r.standard_normal((b, s, kv, hd)))
+
+
+@pytest.mark.parametrize("shape", [
+    # (B, S, H, KV, hd, bq, bk): tests/test_kernels.py's sweep
+    (2, 256, 4, 2, 64, 128, 128),
+    (1, 512, 8, 8, 32, 256, 128),
+    (1, 256, 4, 1, 128, 128, 256),
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_matches_pallas_and_ref(shape, causal):
+    b, s, h, kv, hd, bq, bk = shape
+    q, k, v = (x.astype(np.float32) for x in _qkv(b, s, h, kv, hd, seed=s + hd))
+    got = flash_attention(*map(torch.from_numpy, (q, k, v)), causal=causal)
+    assert got.dtype == torch.float32 and got.shape == (b, s, h, hd)
+    pallas = j_flash(*map(jnp.asarray, (q, k, v)), causal=causal, bq=bq, bk=bk)
+    oracle = jref.attention_ref(*map(jnp.asarray, (q, k, v)), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), atol=2e-5,
+                               rtol=2e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), atol=2e-5,
+                               rtol=2e-5)
+
+
+def test_flash_plain_bf16_matches_pallas():
+    q, k, v = _qkv(1, 256, 4, 2, 64, seed=9)
+    bf = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)]
+    got = flash_attention(*(torch.from_numpy(np.asarray(x, np.float32))
+                            .to(torch.bfloat16) for x in bf), causal=True)
+    assert got.dtype == torch.bfloat16
+    want = j_flash(*bf, causal=True, bq=128, bk=128)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=2e-2, rtol=2e-2)
+
+
+def test_flash_wrapper_checks_and_seam():
+    q = torch.zeros(1, 5, 4, 16)
+    k = torch.zeros(1, 5, 3, 16)
+    with pytest.raises(ValueError):
+        flash_attention(q, k, k)  # 4 query heads over 3 KV heads
+    with pytest.raises(ValueError):
+        flash_attention(q, q[:, :4], q[:, :4])  # not self-attention
+    # the CPU takes the plain version at any head dim (the tiny configs' 16)
+    q, k, v = (torch.from_numpy(x.astype(np.float32))
+               for x in _qkv(2, 7, 4, 2, 16, seed=3))
+    before = flash_attention.launches
+    want = tref.attention_ref(q, k, v, causal=True)
+    assert torch.equal(flash_attention(q, k, v), want)
+    assert torch.equal(tops.attention(q, k, v), want)
+    with tops.oracle_scope():
+        assert torch.equal(tops.attention(q, k, v, causal=False),
+                           tref.attention_ref(q, k, v, causal=False))
+    assert flash_attention.launches == before
+    # S == 1, causal: the one key's value
+    assert torch.allclose(flash_attention(q[:, :1], k[:, :1], v[:, :1]),
+                          v[:, :1].repeat_interleave(2, dim=2))
+
+
 # --- devices, counters, oracle scope ------------------------------------------
 
 
 def test_cpu_tensors_launch_nothing_and_oracle_scope_nests():
     before = (hash32.launches, bucket_histogram.launches,
               bitonic_sort_tiles.launches, segment_reduce_tiles.launches,
-              segment_scan_tiles.launches)
+              segment_scan_tiles.launches, flash_attention.launches)
     x = torch.arange(10, dtype=torch.int32)
     assert not tops.oracle_only()
     with tops.oracle_scope():
@@ -279,9 +347,11 @@ def test_cpu_tensors_launch_nothing_and_oracle_scope_nests():
     assert not tops.oracle_only()
     tops.bucket_histogram(x, 4)
     tops.segment_scan(x, torch.zeros(10, dtype=torch.int32), "max")
+    tops.attention(torch.zeros(1, 3, 2, 8), torch.zeros(1, 3, 1, 8),
+                   torch.zeros(1, 3, 1, 8))
     assert before == (hash32.launches, bucket_histogram.launches,
                       bitonic_sort_tiles.launches, segment_reduce_tiles.launches,
-                      segment_scan_tiles.launches)
+                      segment_scan_tiles.launches, flash_attention.launches)
 
 
 def test_cuda_request_without_a_card_raises():
@@ -366,3 +436,20 @@ def test_cuda_segment_scan_matches_plain(cuda, op):
                     bits = torch.int32
                     assert torch.equal(got.view(bits), want.view(bits)), \
                         (n, dtype, inclusive)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_cuda_flash_attention_matches_plain(cuda, dtype, tol, hd):
+    # S at and around the 64-row tiles, group sizes 1 and 4, causal or not
+    for s in (1, 63, 64, 65, 1024):
+        for h, kv in ((4, 4), (8, 2)):
+            q, k, v = (torch.from_numpy(x.astype(np.float32)).to(cuda, dtype)
+                       for x in _qkv(2, s, h, kv, hd, seed=s))
+            for causal in (True, False):
+                got = flash_attention(q, k, v, causal=causal)
+                want = tref.attention_ref(q, k, v, causal=causal)
+                torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+                assert torch.equal(got, flash_attention(q, k, v, causal=causal))
