@@ -8,8 +8,12 @@ Phases (any failed check raises, and the script exits nonzero):
    kernel from ``src/repro_torch/kernels/csrc`` (timed).
 2. Each kernel against its plain PyTorch version on the card, at the main
    path's shapes and at edge shapes: exact equality (float sums on
-   integer-valued data). Also torch.sort's float order on the card and the
-   shuffle's counts carrier in a float32 column.
+   integer-valued data). segment_reduce also around its 4096-row tiles
+   (runs that end at a tile edge, one row before, one after), over one
+   run of every row, over rows all out of range, with NaN in min/max, and
+   at phase 7's shape on standard-normal data (``SEG_F32_TOL``). Also
+   torch.sort's float order on the card and the shuffle's counts carrier
+   in a float32 column.
 3. The main path at a size users run: tables of the paper's relation
    (int32 key + 3 float32, 16 B a row), 8 virtual shards x 2**22 rows each
    (512 MiB a table), through ``DistContext``: the sort join, the hash join,
@@ -19,7 +23,8 @@ Phases (any failed check raises, and the script exits nonzero):
    one of them) over a fourth table of 16 B rows with 12 groups, so most
    groups span shards (range bucket 2**21, 2**24 slots a shard). Launch
    counts are zeroed just before and read just after; every kernel must
-   have launched, segment_scan_tiles 6 times a shard.
+   have launched, segment_scan_tiles 6 times a shard and
+   segment_reduce_tiles ``SEG_REDUCE_LAUNCHES`` times.
 4. The same calls under ``oracle_scope()`` (every plain version, on the
    card, no launches): the same rows, per-shard row counts and shuffle
    stats, bit for bit (the window's rows in order); groupby's float sums
@@ -34,7 +39,11 @@ Phases (any failed check raises, and the script exits nonzero):
    version's, one PyTorch library call's where one computes the same
    function (none computes a segmented scan: ``torch.cumsum`` of the same
    column is printed beside it instead), and the least time the card
-   could take (``bound_ms``).
+   could take (``bound_ms``). Before them, each instance of the kernels
+   redesigned last (flash_fwd_bf16, seg_fill, seg_pass1, seg_pass2) as
+   the build's ``-Xptxas -v`` reported it: registers, spill bytes, static
+   shared memory (flash's dynamic shared memory from the library), and
+   each source's nvcc seconds.
 
 Then, with the relational tables freed, the serving path (the LM slice):
 
@@ -57,8 +66,9 @@ Then, with the relational tables freed, the serving path (the LM slice):
    decode steps (busy share, flash's device ms, the largest kernels, the
    torch ops the host dispatched).
 Phase 2 also holds flash_attention against its plain version (S 1 to
-4096, causal or not, group size 1 and 4, hd 64 and 128, fp32 and bf16,
-scores up to +-1e4); phase 7 times it at the path's shape beside
+4096, around the 64-row fp32 and 128-row bf16 tiles, causal or not, group
+size 1 and 4, hd 64 and 128, fp32 and bf16, scores up to +-1e4); phase 7
+times it at the path's shape beside
 ``F.scaled_dot_product_attention`` (``library_ms``).
 
 It prints one JSON line with the main path's numbers, one with the serving
@@ -71,6 +81,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -126,6 +137,19 @@ LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "llama3-8b", 4, 1024, 32
 # wrong mask or a wrong head moves logits by their own scale (~0.2), four
 # times this.
 LM_TOL = 0.05
+# segment_reduce's pass-1 tile (csrc/segment_reduce.cu), whose edges phase 2
+# probes
+SEG_TILE = 4096
+# A float32 segment sum of ~33,500 standard-normal rows (phase 7's shape)
+# through the plain version's index_add_ drifts by up to ~0.0025 from the
+# exact sum (its atomics add one row at a time; the earlier bound of
+# 0.00244 against it was that drift), while the kernel's binary-tree sums
+# stay much closer. So at that shape the kernel is held against the plain
+# version run in float64, ten times tighter than 0.00244.
+SEG_F32_TOL = 2.44e-4
+# groupby two_phase and shuffle's segment_reduce launches over the main path
+# (every aggregate's partial on every shard)
+SEG_REDUCE_LAUNCHES = 120
 
 KERNELS = {
     "hash32": (hash32, "src/repro_torch/kernels/csrc/hash32.cu",
@@ -185,6 +209,42 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+# the kernels whose build report phase 7 prints, and segment_reduce's op codes
+REPORTED_KERNELS = ("flash_fwd_bf16", "seg_fill", "seg_pass1", "seg_pass2")
+_OPS = {"0": "sum", "1": "min", "2": "max"}
+
+
+def ptxas_report() -> list[dict]:
+    """Every instance of ``REPORTED_KERNELS`` as the build's ``-Xptxas -v``
+    output (``_build.LOGS``) reports it: registers a thread, spill bytes
+    (stores, loads) and static shared memory."""
+    found = []
+    pat = re.compile(r"\d+(%s)I(\w*?)EE" % "|".join(REPORTED_KERNELS))
+    for _, log in _build.LOGS.values():
+        cur = None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                m = pat.search(line)
+                cur = None
+                if m:  # template arguments: Li128 (hd), fLi0 (float, sum)
+                    args = m.group(2)
+                    t = {"f": "float", "i": "int"}.get(args[:1])
+                    n = re.findall(r"Li(\d+)", args)
+                    label = (f"<{n[0]}>" if t is None else
+                             f"<{t}, {_OPS.get(n[0], n[0])}>")
+                    cur = {"kernel": m.group(1) + label}
+                    found.append(cur)
+            elif cur is not None and "spill stores" in line:
+                st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+                cur["spill_store_bytes"], cur["spill_load_bytes"] = int(st), int(ld)
+            elif cur is not None and "Used" in line and "registers" in line:
+                cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                                 line).group(1))
+                smem = re.search(r"(\d+) bytes smem", line)
+                cur["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    return found
 
 
 # ---------------------------------------------------------------------------
@@ -306,6 +366,11 @@ def phase_kernels(dev) -> None:
     check(torch.equal(segment_reduce_tiles(empty, seg[:0], 3, "min"),
                       ref.segment_reduce_ref(empty, seg[:0], 3, "min")),
           "segment_reduce empty")
+    seg_err = check_segment_reduce_edges(dev, rng)
+    say(f"[2] segment_reduce at phase 7's shape, standard-normal f32 sums: "
+        f"within {seg_err['f64']:.3g} of the plain version in float64 "
+        f"(tolerance {SEG_F32_TOL:g}), {seg_err['f32']:.3g} of it in float32; "
+        f"the same bits on a second run")
     check_segment_scan(dev, rng)
     check_flash(dev, rng)
     torch.cuda.synchronize()
@@ -313,6 +378,75 @@ def phase_kernels(dev) -> None:
 
 def _bits(c: torch.Tensor) -> torch.Tensor:
     return c.view(torch.int32) if c.dtype == torch.float32 else c
+
+
+def check_segment_reduce_edges(dev, rng) -> dict[str, float]:
+    """segment_reduce where its design has edges, as groupby passes ids
+    (``contiguous_runs=True``): runs that end exactly at the 4096-row tile
+    edges, one row before and one after (5 tiles + 3 rows); one run over
+    2**22 + 3 rows; every row out of range (-1, and G); sum/min/max x
+    f32/i32 on integer values, bit for bit, and the same bits on a second
+    run. NaN in f32 min/max: the segments that hold a NaN come out NaN,
+    the others equal the plain version (whose atomics on the card need not
+    keep NaN). Then phase 7's shape on standard-normal data (f32 sum, 2**23
+    rows, 125 sorted groups over the first half, a -1 tail): within
+    ``SEG_F32_TOL`` of the plain version in float64, the same bits twice.
+    Returns the largest differences there (float64 and float32 plain)."""
+    def exact(name, vals, ids, g):
+        v = torch.from_numpy(vals).to(dev)
+        seg = torch.from_numpy(ids.astype(np.int32)).to(dev)
+        for op in ("sum", "min", "max"):
+            got = segment_reduce_tiles(v, seg, g, op, contiguous_runs=True)
+            check(torch.equal(got, ref.segment_reduce_ref(v, seg, g, op)),
+                  f"segment_reduce {name} {vals.dtype} {op}")
+            again = segment_reduce_tiles(v, seg, g, op, contiguous_runs=True)
+            check(torch.equal(_bits(got), _bits(again)),
+                  f"segment_reduce {name} {vals.dtype} {op}: bits differ "
+                  f"between two runs")
+
+    n = 5 * SEG_TILE + 3
+    for shift in (-1, 0, 1):
+        ids = np.clip((np.arange(n) - shift) // SEG_TILE, 0, None)
+        for dt in (np.float32, np.int32):
+            exact(f"runs ending at tile edges {shift:+d}",
+                  rng.integers(-99, 99, n).astype(dt), ids, 10)
+    n = (1 << 22) + 3
+    for dt in (np.float32, np.int32):
+        vals = rng.integers(-99, 99, n).astype(dt)
+        exact("one run over all rows", vals, np.zeros(n), 3)
+        exact("all rows out of range (-1)", vals, np.full(n, -1), 3)
+        exact("all rows out of range (G)", vals, np.full(n, 3), 3)
+
+    n = 3 * SEG_TILE + 11
+    vals = rng.integers(-99, 99, n).astype(np.float32)
+    vals[[5, SEG_TILE + 4, 2 * SEG_TILE + 900]] = np.nan
+    v = torch.from_numpy(vals).to(dev)
+    seg = torch.from_numpy(np.sort(rng.integers(0, 40, n)).astype(np.int32)).to(dev)
+    nan_seg = ref.segment_reduce_ref(torch.isnan(v).to(torch.int32), seg, 40,
+                                     "sum") > 0
+    for op in ("min", "max"):
+        got = segment_reduce_tiles(v, seg, 40, op, contiguous_runs=True)
+        want = ref.segment_reduce_ref(v, seg, 40, op)
+        check(torch.equal(torch.isnan(got), nan_seg) and
+              torch.equal(got[~nan_seg], want[~nan_seg]),
+              f"segment_reduce NaN {op}")
+
+    n = 2 * ROWS
+    ids = np.full(n, -1, np.int32)
+    ids[:n // 2] = np.sort(rng.integers(0, 125, n // 2))
+    seg = torch.from_numpy(ids).to(dev)
+    v = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    got = segment_reduce_tiles(v, seg, n, "sum", contiguous_runs=True)
+    check(torch.equal(_bits(got), _bits(segment_reduce_tiles(
+        v, seg, n, "sum", contiguous_runs=True))),
+        "segment_reduce standard-normal sums: bits differ between two runs")
+    err64 = float((got.double() - ref.segment_reduce_ref(
+        v.double(), seg, n, "sum")).abs().max())
+    err32 = float((got - ref.segment_reduce_ref(v, seg, n, "sum")).abs().max())
+    check(err64 <= SEG_F32_TOL,
+          f"segment_reduce standard-normal sums differ from the float64 plain "
+          f"version by {err64}")
+    return {"f64": err64, "f32": err32}
 
 
 def check_segment_scan(dev, rng) -> None:
@@ -362,7 +496,8 @@ def check_segment_scan(dev, rng) -> None:
 
 def check_flash(dev, rng) -> None:
     """flash_attention against attention_ref on the card: S at and around
-    the 64-row tiles and long (1, 63, 64, 65, 1024, 4096), causal or not,
+    the fp32 kernel's 64-row tiles and the bf16 kernel's 128-row tiles, and
+    long (1, 63, 64, 65, 127, 128, 129, 255, 1023, 1024, 4096), causal or not,
     group size 1 and 4, hd 64 and 128, B up to 4, fp32 within 2e-5 and
     bf16 within 2e-2 (``tests/test_kernels.py``'s tolerances: the softmax
     sums run in another order, and bf16 outputs of ~[2, 4) round one ulp,
@@ -376,7 +511,8 @@ def check_flash(dev, rng) -> None:
 
     cases = [(b, s, h, kv, hd, causal, 1.0)
              for hd in (64, 128) for causal in (True, False)
-             for s, b in ((1, 4), (63, 3), (64, 2), (65, 4), (1024, 2),
+             for s, b in ((1, 4), (63, 3), (64, 2), (65, 4), (127, 3),
+                          (128, 2), (129, 4), (255, 2), (1023, 2), (1024, 2),
                           (4096, 1))
              for h, kv in ((8, 8), (8, 2))]
     # q ~ N(0, 1e8), k ~ N(0, 1): scores q.k / sqrt(hd) ~ N(0, 1e8)
@@ -568,6 +704,9 @@ def phase_main_path(ctx, tabs):
     check(counts["segment_scan_tiles"] == 6 * P,
           f"segment_scan launched {counts['segment_scan_tiles']} times, "
           f"want {6 * P}")
+    check(counts["segment_reduce_tiles"] == SEG_REDUCE_LAUNCHES,
+          f"segment_reduce launched {counts['segment_reduce_tiles']} times, "
+          f"want {SEG_REDUCE_LAUNCHES}")
     return results, walls, counts, peaks
 
 
@@ -987,6 +1126,17 @@ def main() -> None:
     del res, tabs
     torch.cuda.empty_cache()
 
+    for src, (secs, _) in sorted(_build.LOGS.items()):
+        say(f"[7] nvcc {src}: {secs:.1f} s (all sources compiled together)")
+    lib = _build.library()
+    for r in ptxas_report():
+        hd = re.search(r"<(\d+)>", r["kernel"]) if "flash" in r["kernel"] else None
+        dyn = (f", {lib.repro_flash_attention_smem(int(hd.group(1)))} B dynamic"
+               if hd else "")
+        say(f"[7] ptxas {r['kernel']}: {r.get('registers')} registers, spills "
+            f"{r.get('spill_store_bytes')} B stored / {r.get('spill_load_bytes')}"
+            f" B loaded, {r.get('static_smem_bytes')} B static shared memory"
+            f"{dyn}")
     times = phase_timing(dev, rows)
     t = times["segment_scan_tiles"]
     say(f"[7] torch.cumsum (unsegmented) of segment_scan's column, "

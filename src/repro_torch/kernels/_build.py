@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -39,7 +40,10 @@ SIGNATURES = {
     "repro_segment_scan_rows_per_block": [],
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
                               _P],
+    "repro_flash_attention_smem": [_I],
 }
+# per source of the last build in this process: (nvcc seconds, nvcc output)
+LOGS: dict[str, tuple[float, str]] = {}
 
 
 def _nvcc() -> str:
@@ -77,6 +81,7 @@ def build(verbose: bool = False) -> Path:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs = []
         objs = []
+        t0 = time.perf_counter()
         for src in sources():
             obj = Path(tmp) / (src.stem + ".o")
             objs.append(obj)
@@ -86,6 +91,8 @@ def build(verbose: bool = False) -> Path:
         failed = []
         for src, proc in procs:
             log, _ = proc.communicate()
+            # all start together, so this is the time until this one was done
+            LOGS[src.name] = (time.perf_counter() - t0, log)
             if verbose and log:
                 print(f"[nvcc {src.name}]\n{log}", flush=True)
             if proc.returncode != 0:

@@ -13,28 +13,36 @@
 // Bound: bytes. Each row is read once (4 B value + 4 B id) and each segment
 // written once (4 B); the fold is one add/min/max per row.
 //
-// Design (three launches on one stream):
-//   1. fill: out[g] = identity for every g.
-//   2. pass 1: block b owns rows [b*R, (b+1)*R), R = 256 threads x 16 rows,
-//      staged through shared memory with coalesced loads. Each thread folds
-//      its 16 rows in row order into runs of equal ids. A run that starts and
-//      ends inside the thread is written straight to out. The thread that
-//      holds the first row of a run that leaves it walks the following
-//      threads' leading pieces in thread order and writes the total, unless
-//      the run reaches the end of the block and continues into the next one:
-//      then the partial goes to the block's "open last run". Thread 0 of a
-//      block whose first row continues a run from the block before sums that
-//      run's piece in this block the same way ("first piece", and whether the
-//      run runs through the whole block).
-//   3. pass 2: one thread per block with an open last run adds the first
-//      pieces of the following blocks in block order until the run ends, and
-//      writes the total.
+// Design: every range of rows, from one lane's four up to the whole input,
+// is summarised by the same fixed-size record: the id and partial fold of
+// its first run and of its last run, and whether one run covers it all.
+// Two neighbouring records merge in O(1): a run that now lies wholly inside
+// the merged range is complete and is written out; only the first and the
+// last run stay open. Three launches on one stream:
+//   1. fill: out[g] = identity for every g, 16-byte stores.
+//   2. pass 1: a 256-thread block owns a 4096-row tile; each warp owns 512
+//      consecutive rows, read as four 128-row chunks with 16-byte loads
+//      (a lane holds 4 consecutive rows of each chunk: coalesced, no shared
+//      memory). A lane folds its 4 rows; the 32 lanes' records merge in a
+//      binary tree over shuffles; the warp's 4 chunks merge in row order; the
+//      8 warps' records merge in a binary tree, and the tile's record goes to
+//      scratch. A chunk that is one run from end to end (the common case on
+//      sorted data) skips the record tree for one shuffle vote, and its fold
+//      for an out-of-range run (groupby's -1 tail) is never computed.
+//   3. pass 2: one 1024-thread block merges the tiles' records: each thread
+//      folds its ceil(tiles / 1024) consecutive tiles in order, then a binary
+//      tree over threads (shuffles, then one warp over the 32 warps' records)
+//      writes every run that crosses a tile edge; the root writes the first
+//      and the last run of the input. Nothing walks block after block.
 // Every segment is written by exactly one thread, with no atomics, and the
 // order of every fold is fixed by the data's layout alone, so results are the
-// same from run to run. Summation order for a float sum: the rows of each
-// 16-row thread piece in row order, then the pieces in thread order, then
-// the 4096-row block pieces in block order. That differs from the TPU's MXU
-// order, so float sums agree bit for bit only on integer-valued data.
+// same from run to run. Summation order of a float sum: each lane's 4 rows in
+// row order; the lanes of a 128-row chunk in a binary tree (neighbours, then
+// pairs of pairs); the 4 chunks of a warp in row order; the 8 warps of a tile
+// in a binary tree; the tiles as pass 2 merges them. That differs from the
+// TPU's MXU order and from the plain version's, so float sums agree bit for
+// bit only on integer-valued data. Every written value is op(identity, fold),
+// so a float sum of -0.0 rows is +0.0, as in the plain version.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -42,8 +50,12 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kItems = 16;
-constexpr int kRows = kThreads * kItems;
+constexpr int kWarps = kThreads / 32;
+constexpr int kChunks = 4;                   // 128-row chunks a warp
+constexpr int kWarpRows = kChunks * 128;     // 512
+constexpr int kRows = kWarps * kWarpRows;    // 4096 rows a tile
+constexpr int kMergeThreads = 1024;          // pass 2
+constexpr unsigned kFull = 0xffffffffu;
 
 enum { OP_SUM = 0, OP_MIN = 1, OP_MAX = 2 };
 
@@ -55,6 +67,7 @@ struct Fold<float, OP> {
   __device__ static float ident() {
     return OP == OP_SUM ? 0.0f : (OP == OP_MIN ? INFINITY : -INFINITY);
   }
+  // NaN-first: a NaN on the left wins, one on the right replaces a number
   __device__ static float apply(float a, float b) {
     if (OP == OP_SUM) return a + b;
     if (OP == OP_MIN) return (isnan(a) || a < b) ? a : b;
@@ -78,178 +91,235 @@ __device__ __forceinline__ bool in_range(int g, int G) {
   return (unsigned)g < (unsigned)G;
 }
 
+// A range of rows: its first run (id fid, partial fold f) and its last run
+// (lid, l); single when one run covers the range (then fid == lid, f == l).
+template <typename T>
+struct Piece {
+  int fid, lid;
+  T f, l;
+  int single;
+};
+
+template <typename T, int OP>
+__device__ __forceinline__ void emit(T* out, int g, int G, T v) {
+  if (in_range(g, G)) out[g] = Fold<T, OP>::apply(Fold<T, OP>::ident(), v);
+}
+
+// The record of range a followed by range b; writes the runs that the merge
+// closes (a's last and b's first, joined or not, unless they stay open as
+// the merged range's first or last run).
+template <typename T, int OP>
+__device__ __forceinline__ Piece<T> merge(const Piece<T>& a, const Piece<T>& b,
+                                          T* out, int G) {
+  Piece<T> r{a.fid, b.lid, a.f, b.l, 0};
+  if (a.lid == b.fid) {  // one run across the edge
+    const T j = Fold<T, OP>::apply(a.l, b.f);
+    if (a.single) r.f = j;
+    if (b.single) r.l = j;
+    r.single = a.single & b.single;
+    if (!a.single && !b.single) emit<T, OP>(out, a.lid, G, j);
+  } else {
+    if (!a.single) emit<T, OP>(out, a.lid, G, a.l);
+    if (!b.single) emit<T, OP>(out, b.fid, G, b.f);
+  }
+  return r;
+}
+
+template <typename T>
+__device__ __forceinline__ Piece<T> shfl_down(const Piece<T>& p, int off) {
+  return {__shfl_down_sync(kFull, p.fid, off), __shfl_down_sync(kFull, p.lid, off),
+          __shfl_down_sync(kFull, p.f, off), __shfl_down_sync(kFull, p.l, off),
+          __shfl_down_sync(kFull, p.single, off)};
+}
+
+// Binary tree over the records of lanes [0, width) of a warp (every lane
+// calls it); lane 0 returns the merged record.
+template <typename T, int OP>
+__device__ __forceinline__ Piece<T> warp_merge(Piece<T> p, int width, T* out,
+                                               int G) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    if (off >= width) break;
+    const Piece<T> q = shfl_down(p, off);
+    if ((lane & (2 * off - 1)) == 0 && lane + off < width)
+      p = merge<T, OP>(p, q, out, G);
+  }
+  return p;
+}
+
 template <typename T, int OP>
 __global__ void seg_fill(T* __restrict__ out, int G) {
-  long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x; g < G;
-       g += stride)
-    out[g] = Fold<T, OP>::ident();
+  int4 pat;
+  T* pp = reinterpret_cast<T*>(&pat);
+  pp[0] = pp[1] = pp[2] = pp[3] = Fold<T, OP>::ident();
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long n4 = G / 4;
+  int4* out4 = reinterpret_cast<int4*>(out);
+  for (long long i = first; i < n4; i += stride) out4[i] = pat;
+  for (long long g = n4 * 4 + first; g < G; g += stride) out[g] = pp[0];
 }
 
 template <typename T, int OP>
-__global__ void seg_pass1(const T* __restrict__ vals, const int* __restrict__ ids,
-                          long long n, int G, T* __restrict__ out,
-                          T* __restrict__ blk_first, T* __restrict__ blk_last,
-                          int* __restrict__ blk_through,
-                          int* __restrict__ blk_last_id,
-                          int* __restrict__ blk_last_open) {
+__global__ void __launch_bounds__(kThreads)
+    seg_pass1(const T* __restrict__ vals, const int* __restrict__ ids, long long n,
+              int G, int vec, T* __restrict__ out, int* __restrict__ t_fid,
+              int* __restrict__ t_lid, T* __restrict__ t_f, T* __restrict__ t_l,
+              int* __restrict__ t_single) {
   using F = Fold<T, OP>;
-  __shared__ int s_id[kRows];
-  __shared__ T s_v[kRows];
-  __shared__ int t_fid[kThreads], t_cnt[kThreads], t_single[kThreads];
-  __shared__ T t_fsum[kThreads];
+  __shared__ Piece<T> s_warp[kWarps];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long w0 = (long long)blockIdx.x * kRows + (long long)warp * kWarpRows;
 
-  const long long blk0 = (long long)blockIdx.x * kRows;
-  const long long left = n - blk0;
-  const int rows = (int)(left < kRows ? left : kRows);
-  for (int i = threadIdx.x; i < rows; i += kThreads) {
-    s_id[i] = ids[blk0 + i];
-    s_v[i] = vals[blk0 + i];
+  // every load first: 4 rows of each chunk a lane, 16 bytes each; rows past
+  // n read as an out-of-range run
+  int id[kChunks][4];
+  T v[kChunks][4];
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    const long long r = w0 + j * 128 + 4 * lane;
+    if (vec && r + 4 <= n) {
+      const int4 a = __ldg(reinterpret_cast<const int4*>(ids + r));
+      const int4 b = __ldg(reinterpret_cast<const int4*>(vals + r));
+      id[j][0] = a.x, id[j][1] = a.y, id[j][2] = a.z, id[j][3] = a.w;
+      const T* bv = reinterpret_cast<const T*>(&b);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[j][e] = bv[e];
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = r + e < n;
+        id[j][e] = ok ? ids[r + e] : -1;
+        v[j][e] = ok ? vals[r + e] : F::ident();
+      }
+    }
   }
-  __syncthreads();
 
-  const int t = threadIdx.x;
-  const int r0 = t * kItems;
-  const int cnt = rows - r0 < 0 ? 0 : (rows - r0 < kItems ? rows - r0 : kItems);
-  int fid = -1, lid = -1;
-  T fsum = F::ident(), lsum = F::ident();
-  bool single = true;
-  if (cnt > 0) {
-    int cur = s_id[r0];
-    T acc = F::apply(F::ident(), s_v[r0]);
-    bool have_first = false;
-    for (int i = 1; i < cnt; ++i) {
-      int id = s_id[r0 + i];
-      T v = s_v[r0 + i];
-      if (id == cur) {
-        acc = F::apply(acc, v);
-      } else {
-        if (!have_first) {
-          fid = cur;
-          fsum = acc;
-          have_first = true;
-        } else if (in_range(cur, G)) {
-          out[cur] = acc;  // a run wholly inside this thread
+  Piece<T> carry{-1, -1, F::ident(), F::ident(), 1};
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    Piece<T> p{id[j][0], id[j][0], v[j][0], v[j][0], 1};
+#pragma unroll
+    for (int e = 1; e < 4; ++e)
+      p = merge<T, OP>(p, Piece<T>{id[j][e], id[j][e], v[j][e], v[j][e], 1}, out, G);
+    const int id0 = __shfl_sync(kFull, p.fid, 0);
+    Piece<T> c;
+    if (__all_sync(kFull, p.single && p.fid == id0)) {
+      // one run through the chunk: fold it in the same tree, unless it is
+      // out of range (then it is never written, so never folded)
+      T total = p.f;
+      if (in_range(id0, G)) {
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const T o = __shfl_down_sync(kFull, total, off);
+          if ((lane & (2 * off - 1)) == 0) total = F::apply(total, o);
         }
-        cur = id;
-        acc = F::apply(F::ident(), v);
       }
+      c = Piece<T>{id0, id0, total, total, 1};
+    } else {
+      c = warp_merge<T, OP>(p, 32, out, G);
     }
-    lid = cur;
-    lsum = acc;
-    single = !have_first;
-    if (single) {
-      fid = cur;
-      fsum = acc;
-    }
+    if (lane == 0) carry = j == 0 ? c : merge<T, OP>(carry, c, out, G);
   }
-  t_fid[t] = fid;
-  t_fsum[t] = fsum;
-  t_cnt[t] = cnt;
-  t_single[t] = single ? 1 : 0;
+
+  if (lane == 0) s_warp[warp] = carry;
   __syncthreads();
-  if (cnt == 0) return;  // no barrier follows
-
-  // does this thread's first row start its run?
-  bool head;
-  if (r0 > 0)
-    head = s_id[r0 - 1] != fid;
-  else
-    head = blk0 == 0 || ids[blk0 - 1] != fid;
-  if (!single && head && in_range(fid, G)) out[fid] = fsum;
-
-  // Walk the pieces after thread t of the run `g`, whose piece in thread t
-  // ends at that thread's last row. Returns the total; *open is set when
-  // the run reaches the block's last row and goes on into the next block.
-  auto walk = [&](int g, T total, bool* open) -> T {
-    int u = t + 1;
-    bool to_end = true;
-    while (u < kThreads && t_cnt[u] > 0) {
-      if (t_fid[u] != g) {
-        to_end = false;
-        break;
-      }
-      total = F::apply(total, t_fsum[u]);
-      if (!t_single[u]) {
-        to_end = false;
-        break;
-      }
-      ++u;
+  if (warp == 0) {
+    Piece<T> p = s_warp[lane < kWarps ? lane : 0];
+    p = warp_merge<T, OP>(p, kWarps, out, G);
+    if (lane == 0) {
+      t_fid[blockIdx.x] = p.fid;
+      t_lid[blockIdx.x] = p.lid;
+      t_f[blockIdx.x] = p.f;
+      t_l[blockIdx.x] = p.l;
+      t_single[blockIdx.x] = p.single;
     }
-    *open = to_end && rows == kRows && blk0 + kRows < n && ids[blk0 + kRows] == g;
-    return total;
-  };
-
-  if (!single || head) {  // this thread holds the first row of its last run
-    bool open;
-    T total = walk(lid, lsum, &open);
-    if (open) {
-      blk_last[blockIdx.x] = total;
-      blk_last_id[blockIdx.x] = lid;
-      blk_last_open[blockIdx.x] = 1;
-    } else if (in_range(lid, G)) {
-      out[lid] = total;
-    }
-  }
-  if (t == 0 && !head) {  // the run continued from the block before
-    bool open = false;
-    T total = single ? walk(fid, fsum, &open) : fsum;
-    blk_first[blockIdx.x] = total;
-    blk_through[blockIdx.x] = open ? 1 : 0;
   }
 }
 
 template <typename T, int OP>
-__global__ void seg_pass2(T* __restrict__ out, int G, int nblocks,
-                          const T* __restrict__ blk_first,
-                          const T* __restrict__ blk_last,
-                          const int* __restrict__ blk_through,
-                          const int* __restrict__ blk_last_id,
-                          const int* __restrict__ blk_last_open) {
-  int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= nblocks || !blk_last_open[b]) return;
-  T total = blk_last[b];
-  for (int c = b + 1; c < nblocks; ++c) {
-    total = Fold<T, OP>::apply(total, blk_first[c]);
-    if (!blk_through[c]) break;
+__global__ void __launch_bounds__(kMergeThreads)
+    seg_pass2(T* __restrict__ out, int G, int ntiles, const int* __restrict__ t_fid,
+              const int* __restrict__ t_lid, const T* __restrict__ t_f,
+              const T* __restrict__ t_l, const int* __restrict__ t_single) {
+  using F = Fold<T, OP>;
+  __shared__ Piece<T> s_p[kMergeThreads / 32];
+  __shared__ int s_has[kMergeThreads / 32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  auto load = [&](int i) {
+    return Piece<T>{t_fid[i], t_lid[i], t_f[i], t_l[i], t_single[i]};
+  };
+  // thread t folds tiles [t per, (t + 1) per) in order; the threads that
+  // hold tiles are a prefix, so a record with tiles never follows one without
+  const int per = (ntiles + kMergeThreads - 1) / kMergeThreads;
+  const int lo = threadIdx.x * per;
+  const int hi = min(lo + per, ntiles);
+  int has = lo < hi;
+  Piece<T> p{-1, -1, F::ident(), F::ident(), 1};
+  if (has) {
+    p = load(lo);
+    for (int i = lo + 1; i < hi; ++i) p = merge<T, OP>(p, load(i), out, G);
   }
-  int g = blk_last_id[b];
-  if (in_range(g, G)) out[g] = total;
+  auto tree = [&](int width) {
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      if (off >= width) break;
+      const Piece<T> q = shfl_down(p, off);
+      const int qhas = __shfl_down_sync(kFull, has, off);
+      if ((lane & (2 * off - 1)) == 0 && lane + off < width && qhas)
+        p = merge<T, OP>(p, q, out, G);
+    }
+  };
+  tree(32);
+  if (lane == 0) {
+    s_p[warp] = p;
+    s_has[warp] = has;
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  p = s_p[lane];
+  has = s_has[lane];
+  tree(kMergeThreads / 32);
+  if (lane == 0 && has) {  // the input's first and last runs are complete
+    emit<T, OP>(out, p.fid, G, p.f);
+    if (!p.single) emit<T, OP>(out, p.lid, G, p.l);
+  }
 }
 
 template <typename T, int OP>
 void launch(const void* vals, const int* ids, void* out, long long n, int G,
             void* scratch_t, int* scratch_i, cudaStream_t s) {
   if (G > 0) {
-    long long want = ((long long)G + 255) / 256;
-    int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
+    const long long want = ((long long)G / 4 + 255) / 256;
+    const int blocks = (int)(want < 1 ? 1 : (want < 132 * 8 ? want : 132 * 8));
     seg_fill<T, OP><<<blocks, 256, 0, s>>>((T*)out, G);
   }
   if (n <= 0) return;
-  int nblocks = (int)((n + kRows - 1) / kRows);
-  T* blk_first = (T*)scratch_t;
-  T* blk_last = blk_first + nblocks;
-  int* blk_through = scratch_i;
-  int* blk_last_id = scratch_i + nblocks;
-  int* blk_last_open = scratch_i + 2 * nblocks;
-  cudaMemsetAsync(scratch_i, 0, sizeof(int) * 3 * (size_t)nblocks, s);
-  seg_pass1<T, OP><<<nblocks, kThreads, 0, s>>>(
-      (const T*)vals, ids, n, G, (T*)out, blk_first, blk_last, blk_through,
-      blk_last_id, blk_last_open);
-  seg_pass2<T, OP><<<(nblocks + 255) / 256, 256, 0, s>>>(
-      (T*)out, G, nblocks, blk_first, blk_last, blk_through, blk_last_id,
-      blk_last_open);
+  const int ntiles = (int)((n + kRows - 1) / kRows);
+  T* t_f = (T*)scratch_t;
+  T* t_l = t_f + ntiles;
+  int* t_fid = scratch_i;
+  int* t_lid = scratch_i + ntiles;
+  int* t_single = scratch_i + 2 * ntiles;
+  const int vec = ((uintptr_t)vals % 16 == 0) && ((uintptr_t)ids % 16 == 0);
+  seg_pass1<T, OP><<<ntiles, kThreads, 0, s>>>((const T*)vals, ids, n, G, vec,
+                                                (T*)out, t_fid, t_lid, t_f, t_l,
+                                                t_single);
+  seg_pass2<T, OP><<<1, kMergeThreads, 0, s>>>((T*)out, G, ntiles, t_fid, t_lid,
+                                               t_f, t_l, t_single);
 }
 
 }  // namespace
 
-// Rows per pass-1 block; the wrapper sizes the scratch from it.
+// Rows per pass-1 tile; the wrapper sizes the scratch from it.
 extern "C" int repro_segment_reduce_rows_per_block() { return kRows; }
 
 // vals: n float32 (is_float) or int32; ids: n int32 whose in-range ids each
-// form one contiguous run; out: G values. op 0 = sum, 1 = min, 2 = max.
-// scratch_t: 2 * nblocks values of the same type, scratch_i: 3 * nblocks
-// int32, nblocks = ceil(n / rows_per_block). Returns cudaGetLastError().
+// form one contiguous run; out: G values, 16-byte aligned. op 0 = sum, 1 =
+// min, 2 = max. scratch_t: 2 * ntiles values of the same type, scratch_i:
+// 3 * ntiles int32, ntiles = ceil(n / rows_per_block). Returns
+// cudaGetLastError().
 extern "C" int repro_segment_reduce(const void* vals, const int* ids, void* out,
                                     long long n, int G, int op, int is_float,
                                     void* scratch_t, int* scratch_i,

@@ -4,10 +4,13 @@ Replaces ``repro/kernels/flash_attention.py::flash_attention`` (the Pallas
 ``_flash_kernel``): every prefill's self-attention on the serving path
 (``models/layers._sdpa``, through the ``kernels/ops.attention`` seam). The
 TPU kernel's sequential k-block grid axis with VMEM scratch becomes a loop
-inside one CTA per (64-row query tile, head, batch), with the online
-softmax in registers; bf16 runs on ``mma.sync`` tensor-core products. The
-kernel is bound by operations at the serving shape. No atomics: the same
-inputs give the same bits on every run. See the source's note.
+inside one CTA per (128-row query tile, head, batch), with the online
+softmax in registers. bf16 runs on Hopper's asynchronous units: a producer
+warpgroup streams K/V tiles in with TMA through an mbarrier ring, two
+consumer warpgroups run ``wgmma`` products (q k^T from shared memory, p v
+with p from registers). fp32 (tests only) runs FMA loops over 64-row
+tiles. The kernel is bound by operations at the serving shape. No atomics:
+the same inputs give the same bits on every run. See the source's note.
 """
 from __future__ import annotations
 

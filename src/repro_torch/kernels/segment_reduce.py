@@ -3,10 +3,13 @@
 Replaces ``repro/kernels/segment_reduce.py::segment_reduce_tiles`` (the
 Pallas one-hot ``_seg_kernel``): every groupby aggregation, at a segment
 count equal to the table's capacity. The one-hot is O(N * G) and is not
-carried over; the kernel folds runs of equal ids in row order and is bound
-by bytes (one read of each row, one write of each segment). No float atomics:
-the same inputs give the same bits on every run. See the source's note for
-the summation order.
+carried over; the kernel folds runs of equal ids and is bound by bytes (one
+read of each row, one write of each segment). A block reads its 4096-row
+tile once with 16-byte loads and reduces it in registers and shuffles to a
+fixed-size summary (first run, last run); one more block merges the tiles'
+summaries in a tree, so runs that cross tiles are never walked serially.
+No float atomics: the same inputs give the same bits on every run. See the
+source's note for the summation order.
 
 The kernel needs each in-range id's rows to form one contiguous run (ids
 outside the range may lie anywhere: the kernel skips their runs). Groupby,

@@ -182,6 +182,26 @@ def test_segment_reduce_plain_matches_pallas(n, g, op, dtype, sorted_ids):
                                        use_kernel=False)))
 
 
+# groupby's layout (sorted runs, then a -1 tail) around the CUDA kernel's
+# 4096-row tiles: the tail starting mid-tile, just before and just after a
+# tile edge, exactly on one, or absent
+@pytest.mark.parametrize("n,tail", [(4096 + 700, 4096 - 300), (4097, 4095),
+                                    (2 * 4096 + 5, 4096 + 1), (8192, 4096),
+                                    (300, 120), (4096, 4096)])
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_segment_reduce_plain_matches_pallas_on_groupby_layout(n, tail, op, dtype):
+    r = _rng(n + tail)
+    g = 37
+    vals = r.integers(-1000, 1000, n).astype(dtype)
+    seg = np.concatenate([np.sort(r.integers(0, g, tail)),
+                          np.full(n - tail, -1)]).astype(np.int32)
+    got = segment_reduce_tiles(torch.from_numpy(vals), torch.from_numpy(seg), g, op,
+                               contiguous_runs=True)
+    pallas = j_seg(jnp.asarray(vals), jnp.asarray(seg), g, op)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(pallas))
+
+
 def test_segment_reduce_nd_payload_takes_plain_scatter():
     r = _rng(9)
     vals = r.integers(-9, 9, (200, 3)).astype(np.float32)
@@ -281,6 +301,9 @@ def _qkv(b, s, h, kv, hd, seed, scale=1.0):
     (2, 256, 4, 2, 64, 128, 128),
     (1, 512, 8, 8, 32, 256, 128),
     (1, 256, 4, 1, 128, 128, 256),
+    # S around the CUDA kernel's 128-row tiles (one block of S rows here)
+    (1, 127, 4, 2, 64, 128, 128),
+    (1, 129, 4, 1, 128, 512, 512),
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_plain_matches_pallas_and_ref(shape, causal):
@@ -414,6 +437,25 @@ def test_cuda_segment_reduce_matches_plain(cuda, g, op):
         assert torch.equal(
             segment_reduce_tiles(vals, seg, g, op, contiguous_runs=True),
             tref.segment_reduce_ref(vals, seg, g, op))
+    # around the kernel's 4096-row tiles: runs that end exactly at tile
+    # edges, one row before and one after; a -1 tail from mid-tile; one run
+    # over every row; every row out of range
+    tile = 4096
+    for m in (tile - 1, tile, tile + 1, 5 * tile + 3):
+        layouts = [np.zeros(m), np.full(m, -1),
+                   np.where(np.arange(m) < m - m // 3 - 5,
+                            np.sort(r.integers(0, g, m)), -1)]
+        for shift in (-1, 0, 1):
+            layouts.append(np.minimum((np.arange(m) - shift) // tile, g - 1)
+                           .clip(0))
+        for dtype in (np.float32, np.int32):
+            vals = torch.from_numpy(r.integers(-99, 99, m).astype(dtype)).to(cuda)
+            for ids in layouts:
+                seg = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+                got = segment_reduce_tiles(vals, seg, g, op, contiguous_runs=True)
+                assert torch.equal(got, tref.segment_reduce_ref(vals, seg, g, op))
+                assert torch.equal(got, segment_reduce_tiles(vals, seg, g, op,
+                                                             contiguous_runs=True))
 
 
 @pytest.mark.cuda
@@ -443,8 +485,9 @@ def test_cuda_segment_scan_matches_plain(cuda, op):
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("hd", [64, 128])
 def test_cuda_flash_attention_matches_plain(cuda, dtype, tol, hd):
-    # S at and around the 64-row tiles, group sizes 1 and 4, causal or not
-    for s in (1, 63, 64, 65, 1024):
+    # S at and around the bf16 kernel's 128-row tiles and the fp32 one's
+    # 64-row tiles, group sizes 1 and 4, causal or not
+    for s in (1, 63, 64, 65, 127, 128, 129, 255, 1023, 1024):
         for h, kv in ((4, 4), (8, 2)):
             q, k, v = (torch.from_numpy(x.astype(np.float32)).to(cuda, dtype)
                        for x in _qkv(2, s, h, kv, hd, seed=s))
