@@ -11,7 +11,14 @@ Phases (any failed check raises, and the script exits nonzero):
    integer-valued data). segment_reduce also around its 4096-row tiles
    (runs that end at a tile edge, one row before, one after), over one
    run of every row, over rows all out of range, with NaN in min/max, and
-   at phase 7's shape on standard-normal data (``SEG_F32_TOL``). Also
+   at phase 7's shape on standard-normal data (``SEG_F32_TOL``).
+   bucket_histogram at P 1 to 20000 (both sides of the register path's 8
+   buckets), n from 1 around its unrolled step and its grid, views at
+   offsets 1-3, all ids out of range, three calls in a row. segment_scan
+   also with runs ending at its tile edges, views at offsets 1-3, two
+   calls in a row on different n, and standard-normal sums at phase 7's
+   shape and over one run through 4098 tiles: the same bits on 5 runs,
+   within ``SCAN_F32_TOL`` of the plain version in float64. Also
    torch.sort's float order on the card and the shuffle's counts carrier
    in a float32 column.
 3. The main path at a size users run: tables of the paper's relation
@@ -39,11 +46,13 @@ Phases (any failed check raises, and the script exits nonzero):
    version's, one PyTorch library call's where one computes the same
    function (none computes a segmented scan: ``torch.cumsum`` of the same
    column is printed beside it instead), and the least time the card
-   could take (``bound_ms``). Before them, each instance of the kernels
-   redesigned last (flash_fwd_bf16, seg_fill, seg_pass1, seg_pass2) as
-   the build's ``-Xptxas -v`` reported it: registers, spill bytes, static
-   shared memory (flash's dynamic shared memory from the library), and
-   each source's nvcc seconds.
+   could take (``bound_ms``); beside them what the Timer reads for a
+   one-element kernel and for a copy of the histogram's column. Before
+   them, each instance of the kernels redesigned in the last two rounds
+   (flash_fwd_bf16, seg_fill, seg_pass1, seg_pass2, scan_lookback,
+   hist_regs) as the build's ``-Xptxas -v`` reported it: registers, spill
+   bytes, static shared memory (flash's dynamic shared memory from the
+   library), and each source's nvcc seconds.
 
 Then, with the relational tables freed, the serving path (the LM slice):
 
@@ -147,6 +156,18 @@ SEG_TILE = 4096
 # stay much closer. So at that shape the kernel is held against the plain
 # version run in float64, ten times tighter than 0.00244.
 SEG_F32_TOL = 2.44e-4
+# A float32 running sum of L standard-normal rows wanders to ~4 sqrt(L)
+# (~22,000 over phase 2's one run of 4,098 tiles, 31.5 M rows), below
+# 2**15, where a float32 ulp is at most 2**-9. segment_scan's sum for a row
+# adds the tile aggregates before it to the carry one after another (up to
+# 4,097 additions), then about 17 more inside its tile (the warps, chunks
+# and lanes before it, then its group's rows); each addition rounds by up
+# to half an ulp, and independent roundings drift by ~ulp / sqrt(12) x
+# sqrt(4,114) = 0.036 (one standard deviation; the aggregates' own sums
+# stay near 250, where the ulp is 2**-16). 0.5 is ~14 of those. A lost or
+# doubled tile aggregate moves the sums after it by ~88 (sqrt(7680)), a
+# lost row by 0.8 on average, so a wrong fold still shows.
+SCAN_F32_TOL = 0.5
 # groupby two_phase and shuffle's segment_reduce launches over the main path
 # (every aggregate's partial on every shard)
 SEG_REDUCE_LAUNCHES = 120
@@ -177,9 +198,9 @@ RELATIONAL = ("hash32", "bucket_histogram", "bitonic_sort_tiles",
 
 # the __global__ functions of src/repro_torch/kernels/csrc/*.cu, as the
 # profiler names them
-PORTED_KERNELS = ("hash32_kernel", "hist_global", "hist_shared", "bitonic_tile",
-                  "seg_fill", "seg_pass1", "seg_pass2", "scan_reduce",
-                  "scan_carry", "scan_apply", "flash_fwd_bf16", "flash_fwd_f32")
+PORTED_KERNELS = ("hash32_kernel", "hist_regs", "hist_global", "hist_shared",
+                  "bitonic_tile", "seg_fill", "seg_pass1", "seg_pass2",
+                  "scan_lookback", "flash_fwd_bf16", "flash_fwd_f32")
 
 
 class CheckFailed(RuntimeError):
@@ -211,8 +232,10 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-# the kernels whose build report phase 7 prints, and segment_reduce's op codes
-REPORTED_KERNELS = ("flash_fwd_bf16", "seg_fill", "seg_pass1", "seg_pass2")
+# the kernels whose build report phase 7 prints (those redesigned in the
+# last two rounds), and the op codes of the segment kernels
+REPORTED_KERNELS = ("flash_fwd_bf16", "seg_fill", "seg_pass1", "seg_pass2",
+                    "scan_lookback", "hist_regs")
 _OPS = {"0": "sum", "1": "min", "2": "max"}
 
 
@@ -221,7 +244,7 @@ def ptxas_report() -> list[dict]:
     output (``_build.LOGS``) reports it: registers a thread, spill bytes
     (stores, loads) and static shared memory."""
     found = []
-    pat = re.compile(r"\d+(%s)I(\w*?)EE" % "|".join(REPORTED_KERNELS))
+    pat = re.compile(r"\d+(%s)(?:I(\w*?)EE)?" % "|".join(REPORTED_KERNELS))
     for _, log in _build.LOGS.values():
         cur = None
         for line in log.splitlines():
@@ -229,10 +252,10 @@ def ptxas_report() -> list[dict]:
                 m = pat.search(line)
                 cur = None
                 if m:  # template arguments: Li128 (hd), fLi0 (float, sum)
-                    args = m.group(2)
+                    args = m.group(2) or ""
                     t = {"f": "float", "i": "int"}.get(args[:1])
                     n = re.findall(r"Li(\d+)", args)
-                    label = (f"<{n[0]}>" if t is None else
+                    label = ("" if not n else f"<{n[0]}>" if t is None else
                              f"<{t}, {_OPS.get(n[0], n[0])}>")
                     cur = {"kernel": m.group(1) + label}
                     found.append(cur)
@@ -313,6 +336,7 @@ def phase_kernels(dev) -> None:
     odd = torch.from_numpy(rng.integers(-5, 40, 1001).astype(np.int32)).to(dev)
     check(torch.equal(bucket_histogram(odd, 37), ref.histogram_ref(odd, 37)),
           "histogram odd")
+    check_histogram_edges(dev, rng)
 
     # bitonic: every tile size, u32 keys in int64 (wide and with many
     # duplicates), the u32 max key, repeated payloads
@@ -372,12 +396,56 @@ def phase_kernels(dev) -> None:
         f"(tolerance {SEG_F32_TOL:g}), {seg_err['f32']:.3g} of it in float32; "
         f"the same bits on a second run")
     check_segment_scan(dev, rng)
+    scan_err = check_segment_scan_edges(dev, rng)
+    say(f"[2] segment_scan standard-normal f32 sums: at phase 7's shape within "
+        f"{scan_err['phase7']:.3g}, over one run of {scan_err['tiles']} tiles "
+        f"within {scan_err['one_run']:.3g} of the plain version in float64 "
+        f"(tolerance {SCAN_F32_TOL:g}); the same bits on 5 runs of each")
     check_flash(dev, rng)
     torch.cuda.synchronize()
 
 
 def _bits(c: torch.Tensor) -> torch.Tensor:
     return c.view(torch.int32) if c.dtype == torch.float32 else c
+
+
+def check_histogram_edges(dev, rng) -> None:
+    """bucket_histogram where its designs have edges: P on both sides of the
+    register path's 8 buckets and up to the global path (ids over [-1, P],
+    so some fall above the range); n of 1, 3, 4, 5 and around one block's
+    unrolled step and the whole grid's (``repro_histogram_rows_per_step``
+    x ``repro_histogram_max_blocks``), also over two steps; views at
+    offsets 1-3 (an unaligned head, and a ragged tail); every id out of
+    range (-1 and P);
+    the same counts on three calls in a row. Calls of different n and P
+    follow one another, so the last-block ticket must be back at 0 after
+    every call."""
+    def same(name, x, p):
+        want = ref.histogram_ref(x, p)
+        for i in range(3):
+            check(torch.equal(bucket_histogram(x, p), want),
+                  f"histogram {name} P={p} (call {i + 1} of 3)")
+
+    n = 1 << 22
+    for p in (1, 7, 8, 9, 16, 17, 64, 1000, 20000):
+        x = torch.from_numpy(rng.integers(-1, p + 1, n).astype(np.int32)).to(dev)
+        same(f"n={n}", x, p)
+    lib = _build.library()
+    step = lib.repro_histogram_rows_per_step()
+    grid = step * lib.repro_histogram_max_blocks()
+    for m in (1, 3, 4, 5, step - 1, step, step + 1, grid - 1, grid, grid + 1,
+              2 * grid + 5):
+        for p in (3, 8, 17):
+            x = torch.from_numpy(rng.integers(-1, p + 1, m).astype(np.int32)).to(dev)
+            same(f"n={m}", x, p)
+    base = torch.from_numpy(rng.integers(-1, 9, n + 8).astype(np.int32)).to(dev)
+    for off in (1, 2, 3):
+        for m in (n, n - 5, 2, 7):
+            for p in (8, 17):
+                same(f"view at offset {off}, n={m}", base[off:off + m], p)
+    for p in (8, 17):
+        same("all ids -1", torch.full((n,), -1, dtype=torch.int32, device=dev), p)
+        same("all ids P", torch.full((n,), p, dtype=torch.int32, device=dev), p)
 
 
 def check_segment_reduce_edges(dev, rng) -> dict[str, float]:
@@ -492,6 +560,76 @@ def check_segment_scan(dev, rng) -> None:
         check(torch.equal(segment_scan_tiles(v, seg, "sum", inclusive=inclusive),
                           ref.segment_scan_ref(v, seg, "sum", inclusive)),
               f"segment_scan int32 wrap inclusive={inclusive}")
+
+
+def check_segment_scan_edges(dev, rng) -> dict[str, float]:
+    """segment_scan where the single-pass design has edges: runs that end
+    at the tile edges, one row before and one after; views at offsets 1, 2
+    and 3 of both ids and values (tiles start at the inputs' 16-byte
+    boundary) and at different offsets (4-byte loads); two calls in a row on
+    different n, each equal to the plain version; sum/min/max x f32/i32 x
+    inclusive/exclusive on integer values, bit for bit. Then standard-normal
+    f32 sums at phase 7's shape (2**24 slots, 2 groups over the first 2**22,
+    a -1 tail) and over one run through more than 4096 tiles: the same bits
+    on 5 runs, within ``SCAN_F32_TOL`` of the plain version in float64.
+    Returns the largest differences there and the run's tile count."""
+    tile = _build.library().repro_segment_scan_rows_per_block()
+
+    def exact(name, v, seg):
+        for op in ("sum", "min", "max"):
+            for inclusive in (True, False):
+                got = segment_scan_tiles(v, seg, op, inclusive=inclusive)
+                want = ref.segment_scan_ref(v, seg, op, inclusive)
+                check(torch.equal(_bits(got), _bits(want)),
+                      f"segment_scan {name} {v.dtype} {op} inclusive={inclusive}")
+
+    def column(n, dt):
+        return torch.from_numpy(rng.integers(-99, 99, n).astype(dt)).to(dev)
+
+    n = 5 * tile + 3
+    for shift in (-1, 0, 1):
+        seg = torch.from_numpy(np.clip((np.arange(n) - shift) // tile, 0, None)
+                               .astype(np.int32)).to(dev)
+        for dt in (np.float32, np.int32):
+            exact(f"runs ending at tile edges {shift:+d}", column(n, dt), seg)
+    n = 3 * tile + 50
+    ids = np.sort(rng.integers(0, 60, n + 8)).astype(np.int32)
+    ids[n - n // 3:] = -1
+    ids_t = torch.from_numpy(ids).to(dev)
+    for dt in (np.float32, np.int32):
+        vals = column(n + 8, dt)
+        for oi, ov in ((1, 1), (2, 2), (3, 3), (1, 2), (0, 3)):
+            for m in (n, 1, 6):
+                exact(f"views at offsets ids {oi} values {ov} n={m}",
+                      vals[ov:ov + m], ids_t[oi:oi + m])
+        # two calls in a row on different n
+        big, small = (vals[:n], ids_t[:n]), (vals[:tile + 1], ids_t[:tile + 1])
+        for v, seg in (big, small, big):
+            exact(f"calls in a row n={v.numel()}", v, seg)
+
+    errs = {}
+    shapes = {"phase7": P * (4 * ROWS // P), "one_run": (4096 + 1) * tile + 5}
+    for name, n in shapes.items():
+        if name == "phase7":
+            ids = np.full(n, -1, np.int32)
+            ids[:ROWS] = np.sort(rng.integers(0, 2, ROWS))
+        else:
+            ids = np.zeros(n, np.int32)
+            errs["tiles"] = -(-n // tile)
+        seg = torch.from_numpy(ids).to(dev)
+        v = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+        runs = [_bits(segment_scan_tiles(v, seg, "sum")) for _ in range(5)]
+        check(all(torch.equal(runs[0], r) for r in runs[1:]),
+              f"segment_scan standard-normal sums ({name}): bits differ "
+              f"between runs")
+        got = runs[0].view(torch.float32).double()
+        errs[name] = float((got - ref.segment_scan_ref(v.double(), seg, "sum"))
+                           .abs().max())
+        check(errs[name] <= SCAN_F32_TOL,
+              f"segment_scan standard-normal sums ({name}) differ from the "
+              f"float64 plain version by {errs[name]}")
+        del runs, got
+    return errs
 
 
 def check_flash(dev, rng) -> None:
@@ -824,10 +962,16 @@ def phase_timing(dev, rows: int) -> dict[str, dict]:
     plain = timer(lambda: ref.histogram_ref(ids, P))
     lib = timer(lambda: torch.bincount(shifted, minlength=P + 1))
     bms, by = bound_ms(rows * 4 + P * 4, rows * 3)
+    # what the Timer reads for a one-element kernel (its floor), and for a
+    # copy of the same 16 MiB column
+    one = torch.zeros(1, device=dev)
+    floor_ms = timer(lambda: one.add_(1))
+    copy_ms = timer(lambda: ids.clone())
     out["bucket_histogram"] = dict(
         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
         max_abs_err=float((bucket_histogram(ids, P)
-                           - ref.histogram_ref(ids, P)).abs().max()))
+                           - ref.histogram_ref(ids, P)).abs().max()),
+        floor_ms=floor_ms, copy_ms=copy_ms)
 
     # bitonic: the two-phase combine's one 2048-pair tile of u32 keys
     tile = 2048
@@ -1141,6 +1285,10 @@ def main() -> None:
     t = times["segment_scan_tiles"]
     say(f"[7] torch.cumsum (unsegmented) of segment_scan's column, "
         f"{t['n']} int32: {t['cumsum_ms']:.4f} ms on {card}")
+    t = times["bucket_histogram"]
+    say(f"[7] Timer floor (a one-element add): {t['floor_ms']:.4f} ms; a copy "
+        f"of bucket_histogram's {4 * rows >> 20} MiB column: {t['copy_ms']:.4f} "
+        f"ms on {card}")
     say(f"[7] flash_attention: SDPA's output differs from the plain version's "
         f"by {times['flash_attention']['library_max_abs_err']:.4g}")
     torch.cuda.empty_cache()

@@ -1,17 +1,23 @@
 """Bucket histogram: the wrapper of ``csrc/histogram.cu``.
 
 Replaces ``repro/kernels/histogram.py::bucket_histogram`` (the Pallas
-``_hist_kernel``): the per-destination row counts every shuffle needs. On
-this card it is bound by bytes in principle (4 B per id) and by atomic
-contention in practice (P = 8 counters); the kernel keeps a per-block
-shared-memory histogram fed by warp-aggregated integer atomics, so the
-counts are exact and the same on every run.
+``_hist_kernel``): the per-destination row counts every shuffle needs,
+bound by bytes (4 B per id). For the shuffles' small P (at most 8) the
+kernel counts in registers from 16-byte loads and the last block to finish
+sums the blocks' rows of a scratch buffer into the output: one launch, no
+memset. Larger P keeps a per-block shared-memory histogram fed by
+warp-aggregated integer atomics. Integer counts: exact and the same on
+every run.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ref
+
+# (device index, stream) -> the small-P path's scratch: the blocks' rows and
+# the last-block ticket, zeroed once here; each call leaves the ticket at 0
+_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def bucket_histogram(ids: torch.Tensor, num_buckets: int) -> torch.Tensor:
@@ -33,9 +39,15 @@ def bucket_histogram(ids: torch.Tensor, num_buckets: int) -> torch.Tensor:
     ids = ids.contiguous()
     out = torch.empty(num_buckets, dtype=torch.int32, device=ids.device)
     if num_buckets:
-        check("bucket_histogram", library().repro_histogram(
+        lib = library()
+        stream = stream_ptr(ids)
+        key = (ids.device.index, stream)
+        if key not in _SCRATCH:
+            _SCRATCH[key] = torch.zeros(lib.repro_histogram_scratch_ints(),
+                                        dtype=torch.int32, device=ids.device)
+        check("bucket_histogram", lib.repro_histogram(
             ids.data_ptr(), out.data_ptr(), ids.numel(), num_buckets,
-            stream_ptr(ids)))
+            _SCRATCH[key].data_ptr(), stream))
         bucket_histogram.launches += 1
     return out
 

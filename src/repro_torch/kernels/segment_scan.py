@@ -4,10 +4,13 @@ Replaces ``repro/kernels/segment_scan.py::segment_scan_tiles`` (the Pallas
 ``_scan_kernel``): every ``rank``, ``dense_rank``, ``cumsum``, ``cummax``
 and ``running_mean`` of the window functions. The TPU kernel's triangular
 same-segment mask and its carry through an in-order grid are not carried
-over; the kernel is a three-launch reduce-then-scan, bound by bytes (one
-read of each value and id, one write of each output). No atomics: the same
-inputs give the same bits on every run. See the source's note for the
-summation order.
+over; the kernel is a single-pass scan with decoupled look-back, one
+launch a call, bound by bytes (one read of each value and id, one write of
+each output). Its status words carry the call's epoch, so the scratch that
+holds them is zeroed only when it is made. Each tile's carry is the left
+fold of the tile aggregates before it, in tile order, so the same inputs
+give the same bits on every run. See the source's note for the summation
+order.
 """
 from __future__ import annotations
 
@@ -16,6 +19,24 @@ import torch
 from repro_torch.kernels import ref
 
 OPS = ("sum", "min", "max")
+
+
+# (device index, stream) -> [status words, the last call's epoch]: zeroed
+# once when made (or grown), each call tags its words with the next epoch
+_SCRATCH: dict[tuple[int, int], list] = {}
+
+
+def _scratch(device: torch.device, stream: int, words: int, epochs: int):
+    entry = _SCRATCH.get((device.index, stream))
+    if entry is None or entry[0].numel() < words:
+        size = max(words, 2 * entry[0].numel() if entry else 0)
+        entry = _SCRATCH[(device.index, stream)] = [
+            torch.zeros(size, dtype=torch.int64, device=device), 0]
+    if entry[1] == epochs:  # every epoch used: start again from clean words
+        entry[0].zero_()
+        entry[1] = 0
+    entry[1] += 1
+    return entry[0], entry[1]
 
 
 def segment_scan_tiles(values: torch.Tensor, seg_ids: torch.Tensor,
@@ -51,13 +72,15 @@ def segment_scan_tiles(values: torch.Tensor, seg_ids: torch.Tensor,
     if n == 0:
         return out
     lib = library()
-    nblocks = -(-n // lib.repro_segment_scan_rows_per_block())
-    scratch_t = torch.empty(2 * nblocks, dtype=values.dtype, device=values.device)
-    scratch_i = torch.empty(nblocks, dtype=torch.int32, device=values.device)
+    # the ticket and one status word a tile; the tiles start up to 3 rows
+    # before row 0 (at the inputs' first 16-byte boundary)
+    words = -(-(n + 3) // lib.repro_segment_scan_rows_per_block()) + 1
+    scratch, epoch = _scratch(values.device, stream_ptr(values), words,
+                              lib.repro_segment_scan_epochs())
     check("segment_scan_tiles", lib.repro_segment_scan(
         values.data_ptr(), seg_ids.data_ptr(), out.data_ptr(), n, OPS.index(op),
         int(values.dtype == torch.float32), int(inclusive),
-        scratch_t.data_ptr(), scratch_i.data_ptr(), stream_ptr(values)))
+        scratch.data_ptr(), epoch, stream_ptr(values)))
     segment_scan_tiles.launches += 1
     return out
 

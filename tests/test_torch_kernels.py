@@ -9,6 +9,9 @@ own tolerances (``tests/test_kernels.py``: 2e-5 in fp32, 2e-2 in bf16; the
 softmax sums run in another order). The cases marked ``cuda`` hold each
 CUDA kernel against its plain version on the card and skip without one.
 """
+import pathlib
+import re
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -37,6 +40,22 @@ from repro_torch.utils import resolve_device  # noqa: E402
 
 def _rng(seed):
     return np.random.default_rng(seed)
+
+
+def _cu_constant(source, name):
+    """A ``constexpr int`` of a CUDA source in repro_torch/kernels/csrc."""
+    text = (pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch" /
+            "kernels" / "csrc" / source).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+# the CUDA kernels' edges, read from their sources: segment_scan's rows per
+# tile, and the ids one block of bucket_histogram's register path reads in
+# one unrolled step (16-byte loads of 4 ids)
+SCAN_TILE = (_cu_constant("segment_scan.cu", "kRowThreads")
+             * _cu_constant("segment_scan.cu", "kItems"))
+HIST_STEP = (_cu_constant("histogram.cu", "kRegThreads")
+             * _cu_constant("histogram.cu", "kUnroll") * 4)
 
 
 def _column(dtype, n, seed):
@@ -89,7 +108,12 @@ def test_hash_columns_matches_reference():
 # --- histogram ----------------------------------------------------------------
 
 
-@pytest.mark.parametrize("n,buckets", [(1, 2), (100, 7), (5000, 8), (4096, 256)])
+@pytest.mark.parametrize("n,buckets", [
+    (1, 2), (100, 7), (5000, 8), (4096, 256),
+    # P around the register path's 8 buckets and beyond; n of 1, 3, 4, 5
+    # and around one block's unrolled step
+    (1, 1), (3, 9), (4, 17), (5, 64), (HIST_STEP - 1, 1), (HIST_STEP, 9),
+    (HIST_STEP + 1, 17), (HIST_STEP + 5, 64)])
 def test_histogram_plain_matches_pallas_and_ref(n, buckets):
     ids = _rng(n).integers(-3, buckets + 3, n).astype(np.int32)
     got = bucket_histogram(torch.from_numpy(ids), buckets)
@@ -233,7 +257,8 @@ def _scan_ids(n, seed, tail=True):
     return ids
 
 
-@pytest.mark.parametrize("n", [1, 1000, 3000])
+# n around the CUDA kernel's tile (SCAN_TILE rows)
+@pytest.mark.parametrize("n", [1, 1000, 3000, SCAN_TILE - 1, SCAN_TILE + 1])
 @pytest.mark.parametrize("op", ["sum", "min", "max"])
 @pytest.mark.parametrize("dtype", [np.float32, np.int32])
 @pytest.mark.parametrize("inclusive", [True, False])
@@ -399,9 +424,32 @@ def test_cuda_hash32_matches_plain(cuda, dtype):
 
 @pytest.mark.cuda
 def test_cuda_histogram_matches_plain(cuda):
-    ids = torch.from_numpy(_rng(2).integers(-1, 8, 1 << 20).astype(np.int32)).to(cuda)
+    r = _rng(2)
+    ids = torch.from_numpy(r.integers(-1, 8, 1 << 20).astype(np.int32)).to(cuda)
     for p in (8, 1000, 20000):
         assert torch.equal(bucket_histogram(ids, p), tref.histogram_ref(ids, p))
+    # P on both sides of the register path's 8 buckets (ids over [-1, P]);
+    # n of 1, 3, 4, 5 and around one block's unrolled step and the grid's;
+    # views at offsets 1-3; every id out of range; three calls in a row,
+    # of changing n and P (the last-block ticket is back at 0 after each)
+    grid = (HIST_STEP * _cu_constant("histogram.cu", "kRegBlocksPerSM")
+            * torch.cuda.get_device_properties(cuda).multi_processor_count)
+    for p in (1, 7, 8, 9, 16, 17, 64, 1000, 20000):
+        for n in (1, 3, 4, 5, HIST_STEP - 1, HIST_STEP, HIST_STEP + 1, grid - 1,
+                  grid + 1, 2 * grid + 5):
+            x = torch.from_numpy(r.integers(-1, p + 1, n).astype(np.int32)).to(cuda)
+            want = tref.histogram_ref(x, p)
+            for _ in range(3):
+                assert torch.equal(bucket_histogram(x, p), want), (p, n)
+    base = torch.from_numpy(r.integers(-1, 9, 100_008).astype(np.int32)).to(cuda)
+    for off in (1, 2, 3):
+        for n in (100_000, 99_995, 2, 7):
+            x = base[off:off + n]
+            for p in (8, 17):
+                assert torch.equal(bucket_histogram(x, p), tref.histogram_ref(x, p))
+    for fill in (-1, 8):
+        x = torch.full((100_001,), fill, dtype=torch.int32, device=cuda)
+        assert torch.equal(bucket_histogram(x, 8), tref.histogram_ref(x, 8))
 
 
 @pytest.mark.cuda
@@ -478,6 +526,52 @@ def test_cuda_segment_scan_matches_plain(cuda, op):
                     bits = torch.int32
                     assert torch.equal(got.view(bits), want.view(bits)), \
                         (n, dtype, inclusive)
+    # the single-pass kernel's edges: n around its tile and runs that end at
+    # tile edges, one row before and one after; views at offsets 1-3 of ids
+    # and values (and at different offsets); two calls in a row on
+    # different n; n = 1
+    tile = SCAN_TILE
+
+    def exact(v, seg):
+        for inclusive in (True, False):
+            got = segment_scan_tiles(v, seg, op, inclusive=inclusive)
+            want = tref.segment_scan_ref(v, seg, op, inclusive)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+    for n in (1, tile - 1, tile, tile + 1, 5 * tile + 3):
+        for shift in (-1, 0, 1):
+            seg = torch.from_numpy(np.clip((np.arange(n) - shift) // tile, 0, None)
+                                   .astype(np.int32)).to(cuda)
+            for dtype in (np.float32, np.int32):
+                exact(torch.from_numpy(r.integers(-99, 99, n).astype(dtype)).to(cuda),
+                      seg)
+    n = 3 * tile + 50
+    ids = torch.from_numpy(_scan_ids(n + 8, seed=7)).to(cuda)
+    for dtype in (np.float32, np.int32):
+        vals = torch.from_numpy(r.integers(-99, 99, n + 8).astype(dtype)).to(cuda)
+        for oi, ov in ((1, 1), (2, 2), (3, 3), (1, 2), (0, 3)):
+            for m in (n, 6, 1):
+                exact(vals[ov:ov + m], ids[oi:oi + m])
+        for m in (n, tile + 1, n):
+            exact(vals[:m], ids[:m])
+
+
+@pytest.mark.cuda
+def test_cuda_segment_scan_float_sums_same_bits(cuda):
+    # standard-normal f32 sums over one run through more than 4096 tiles and
+    # a sorted layout with a -1 tail: the same bits on 5 runs (the carry is
+    # the left fold of the tile aggregates, wherever a look-back stops), and
+    # within 0.5 of the plain version in float64 (chip_smoke's SCAN_F32_TOL)
+    r = _rng(8)
+    n = 4097 * SCAN_TILE + 5
+    for ids in (np.zeros(n, np.int32), _scan_ids(n, seed=9)):
+        seg = torch.from_numpy(ids).to(cuda)
+        v = torch.from_numpy(r.standard_normal(n).astype(np.float32)).to(cuda)
+        runs = [segment_scan_tiles(v, seg, "sum").view(torch.int32) for _ in range(5)]
+        assert all(torch.equal(runs[0], x) for x in runs[1:])
+        err = (runs[0].view(torch.float32).double()
+               - tref.segment_scan_ref(v.double(), seg, "sum")).abs().max()
+        assert float(err) <= 0.5
 
 
 @pytest.mark.cuda
