@@ -18,20 +18,28 @@ Phases (any failed check raises, and the script exits nonzero):
    also with runs ending at its tile edges, views at offsets 1-3, two
    calls in a row on different n, and standard-normal sums at phase 7's
    shape and over one run through 4098 tiles: the same bits on 5 runs,
-   within ``SCAN_F32_TOL`` of the plain version in float64. Also
-   torch.sort's float order on the card and the shuffle's counts carrier
-   in a float32 column.
+   within ``SCAN_F32_TOL`` of the plain version in float64.
+   hash32_partition with one and three key columns (int32, uint32, float32
+   with +-0, NaN, +-inf) at the path's shape, P 1, 7, 8 and 4096,
+   row_count 0, one, partial and full, views at offsets 1-3 and ragged n.
+   bitonic_sort_tiles at every tile size also on int64 keys over the whole
+   range, equal keys, descending keys, int64-max keys and repeated
+   payloads; bitonic_sort_permutation at C 1, 255, 256, 300, 1000, 2047
+   and 2048 with the u32 max key among the rows, int32/uint32/float32 keys,
+   row_count 0 to full, a view at offset 1. Also torch.sort's float order
+   on the card and the shuffle's counts carrier in a float32 column.
 3. The main path at a size users run: tables of the paper's relation
    (int32 key + 3 float32, 16 B a row), 8 virtual shards x 2**22 rows each
    (512 MiB a table), through ``DistContext``: the sort join, the hash join,
-   groupby two_phase (bucket 256, so the combine sorts 2048 rows on the
-   bitonic kernel) and groupby shuffle (segment counts of 8 M) on
+   groupby two_phase (bucket 256, so the combine sorts 2048 rows through
+   bitonic_sort_permutation) and groupby shuffle (segment counts of 8 M) on
    ``key_range=1000``, the global sort, and the window functions (every
    one of them) over a fourth table of 16 B rows with 12 groups, so most
    groups span shards (range bucket 2**21, 2**24 slots a shard). Launch
-   counts are zeroed just before and read just after; every kernel must
-   have launched, segment_scan_tiles 6 times a shard and
-   segment_reduce_tiles ``SEG_REDUCE_LAUNCHES`` times.
+   counts are zeroed just before and read just after, and each must equal
+   ``MAIN_PATH_LAUNCHES``: hash32_partition 48, the column hash32 16,
+   bucket_histogram 64, bitonic_sort_permutation 8, the tile entry 0,
+   segment_scan_tiles 48 and segment_reduce_tiles 120.
 4. The same calls under ``oracle_scope()`` (every plain version, on the
    card, no launches): the same rows, per-shard row counts and shuffle
    stats, bit for bit (the window's rows in order); groupby's float sums
@@ -47,12 +55,17 @@ Phases (any failed check raises, and the script exits nonzero):
    function (none computes a segmented scan: ``torch.cumsum`` of the same
    column is printed beside it instead), and the least time the card
    could take (``bound_ms``); beside them what the Timer reads for a
-   one-element kernel and for a copy of the histogram's column. Before
-   them, each instance of the kernels redesigned in the last two rounds
+   one-element kernel and for a copy of the histogram's column, and for
+   hash32_partition and bitonic_sort_permutation the torch chain each
+   replaced (``replaced_chain_ms``). The bitonic bounds take the largest of
+   bytes, one SM's operations and the network's dependent chain, timed by
+   a one-warp probe in this run (``bitonic_bound``). Before them, each
+   instance of the kernels redesigned in the last three rounds
    (flash_fwd_bf16, seg_fill, seg_pass1, seg_pass2, scan_lookback,
-   hist_regs) as the build's ``-Xptxas -v`` reported it: registers, spill
-   bytes, static shared memory (flash's dynamic shared memory from the
-   library), and each source's nvcc seconds.
+   hist_regs, hash32_partition_kernel, bitonic_tile, bitonic_perm) as the
+   build's ``-Xptxas -v`` reported it: registers, stack frame, spill bytes,
+   static shared memory (flash's dynamic shared memory from the library),
+   and each source's nvcc seconds.
 
 Then, with the relational tables freed, the serving path (the LM slice):
 
@@ -112,9 +125,10 @@ from repro_torch.data.synthetic import random_table  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
-from repro_torch.kernels.bitonic import bitonic_sort_tiles  # noqa: E402
+from repro_torch.kernels.bitonic import (bitonic_sort_permutation,  # noqa: E402
+                                         bitonic_sort_tiles, latency_probe)
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
-from repro_torch.kernels.hash64 import hash32  # noqa: E402
+from repro_torch.kernels.hash64 import hash32, hash32_partition  # noqa: E402
 from repro_torch.kernels.histogram import bucket_histogram  # noqa: E402
 from repro_torch.kernels.segment_reduce import segment_reduce_tiles  # noqa: E402
 from repro_torch.kernels.segment_scan import segment_scan_tiles  # noqa: E402
@@ -175,12 +189,18 @@ SEG_REDUCE_LAUNCHES = 120
 KERNELS = {
     "hash32": (hash32, "src/repro_torch/kernels/csrc/hash32.cu",
                "src/repro/kernels/hash64.py:41"),
+    "hash32_partition": (hash32_partition,
+                         "src/repro_torch/kernels/csrc/hash32.cu",
+                         "src/repro/kernels/hash64.py:41"),
     "bucket_histogram": (bucket_histogram,
                          "src/repro_torch/kernels/csrc/histogram.cu",
                          "src/repro/kernels/histogram.py:42"),
     "bitonic_sort_tiles": (bitonic_sort_tiles,
                            "src/repro_torch/kernels/csrc/bitonic.cu",
                            "src/repro/kernels/bitonic.py:71"),
+    "bitonic_sort_permutation": (bitonic_sort_permutation,
+                                 "src/repro_torch/kernels/csrc/bitonic.cu",
+                                 "src/repro/kernels/bitonic.py:71"),
     "segment_reduce_tiles": (segment_reduce_tiles,
                              "src/repro_torch/kernels/csrc/segment_reduce.cu",
                              "src/repro/kernels/segment_reduce.py:79"),
@@ -191,15 +211,28 @@ KERNELS = {
                         "src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:78"),
 }
+# each relational kernel's launches over phase 3's main path, exactly:
+# hash32_partition once a shard for each hash shuffle (the sort join's and
+# the hash join's two sides, groupby two_phase's and shuffle's: 6 a shard);
+# the column hash32 by the hash join's local key hash (two sides a shard);
+# bucket_histogram once a shard for every shuffle (those six, the sort's and
+# the window's); bitonic_sort_permutation by groupby two_phase's combine (a
+# 2048-row sort a shard); the tile entry by nothing on the path (its one
+# caller was that combine's sort); the scans by the window's six scans a
+# shard; segment_reduce by every aggregate's partial on every shard
+MAIN_PATH_LAUNCHES = {
+    "hash32": 2 * P, "hash32_partition": 6 * P, "bucket_histogram": 8 * P,
+    "bitonic_sort_tiles": 0, "bitonic_sort_permutation": P,
+    "segment_reduce_tiles": SEG_REDUCE_LAUNCHES, "segment_scan_tiles": 6 * P}
 # the relational main path's kernels; flash_attention is the serving path's
-RELATIONAL = ("hash32", "bucket_histogram", "bitonic_sort_tiles",
-              "segment_reduce_tiles", "segment_scan_tiles")
+RELATIONAL = tuple(MAIN_PATH_LAUNCHES)
 
 
 # the __global__ functions of src/repro_torch/kernels/csrc/*.cu, as the
 # profiler names them
-PORTED_KERNELS = ("hash32_kernel", "hist_regs", "hist_global", "hist_shared",
-                  "bitonic_tile", "seg_fill", "seg_pass1", "seg_pass2",
+PORTED_KERNELS = ("hash32_kernel", "hash32_partition_kernel", "hist_regs",
+                  "hist_global", "hist_shared", "bitonic_tile", "bitonic_perm",
+                  "seg_fill", "seg_pass1", "seg_pass2",
                   "scan_lookback", "flash_fwd_bf16", "flash_fwd_f32")
 
 
@@ -225,6 +258,14 @@ def launches() -> dict[str, int]:
     return {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
 
 
+def sm_clock() -> str:
+    """The SM clock nvidia-smi reads now (MHz)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -233,16 +274,17 @@ def nvidia_smi() -> str:
 
 
 # the kernels whose build report phase 7 prints (those redesigned in the
-# last two rounds), and the op codes of the segment kernels
+# last three rounds), and the op codes of the segment kernels
 REPORTED_KERNELS = ("flash_fwd_bf16", "seg_fill", "seg_pass1", "seg_pass2",
-                    "scan_lookback", "hist_regs")
+                    "scan_lookback", "hist_regs", "hash32_partition_kernel",
+                    "bitonic_tile", "bitonic_perm")
 _OPS = {"0": "sum", "1": "min", "2": "max"}
 
 
 def ptxas_report() -> list[dict]:
     """Every instance of ``REPORTED_KERNELS`` as the build's ``-Xptxas -v``
-    output (``_build.LOGS``) reports it: registers a thread, spill bytes
-    (stores, loads) and static shared memory."""
+    output (``_build.LOGS``) reports it: registers a thread, stack frame
+    and spill bytes (stores, loads) and static shared memory."""
     found = []
     pat = re.compile(r"\d+(%s)(?:I(\w*?)EE)?" % "|".join(REPORTED_KERNELS))
     for _, log in _build.LOGS.values():
@@ -262,6 +304,8 @@ def ptxas_report() -> list[dict]:
             elif cur is not None and "spill stores" in line:
                 st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
                 cur["spill_store_bytes"], cur["spill_load_bytes"] = int(st), int(ld)
+                frame = re.search(r"(\d+) bytes stack frame", line)
+                cur["stack_frame_bytes"] = int(frame.group(1)) if frame else 0
             elif cur is not None and "Used" in line and "registers" in line:
                 cur["registers"] = int(re.search(r"Used (\d+) registers",
                                                  line).group(1))
@@ -305,6 +349,28 @@ def bound_ms(nbytes: float, ops: float,
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
+def bitonic_bound(nbytes: float, tile: int, probe: dict,
+                  sms: int) -> tuple[float, str]:
+    """The least time of one bitonic tile: the largest of its bytes over
+    HBM's rate, its operations at one SM's share of the scalar rate (a tile
+    is one block's work), and its dependent chain. The network has
+    log2(T)(log2(T)+1)/2 passes, each depending on the one before; a pass
+    is at least one 64-bit compare-exchange in registers (setp.lt.u64 and
+    two selp.b64, packed keys: the fewest instructions either entry's step
+    can take), whose latency ``latency_probe`` measures on this card in this
+    run (ns a step, at the SM clock of the run). Operations: a
+    compare-exchange is a 64-bit compare and two 64-bit selects, 6 32-bit
+    operations, for each of the T/2 pairs of every pass."""
+    log_t = tile.bit_length() - 1
+    passes = log_t * (log_t + 1) // 2
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": passes * (tile // 2) * 6
+             / (SCALAR_OPS_PER_S / sms) * 1e3,
+             "latency": passes * probe["register_ns_per_step"] * 1e-6}
+    by = max(terms, key=terms.get)
+    return terms[by], by
+
+
 # ---------------------------------------------------------------------------
 # phase 2: each kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -327,6 +393,7 @@ def phase_kernels(dev) -> None:
         # an unaligned view takes the scalar path
         check(torch.equal(hash32(x[1:], 7), ref.hash32_ref(x[1:], 7)),
               f"hash32 unaligned {c.dtype}")
+    check_hash_partition(dev, [torch.from_numpy(c).to(dev) for c in cols])
 
     # histogram: P = 8 with -1 padding, and large P
     ids = torch.from_numpy(rng.integers(-1, 8, n).astype(np.int32)).to(dev)
@@ -351,6 +418,8 @@ def phase_kernels(dev) -> None:
             rk, rv = ref.sort_tiles_ref(k, v, tile)
             check(torch.equal(ko, rk) and torch.equal(vo, rv),
                   f"bitonic tile={tile} keys < {hi}")
+    check_bitonic_edges(dev, rng)
+    check_bitonic_permutation(dev, rng)
     # through sort_pairs, n not a power of two, with the u32 max key
     for m in (1, 300, 1000, 2047):
         keys = rng.integers(0, 20, m).astype(np.int64)
@@ -407,6 +476,85 @@ def phase_kernels(dev) -> None:
 
 def _bits(c: torch.Tensor) -> torch.Tensor:
     return c.view(torch.int32) if c.dtype == torch.float32 else c
+
+
+def check_hash_partition(dev, cols: list[torch.Tensor]) -> None:
+    """hash32_partition against its plain version, bit for bit: one key
+    column (each of int32, uint32 and float32 with +-0, NaN and +-inf) and
+    all three; phase 7's shape (2**22 rows, P 8, row_count rows - rows/16)
+    and P 1, 7, 4096; row_count 0, one, partial and full; views at offsets
+    1-3 (the scalar path) and ragged lengths (n 1, 5, 4099)."""
+    n = cols[0].shape[0]
+
+    def same(name, cs, rc, p, seed=7):
+        r = torch.tensor(rc, dtype=torch.int32, device=dev)
+        got = hash32_partition(cs, r, p, seed)
+        check(torch.equal(got, ref.hash_partition_ids_ref(cs, r, p, seed)),
+              f"hash32_partition {name} row_count={rc} P={p}")
+
+    sets = [[c] for c in cols] + [cols]
+    for cs in sets:
+        name = "+".join(str(c.dtype).split(".")[1] for c in cs)
+        for p in (8, 1, 7, 4096):
+            for rc in (n - n // 16, 0, 1, n):
+                same(name, cs, rc, p)
+        for off in (1, 2, 3):
+            for m in (n - 3, 4099, 5, 1):
+                view = [c[off:off + m] for c in cs]
+                for p in (8, 4096):
+                    same(f"{name} view at offset {off}, n={m}", view, m - m // 3, p)
+    # columns at different offsets (some aligned, some not), a second seed
+    same("mixed offsets", [cols[0][:n - 3], cols[1][1:n - 2], cols[2][3:]],
+         n // 2, 8, seed=8)
+
+
+def check_bitonic_edges(dev, rng) -> None:
+    """The tile entry where its layouts have edges, at every tile size:
+    keys above the u32 range (int64 over the whole range, negatives
+    included), all keys equal, keys descending, repeated payloads (so the
+    payload tie-break decides), every key the int64 max."""
+    for tile in (256, 512, 1024, 2048, 4096):
+        m = 4 * tile
+        cases = {
+            "int64 keys": rng.integers(-2**63, 2**63 - 1, m, dtype=np.int64),
+            "keys equal": np.full(m, 2**40 + 3, np.int64),
+            "keys descending": np.arange(m, 0, -1, dtype=np.int64) * 2**33,
+            "int64 max keys": np.full(m, 2**63 - 1, np.int64),
+        }
+        for name, keys in cases.items():
+            k = torch.from_numpy(keys).to(dev)
+            for pay in (rng.integers(0, 7, m), rng.permutation(m)):
+                v = torch.from_numpy(pay.astype(np.int32)).to(dev)
+                ko, vo = bitonic_sort_tiles(k, v, tile=tile)
+                rk, rv = ref.sort_tiles_ref(k, v, tile)
+                check(torch.equal(ko, rk) and torch.equal(vo, rv),
+                      f"bitonic tile={tile} {name}")
+
+
+def check_bitonic_permutation(dev, rng) -> None:
+    """bitonic_sort_permutation against its plain version, bit for bit: C
+    1, 255, 256, 300, 1000, 2047 and 2048 (each padding of the packed
+    network) with the u32 max key (int32 max, uint32 max, an all-ones NaN)
+    among the rows; int32, uint32 and float32 keys (+-0, NaN, +-inf, many
+    duplicates); row_count 0, one, partial and full; a view at offset 1."""
+    for c in (2048, 1, 255, 256, 300, 1000, 2047):
+        f = rng.integers(-20, 20, c + 1).astype(np.float32)
+        f[:4] = np.array([0.0, -0.0, np.nan, np.inf], np.float32)[:min(4, c + 1)]
+        fb = f.view(np.uint32)
+        fb[c // 2] = 0xFFFFFFFF  # a NaN whose ordered_u32 is the u32 max
+        i = rng.integers(-20, 20, c + 1).astype(np.int32)
+        i[c // 3] = np.iinfo(np.int32).max
+        u = rng.integers(0, 2**32, c + 1, dtype=np.uint64).astype(np.uint32)
+        u[c - 1] = 0xFFFFFFFF
+        for x in (i, u, f):
+            xt = torch.from_numpy(x).to(dev)
+            for keys in (xt[:c], xt[1:]):
+                for rc in sorted({0, 1, c // 2, c}):
+                    r = torch.tensor(rc, dtype=torch.int32, device=dev)
+                    got = bitonic_sort_permutation(keys, r)
+                    check(torch.equal(got, ref.sort_permutation_ref(keys, r)),
+                          f"bitonic_sort_permutation C={c} {x.dtype} "
+                          f"row_count={rc} offset={keys.storage_offset()}")
 
 
 def check_histogram_edges(dev, rng) -> None:
@@ -835,16 +983,9 @@ def phase_main_path(ctx, tabs):
         results[name] = summarize(out, stats)
         del out, stats
     counts = launches()
-    for k in RELATIONAL:
-        check(counts[k] > 0, f"kernel {k} was not launched on the main path")
-    # the window's six scans a shard (dense_rank, rank, cumsum,
-    # running_mean, two cummax) are the only segment_scan launches
-    check(counts["segment_scan_tiles"] == 6 * P,
-          f"segment_scan launched {counts['segment_scan_tiles']} times, "
-          f"want {6 * P}")
-    check(counts["segment_reduce_tiles"] == SEG_REDUCE_LAUNCHES,
-          f"segment_reduce launched {counts['segment_reduce_tiles']} times, "
-          f"want {SEG_REDUCE_LAUNCHES}")
+    for k, want in MAIN_PATH_LAUNCHES.items():
+        check(counts[k] == want,
+              f"{k} launched {counts[k]} times on the main path, want {want}")
     return results, walls, counts, peaks
 
 
@@ -954,6 +1095,31 @@ def phase_timing(dev, rows: int) -> dict[str, dict]:
                          library_ms=None, max_abs_err=float(
                              (hash32(x, 7) - ref.hash32_ref(x, 7)).abs().max()))
 
+    # hash32_partition: the same shard's destinations, P = 8, the last 1/16
+    # of the rows past row_count (no PyTorch call computes a hash)
+    rc = torch.tensor(rows - rows // 16, dtype=torch.int32, device=dev)
+    valid = torch.arange(rows, device=dev) < rc
+    ms = timer(lambda: hash32_partition([x], rc, P, 7))
+    plain = timer(lambda: ref.hash_partition_ids_ref([x], rc, P, 7))
+
+    def chain():  # the parent's hash_partition up to the histogram
+        h = kops.hash_columns([x], seed=7)
+        pid = (h % P).to(torch.int32)
+        return torch.where(torch.arange(rows, device=dev) < rc, pid, -1)
+
+    chain_ms = timer(chain)
+    # a 4-byte key in and a 4-byte pid out a row (and the count); fmix32,
+    # the row test and the modulus are ~15 integer operations a row
+    bms, by = bound_ms(rows * (4 + 4) + 4, rows * 15)
+    got = hash32_partition([x], rc, P, 7)
+    check(torch.equal(got, chain()) and bool((got[~valid] == -1).all()),
+          "hash32_partition differs from the chain it replaces")
+    out["hash32_partition"] = dict(
+        ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+        max_abs_err=float((got - ref.hash_partition_ids_ref([x], rc, P, 7))
+                          .abs().max()),
+        replaced_chain_ms=chain_ms)
+
     # bucket_histogram: one shard's destinations, P = 8, -1 on invalid rows
     ids = torch.from_numpy(rng.integers(0, P, rows).astype(np.int32)).to(dev)
     ids[rows - rows // 16:] = -1
@@ -975,6 +1141,8 @@ def phase_timing(dev, rows: int) -> dict[str, dict]:
 
     # bitonic: the two-phase combine's one 2048-pair tile of u32 keys
     tile = 2048
+    probe = latency_probe(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     keys = torch.from_numpy(rng.integers(0, 1000, tile).astype(np.int64)).to(dev)
     pay = torch.arange(tile, dtype=torch.int32, device=dev)
     ms = timer(lambda: bitonic_sort_tiles(keys, pay, tile=tile))
@@ -982,13 +1150,38 @@ def phase_timing(dev, rows: int) -> dict[str, dict]:
     lib = timer(lambda: torch.sort(keys.view(1, tile), dim=1, stable=True))
     # u32 key + int32 payload a pair, read once and written once (the
     # port's int64 key holder moves 4 B more a pair each way)
-    passes = 11 * 12 // 2
-    bms, by = bound_ms(2 * tile * (4 + 4), passes * (tile // 2) * 6)
+    bms, by = bitonic_bound(2 * tile * (4 + 4), tile, probe, sms)
     ko, vo = bitonic_sort_tiles(keys, pay, tile=tile)
     rk, rv = ref.sort_tiles_ref(keys, pay, tile)
     out["bitonic_sort_tiles"] = dict(
         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
-        max_abs_err=float(max((ko - rk).abs().max(), (vo - rv).abs().max())))
+        max_abs_err=float(max((ko - rk).abs().max(), (vo - rv).abs().max())),
+        probe=probe, sms=sms)
+
+    # bitonic_sort_permutation: the combine's sort, one shard's 2048 partial
+    # rows (8 senders x bucket 256) of int32 keys over [0, 1000), ~1000 valid
+    kc = torch.from_numpy(rng.integers(0, 1000, tile).astype(np.int32)).to(dev)
+    rc = torch.tensor(1000, dtype=torch.int32, device=dev)
+    ms = timer(lambda: bitonic_sort_permutation(kc, rc))
+    plain = timer(lambda: ref.sort_permutation_ref(kc, rc))
+
+    def chain():  # the parent's bitonic branch of sort_permutation
+        ku = L.ordered_u32(kc)
+        ku = torch.where(~(torch.arange(tile, device=dev) < rc), L.U32_MAX, ku)
+        iota = torch.arange(tile, dtype=torch.int32, device=dev)
+        return kops.sort_pairs(ku, iota)[1].to(torch.int64)
+
+    chain_ms = timer(chain)
+    lib = timer(lambda: torch.sort(kc, stable=True))
+    # a 4-byte key in, an 8-byte index out a row, and the count
+    bms, by = bitonic_bound(tile * (4 + 8) + 4, tile, probe, sms)
+    got = bitonic_sort_permutation(kc, rc)
+    check(torch.equal(got, chain()),
+          "bitonic_sort_permutation differs from the chain it replaces")
+    out["bitonic_sort_permutation"] = dict(
+        ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+        max_abs_err=float((got - ref.sort_permutation_ref(kc, rc)).abs().max()),
+        replaced_chain_ms=chain_ms)
 
     # segment_reduce: groupby shuffle's f32 sum, G = n = 8 shards * 2 * rows
     # / 8 (one shard's received capacity), ~125 sorted groups, -1 tail
@@ -1277,7 +1470,8 @@ def main() -> None:
         hd = re.search(r"<(\d+)>", r["kernel"]) if "flash" in r["kernel"] else None
         dyn = (f", {lib.repro_flash_attention_smem(int(hd.group(1)))} B dynamic"
                if hd else "")
-        say(f"[7] ptxas {r['kernel']}: {r.get('registers')} registers, spills "
+        say(f"[7] ptxas {r['kernel']}: {r.get('registers')} registers, stack "
+            f"frame {r.get('stack_frame_bytes')} B, spills "
             f"{r.get('spill_store_bytes')} B stored / {r.get('spill_load_bytes')}"
             f" B loaded, {r.get('static_smem_bytes')} B static shared memory"
             f"{dyn}")
@@ -1291,6 +1485,17 @@ def main() -> None:
         f"ms on {card}")
     say(f"[7] flash_attention: SDPA's output differs from the plain version's "
         f"by {times['flash_attention']['library_max_abs_err']:.4g}")
+    t = times["bitonic_sort_tiles"]
+    pr = t["probe"]
+    say(f"[7] bitonic latency probe ({pr['steps']} dependent steps, one warp): "
+        f"a 64-bit register compare-exchange {pr['register_cycles_per_step']:.2f} "
+        f"cycles = {pr['register_ns_per_step']:.4f} ns a step, a "
+        f"shuffle-compare-select {pr['shuffle_cycles_per_step']:.2f} cycles = "
+        f"{pr['shuffle_ns_per_step']:.4f} ns; SM clock {pr['sm_ghz']:.3f} GHz "
+        f"over the probe, nvidia-smi clocks.sm {sm_clock()}; {t['sms']} SMs")
+    for name in ("hash32_partition", "bitonic_sort_permutation"):
+        say(f"[7] {name}: the chain it replaces "
+            f"{times[name]['replaced_chain_ms']:.4f} ms on {card}")
     torch.cuda.empty_cache()
 
     model, tokens, gen, lm_counts, lm_peak, init_s, n_params = phase_serve(dev)
@@ -1343,6 +1548,8 @@ def main() -> None:
                         "ms": t["ms"], "plain_ms": t["plain_ms"],
                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"]})
+        if "replaced_chain_ms" in t:
+            kernels[-1]["replaced_chain_ms"] = t["replaced_chain_ms"]
     say(json.dumps({"serve": {
         "arch": LM_ARCH, "batch": LM_BATCH, "prompt_len": LM_PROMPT,
         "gen": LM_GEN, "parameters": n_params, "peak_bytes": lm_peak,

@@ -32,13 +32,16 @@ from repro_torch.core.mesh import VirtualMesh
 from repro_torch.core.repartition import (ShuffleStats, _counts_carrier,
                                           repartition, zero_shuffle_stats)
 from repro_torch.core.table import Table
+from repro_torch.kernels import ops as kops
 
 Shards = list[Table]
 
 
 def _row_pid(table: Table, key_columns: Sequence[str], p: int, seed: int):
-    pid, _ = L.hash_partition(table, key_columns, p, seed=seed)
-    return pid
+    # the destinations alone: repartition counts them once per shuffle, so a
+    # histogram here (hash_partition's) would be launched and thrown away
+    return kops.hash_partition_ids([table.columns[k] for k in key_columns],
+                                   table.row_count, p, seed=seed)
 
 
 def _row_bytes(table: Table) -> int:

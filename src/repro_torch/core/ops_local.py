@@ -26,7 +26,9 @@ import torch
 
 from repro_torch.core.table import Table, concat_tables, take_rows, where_rows
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ref import U32 as U32_MAX
+# re-exported: ops_dist and the tests read L.U32_MAX and L.ordered_u32
+from repro_torch.kernels.ref import U32 as U32_MAX  # noqa: F401
+from repro_torch.kernels.ref import ordered_u32  # noqa: F401
 
 # ---------------------------------------------------------------------------
 # compaction / select / project
@@ -93,19 +95,6 @@ def lex_sort_perm(keys: Sequence[torch.Tensor]) -> torch.Tensor:
     return perm
 
 
-def ordered_u32(x: torch.Tensor) -> torch.Tensor:
-    """Order-preserving map to unsigned 32-bit (int64 holder)."""
-    if x.dtype == torch.uint32:
-        return x.to(torch.int64)
-    if x.dtype == torch.int32:
-        return x.to(torch.int64) + 0x80000000
-    if x.dtype == torch.float32:
-        u = x.view(torch.int32).to(torch.int64) & U32_MAX
-        flip = torch.where((u >> 31) == 1, U32_MAX, 0x80000000)
-        return u ^ flip
-    raise TypeError(f"unsupported sort key dtype {x.dtype}")
-
-
 def sort_permutation(table: Table, by: Sequence[str], *,
                      algorithm: str = "auto") -> torch.Tensor:
     """Permutation sorting valid rows ascending by ``by``, invalid rows last.
@@ -115,21 +104,16 @@ def sort_permutation(table: Table, by: Sequence[str], *,
     it when it applies. ('xla' keeps the reference's name for the general
     sort.)
     """
-    c = table.capacity
-    invalid = ~table.valid_mask()
     keys = [table.columns[k] for k in by]
     use_bitonic = algorithm == "bitonic" or (
-        algorithm == "auto" and len(keys) == 1 and c <= 2048
+        algorithm == "auto" and len(keys) == 1 and table.capacity <= 2048
         and keys[0].dtype in (torch.int32, torch.uint32, torch.float32))
     if use_bitonic and len(keys) == 1:
-        ku = ordered_u32(keys[0])
-        # invalid rows -> the u32 max; the (key, iota) tie-break sorts them
-        # after valid max-key rows (front compaction gives them larger
-        # indices)
-        ku = torch.where(invalid, U32_MAX, ku)
-        iota = torch.arange(c, dtype=torch.int32, device=table.device)
-        _, perm = kops.sort_pairs(ku, iota)
-        return perm.to(torch.int64)
+        # (ordered_u32 key, row) pairs, invalid rows -> the u32 max: the row
+        # tie-break sorts them after valid max-key rows (front compaction
+        # gives them larger indices)
+        return kops.bitonic_sort_permutation(keys[0], table.row_count)
+    invalid = ~table.valid_mask()
     return lex_sort_perm([invalid.to(torch.int32), *keys])
 
 
@@ -158,9 +142,8 @@ def hash_partition(table: Table, key_columns: Sequence[str],
     Returns (part_id (capacity,) int32 with -1 on invalid rows,
              histogram (num_partitions,) int32).
     """
-    h = kops.hash_columns([table.columns[k] for k in key_columns], seed=seed)
-    pid = (h % num_partitions).to(torch.int32)
-    pid = torch.where(table.valid_mask(), pid, -1)
+    pid = kops.hash_partition_ids([table.columns[k] for k in key_columns],
+                                  table.row_count, num_partitions, seed=seed)
     hist = kops.bucket_histogram(pid, num_partitions)
     return pid, hist
 

@@ -32,11 +32,15 @@ _F = ctypes.c_float
 # C entry point -> argtypes; every one returns cudaGetLastError() as int
 SIGNATURES = {
     "repro_hash32": [_P, _P, _LL, _U, _I, _P],
+    "repro_hash32_partition": [_P, _I, _P, _LL, _U, _U, _P, _I, _P],
+    "repro_hash32_partition_max_columns": [],
     "repro_histogram": [_P, _P, _LL, _I, _P, _P],
     "repro_histogram_scratch_ints": [],
     "repro_histogram_rows_per_step": [],
     "repro_histogram_max_blocks": [],
     "repro_bitonic": [_P, _P, _P, _P, _LL, _I, _P],
+    "repro_bitonic_permutation": [_P, _I, _I, _P, _P, _P],
+    "repro_bitonic_probe": [ctypes.c_ulonglong, _I, _P, _P],
     "repro_segment_reduce": [_P, _P, _P, _LL, _I, _I, _I, _P, _P, _P],
     "repro_segment_reduce_rows_per_block": [],
     "repro_segment_scan": [_P, _P, _P, _LL, _I, _I, _I, _P, _U, _P],

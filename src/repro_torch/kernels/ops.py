@@ -25,8 +25,10 @@ from repro_torch.utils import next_pow2
 __all__ = [
     "hash32",
     "hash_columns",
+    "hash_partition_ids",
     "bucket_histogram",
     "sort_pairs",
+    "bitonic_sort_permutation",
     "segment_reduce",
     "segment_scan",
     "attention",
@@ -69,6 +71,18 @@ def hash_columns(columns: list[torch.Tensor], seed: int = 0) -> torch.Tensor:
     for c in columns[1:]:
         h = ref.hash_combine_ref(h, hash32(c, seed=seed))
     return h
+
+
+def hash_partition_ids(columns: list[torch.Tensor], row_count: torch.Tensor,
+                       num_partitions: int, seed: int = 0) -> torch.Tensor:
+    """Hash partition's per-row destination, (n,) int32: the columns'
+    :func:`hash_columns` ``% num_partitions``, -1 at rows ``>= row_count``.
+    One launch of the fused partition kernel (``hash64.hash32_partition``),
+    or its plain version under :func:`oracle_scope` and on the CPU."""
+    if oracle_only():
+        return ref.hash_partition_ids_ref(columns, row_count, num_partitions,
+                                          seed)
+    return hash64.hash32_partition(columns, row_count, num_partitions, seed)
 
 
 def bucket_histogram(ids: torch.Tensor, num_buckets: int) -> torch.Tensor:
@@ -182,6 +196,19 @@ def sort_pairs(keys: torch.Tensor, payload: torch.Tensor, *,
     else:
         ko, vo = bitonic.bitonic_sort_tiles(kp, vp, tile=n_pad)
     return ko[:n], vo[:n]
+
+
+def bitonic_sort_permutation(keys: torch.Tensor,
+                             row_count: torch.Tensor) -> torch.Tensor:
+    """The (C,) int64 permutation sorting rows ``< row_count`` ascending by
+    ``ordered_u32(keys)`` (ties in row order), the other rows after them in
+    row order. Up to one tile (2048 rows) the fused bitonic kernel sorts in
+    one launch; beyond it, a stable ``torch.sort`` on the key (as
+    :func:`sort_pairs` leaves larger inputs); :func:`oracle_scope` takes
+    the plain version."""
+    if oracle_only() or keys.shape[0] > bitonic.MAX_PERMUTATION_ROWS:
+        return ref.sort_permutation_ref(keys, row_count)
+    return bitonic.bitonic_sort_permutation(keys, row_count)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

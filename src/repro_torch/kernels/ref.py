@@ -64,6 +64,19 @@ def hash_combine_ref(h1: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
     return h1 ^ s
 
 
+def hash_partition_ids_ref(columns: list[torch.Tensor], row_count: torch.Tensor,
+                           num_partitions: int, seed: int = 0) -> torch.Tensor:
+    """Hash partition's per-row destination, (n,) int32: the columns'
+    combined u32 hash ``% num_partitions``, -1 at rows ``>= row_count``
+    (``repro.core.ops_local.hash_partition``'s pid)."""
+    h = hash32_ref(columns[0], seed)
+    for c in columns[1:]:
+        h = hash_combine_ref(h, hash32_ref(c, seed))
+    pid = (h % num_partitions).to(torch.int32)
+    valid = torch.arange(h.shape[0], device=h.device) < row_count
+    return torch.where(valid, pid, -1)
+
+
 # ---------------------------------------------------------------------------
 # bucket histogram
 # ---------------------------------------------------------------------------
@@ -88,6 +101,46 @@ def sort_pairs_ref(keys: torch.Tensor, payload: torch.Tensor):
     ``lax.sort(num_keys=1)`` oracle)."""
     k, perm = torch.sort(keys, stable=True)
     return k, payload[perm]
+
+
+def ordered_u32(x: torch.Tensor) -> torch.Tensor:
+    """Order-preserving map of int32/uint32/float32 to unsigned 32-bit
+    (int64 holder)."""
+    if x.dtype == torch.uint32:
+        return x.to(torch.int64)
+    if x.dtype == torch.int32:
+        return x.to(torch.int64) + 0x80000000
+    if x.dtype == torch.float32:
+        u = x.view(torch.int32).to(torch.int64) & U32
+        flip = torch.where((u >> 31) == 1, U32, 0x80000000)
+        return u ^ flip
+    raise TypeError(f"unsupported sort key dtype {x.dtype}")
+
+
+def sort_permutation_ref(x: torch.Tensor, row_count: torch.Tensor) -> torch.Tensor:
+    """The permutation that sorts one key column's rows ``< row_count``
+    ascending by :func:`ordered_u32`, ties in row order, the rest after
+    them in row order: (C,) int64. Rows past ``row_count`` take the u32
+    max, and the (key, row index) order puts them after valid rows with
+    that key (front compaction gives them larger indices). Up to one
+    2048-row tile, (key, row) pairs padded to a power of two (>= 256) with
+    (int64 max, int32 max) sort lexicographically (``sort_tiles_ref``, what
+    the bitonic tile computes); beyond it, a stable sort on the key."""
+    c = x.shape[0]
+    ku = ordered_u32(x)
+    ku = torch.where(torch.arange(c, device=x.device) < row_count, ku, U32)
+    iota = torch.arange(c, dtype=torch.int32, device=x.device)
+    if c > 1 << 11:
+        return torch.sort(ku, stable=True).indices
+    n_pad = max(1 << max(c - 1, 0).bit_length(), 256)
+    kp = torch.full((n_pad,), torch.iinfo(torch.int64).max, dtype=torch.int64,
+                    device=x.device)
+    kp[:c] = ku
+    vp = torch.full((n_pad,), torch.iinfo(torch.int32).max, dtype=torch.int32,
+                    device=x.device)
+    vp[:c] = iota
+    _, vo = sort_tiles_ref(kp, vp, n_pad)
+    return vo[:c].to(torch.int64)
 
 
 def sort_tiles_ref(keys: torch.Tensor, payload: torch.Tensor, tile: int):

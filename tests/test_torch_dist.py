@@ -303,6 +303,59 @@ def test_chip_smoke_cpu_rehearsal_drives_the_main_path():
         smoke.compare_results("window", dict(got, rows=rows), got)
 
 
+def _counted_launches(monkeypatch, smoke):
+    """Make each kernel wrapper count its call as the card's launch would,
+    though a CPU tensor takes the plain version, and stub the CUDA memory
+    and sync calls chip_smoke's phases make."""
+    from repro_torch.kernels import bitonic, hash64, histogram
+    from repro_torch.kernels import segment_reduce as seg
+    from repro_torch.kernels import segment_scan as scan
+
+    modules = {"hash32": hash64, "hash32_partition": hash64,
+               "bucket_histogram": histogram, "bitonic_sort_tiles": bitonic,
+               "bitonic_sort_permutation": bitonic,
+               "segment_reduce_tiles": seg, "segment_scan_tiles": scan}
+    for name, module in modules.items():
+        real = smoke.KERNELS[name][0]
+
+        def launch(*a, _real=real, **kw):
+            _real.launches += 1
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(module, name, launch)
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **kw: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+
+
+def test_chip_smoke_main_path_launch_counts_rehearse_on_the_cpu(monkeypatch):
+    """Phase 3's exact launch counts (``MAIN_PATH_LAUNCHES``) hold for the
+    main path's calls at 8 x 4096 rows on the CPU, each wrapper's call
+    counted as its launch: 48 partition entries, 16 column hashes, 64
+    histograms (none thrown away by ``_row_pid``), 8 fused sort
+    permutations and no tile sort; and a count off by one fails them."""
+    import importlib.util
+
+    from repro_torch.core.context import DistContext
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    _counted_launches(monkeypatch, smoke)
+    cpu = torch.device("cpu")
+    ctx = DistContext(num_shards=P, device=cpu)
+    # 4096 rows a shard: every local sort but the combine's is wider than
+    # one 2048-row tile, as at the path's 2**22 rows
+    tabs = smoke.make_tables(ctx, 4096, cpu)
+    _, _, counts, _ = smoke.phase_main_path(ctx, tabs)
+    assert counts == {**smoke.MAIN_PATH_LAUNCHES, "flash_attention": 0}
+    assert counts["bucket_histogram"] == 64 and counts["hash32_partition"] == 48
+    monkeypatch.setitem(smoke.MAIN_PATH_LAUNCHES, "bucket_histogram", 112)
+    with pytest.raises(smoke.CheckFailed, match="bucket_histogram"):
+        smoke.phase_main_path(ctx, tabs)
+
+
 def _window_matches_one_host(smoke, w, got):
     """The 8-shard window's rows, in shard order, equal the local window
     of all the rows, and groups span shards."""

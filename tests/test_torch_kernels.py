@@ -29,9 +29,10 @@ from repro.kernels.segment_reduce import segment_reduce_tiles as j_seg  # noqa: 
 from repro.kernels.segment_scan import segment_scan_tiles as j_scan  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
-from repro_torch.kernels.bitonic import bitonic_sort_tiles  # noqa: E402
+from repro_torch.kernels.bitonic import (bitonic_sort_permutation,  # noqa: E402
+                                         bitonic_sort_tiles)
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
-from repro_torch.kernels.hash64 import hash32  # noqa: E402
+from repro_torch.kernels.hash64 import hash32, hash32_partition  # noqa: E402
 from repro_torch.kernels.histogram import bucket_histogram  # noqa: E402
 from repro_torch.kernels.segment_reduce import segment_reduce_tiles  # noqa: E402
 from repro_torch.kernels.segment_scan import segment_scan_tiles  # noqa: E402
@@ -103,6 +104,78 @@ def test_hash_columns_matches_reference():
                                  torch.from_numpy(h2.astype(np.int64))).numpy()
     np.testing.assert_array_equal(
         comb, np.asarray(jref.hash_combine_ref(h1, h2)).astype(np.int64))
+
+
+@pytest.mark.parametrize("n", [1, 7, 8193])
+@pytest.mark.parametrize("ncols", [1, 3])
+def test_hash32_partition_plain_matches_pallas(n, ncols):
+    """The partition entry (its plain version on the CPU) against the
+    reference's chain around the Pallas kernel in interpret mode:
+    ``hash_columns`` ``% P`` as int32, -1 at rows past the count."""
+    cols = [_column(dt, n, seed=n + i)
+            for i, dt in enumerate((np.int32, np.uint32, np.float32)[:ncols])]
+    h = np.asarray(jops.hash_columns([jnp.asarray(c) for c in cols], seed=9))
+    for p in (1, 8, 4096):
+        for rc in (0, n // 2, n):
+            got = hash32_partition([torch.from_numpy(c) for c in cols],
+                                   torch.tensor(rc, dtype=torch.int32), p, 9)
+            want = np.where(np.arange(n) < rc, (h % np.uint32(p)).astype(np.int32),
+                            -1)
+            assert got.dtype == torch.int32
+            np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("bad,err", [
+    ("no columns", ValueError), ("int64 column", TypeError),
+    ("2-D column", TypeError), ("lengths differ", TypeError),
+    ("int64 row_count", TypeError), ("1-D row_count", TypeError),
+    ("P 0", ValueError)])
+def test_hash32_partition_rejects_bad_inputs(bad, err):
+    c = torch.zeros(8, dtype=torch.int32)
+    rc = torch.tensor(3, dtype=torch.int32)
+    args = {"no columns": ([], rc, 4), "int64 column": ([c.long()], rc, 4),
+            "2-D column": ([c.view(2, 4)], rc, 4),
+            "lengths differ": ([c, c[:7]], rc, 4),
+            "int64 row_count": ([c], rc.long(), 4),
+            "1-D row_count": ([c], rc.view(1), 4), "P 0": ([c], rc, 0)}[bad]
+    with pytest.raises(err):
+        hash32_partition(*args)
+
+
+@pytest.mark.parametrize("bad,err", [
+    ("int64 keys", TypeError), ("2-D keys", TypeError),
+    ("2049 rows", ValueError), ("int64 row_count", TypeError)])
+def test_bitonic_sort_permutation_rejects_bad_inputs(bad, err):
+    k = torch.zeros(8, dtype=torch.int32)
+    rc = torch.tensor(3, dtype=torch.int32)
+    args = {"int64 keys": (k.long(), rc), "2-D keys": (k.view(2, 4), rc),
+            "2049 rows": (torch.zeros(2049, dtype=torch.int32), rc),
+            "int64 row_count": (k, rc.long())}[bad]
+    with pytest.raises(err):
+        bitonic_sort_permutation(*args)
+
+
+@pytest.mark.parametrize("entry", ["hash32_partition", "bitonic_sort_permutation"])
+def test_new_entries_on_cpu_launch_nothing(entry):
+    """A CPU tensor takes the plain version through the wrapper and the seam,
+    inside ``oracle_scope()`` or not; no launch is counted."""
+    fn = {"hash32_partition": hash32_partition,
+          "bitonic_sort_permutation": bitonic_sort_permutation}[entry]
+    before = fn.launches
+    x = torch.arange(300, dtype=torch.int32)
+    rc = torch.tensor(200, dtype=torch.int32)
+    if entry == "hash32_partition":
+        outs = [fn([x], rc, 8, 3), tops.hash_partition_ids([x], rc, 8, 3)]
+        with tops.oracle_scope():
+            outs.append(tops.hash_partition_ids([x], rc, 8, 3))
+        want = tref.hash_partition_ids_ref([x], rc, 8, 3)
+    else:
+        outs = [fn(x, rc), tops.bitonic_sort_permutation(x, rc)]
+        with tops.oracle_scope():
+            outs.append(tops.bitonic_sort_permutation(x, rc))
+        want = tref.sort_permutation_ref(x, rc)
+    assert all(torch.equal(o, want) for o in outs)
+    assert fn.launches == before
 
 
 # --- histogram ----------------------------------------------------------------
@@ -464,6 +537,57 @@ def test_cuda_bitonic_matches_plain(cuda, tile):
         ko, vo = bitonic_sort_tiles(k, v, tile=tile)
         rk, rv = tref.sort_tiles_ref(k, v, tile)
         assert torch.equal(vo, rv) and torch.equal(ko, rk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ncols", [1, 3])
+def test_cuda_hash32_partition_matches_plain(cuda, ncols):
+    n = 100_003
+    cols = [torch.from_numpy(_column(dt, n + 3, seed=i)).to(cuda)
+            for i, dt in enumerate((np.float32, np.int32, np.uint32)[:ncols])]
+    for off in (0, 1, 3):  # aligned, and views that take the scalar path
+        cs = [c[off:off + n] for c in cols]
+        for p in (1, 7, 8, 4096):
+            for rc in (0, 1, n // 2, n):
+                r = torch.tensor(rc, dtype=torch.int32, device=cuda)
+                assert torch.equal(hash32_partition(cs, r, p, 7),
+                                   tref.hash_partition_ids_ref(cs, r, p, 7)), \
+                    (off, p, rc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 255, 256, 300, 2047, 2048])
+def test_cuda_bitonic_sort_permutation_matches_plain(cuda, c):
+    r = _rng(c)
+    f = r.integers(-9, 9, c).astype(np.float32)
+    f[:min(3, c)] = np.array([0.0, -0.0, np.nan], np.float32)[:min(3, c)]
+    i = r.integers(-9, 9, c).astype(np.int32)
+    i[c // 2] = np.iinfo(np.int32).max  # the u32 max key
+    u = r.integers(0, 2**32, c, dtype=np.uint64).astype(np.uint32)
+    for x in (f, i, u):
+        k = torch.from_numpy(x).to(cuda)
+        for rc in sorted({0, 1, c // 2, c}):
+            row_count = torch.tensor(rc, dtype=torch.int32, device=cuda)
+            assert torch.equal(bitonic_sort_permutation(k, row_count),
+                               tref.sort_permutation_ref(k, row_count)), (x.dtype, rc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [256, 512, 1024, 2048, 4096])
+def test_cuda_bitonic_tile_edges_match_plain(cuda, tile):
+    """Keys above the u32 range, all keys equal, keys descending, and
+    repeated payloads, at every tile size."""
+    r = _rng(tile + 1)
+    n = 3 * tile
+    for keys in (r.integers(-2**63, 2**63 - 1, n, dtype=np.int64),
+                 np.full(n, 2**40, np.int64),
+                 np.arange(n, 0, -1, dtype=np.int64) * 2**33):
+        k = torch.from_numpy(keys).to(cuda)
+        for pay in (r.integers(0, 5, n), r.permutation(n)):
+            v = torch.from_numpy(pay.astype(np.int32)).to(cuda)
+            ko, vo = bitonic_sort_tiles(k, v, tile=tile)
+            rk, rv = tref.sort_tiles_ref(k, v, tile)
+            assert torch.equal(ko, rk) and torch.equal(vo, rv)
 
 
 @pytest.mark.cuda

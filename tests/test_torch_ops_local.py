@@ -191,3 +191,118 @@ def test_synthetic_tables_match_reference(make):
     want = getattr(JS, make)(300, **kw)
     got = getattr(TS, make)(300, device="cpu", **kw)
     assert_same(want, got)
+
+
+# --- hash partition and the fused sort permutation ------------------------------
+
+_HASH_SETS = {
+    "int32": ["i"], "uint32": ["u"], "float32": ["f"], "three": ["i", "u", "f"]}
+
+
+def _hash_columns_table(capacity, n_valid):
+    """i int32, u uint32, f float32 with +-0, NaN and +-inf; garbage past
+    n_valid."""
+    r = np.random.default_rng(capacity)
+    f = r.standard_normal(capacity).astype(np.float32)
+    f[:6] = [0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf]
+    return both({"i": r.integers(-2**31, 2**31 - 1, capacity).astype(np.int32),
+                 "u": r.integers(0, 2**32, capacity, dtype=np.uint64)
+                 .astype(np.uint32), "f": f}, n_valid)
+
+
+@pytest.mark.parametrize("num_partitions", [1, 7, 8, 4096])
+@pytest.mark.parametrize("keys", sorted(_HASH_SETS))
+def test_hash_partition_ids_plain_matches_reference(keys, num_partitions):
+    """``kops.hash_partition_ids`` (the fused partition entry's plain
+    version on the CPU) against the reference's ``hash_partition`` pid, and
+    the port's ``hash_partition`` (pid, hist) against the reference's, with
+    row_count 0, partial and full."""
+    from repro_torch.kernels import ops as kops
+
+    cols = _HASH_SETS[keys]
+    for n_valid in (0, 173, 300):
+        j, t = _hash_columns_table(300, n_valid)
+        jp, jh = JL.hash_partition(j, cols, num_partitions, seed=7)
+        pid = kops.hash_partition_ids([t.columns[k] for k in cols], t.row_count,
+                                      num_partitions, seed=7)
+        assert pid.dtype == torch.int32
+        np.testing.assert_array_equal(pid.numpy(), np.asarray(jp))
+        tp, th = TL.hash_partition(t, cols, num_partitions, seed=7)
+        np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+        np.testing.assert_array_equal(th.numpy(), np.asarray(jh))
+        assert th.dtype == torch.int32 and int(th.sum()) == n_valid
+
+
+def _sort_keys(dtype, capacity, seed, max_key: bool):
+    r = np.random.default_rng(seed)
+    if dtype == "float32":
+        x = r.integers(-20, 20, capacity).astype(np.float32)
+        x[:min(3, capacity)] = np.array([0.0, -0.0, np.nan],
+                                        np.float32)[:min(3, capacity)]
+        top = np.array([0x7FFFFFFF], np.uint32).view(np.float32)[0]  # NaN
+    elif dtype == "int32":
+        x = r.integers(-20, 20, capacity).astype(np.int32)
+        top = np.iinfo(np.int32).max
+    else:
+        x = r.integers(0, 40, capacity).astype(np.uint32)
+        top = np.uint32(0xFFFFFFFF)
+    if max_key:  # a valid row whose ordered_u32 key is the u32 max
+        x[capacity // 3] = top
+    return x
+
+
+@pytest.mark.parametrize("dtype", ["int32", "uint32", "float32"])
+@pytest.mark.parametrize("capacity", [1, 255, 256, 1000, 2048])
+def test_bitonic_sort_permutation_plain_matches_reference(capacity, dtype):
+    """``kops.bitonic_sort_permutation`` (the fused entry's plain version on
+    the CPU) and ``sort_permutation`` (algorithm 'bitonic' and 'auto')
+    against the reference's, with row_count 0, partial and full. The
+    reference pads with (key max, payload 0), which displaces rows holding
+    the u32 max key, invalid rows included, unless the capacity is a power
+    of two >= 256 (ROADMAP queue 3): there the whole permutation is held,
+    max keys among the rows; elsewhere the valid prefix, and the whole
+    permutation against numpy's stable argsort of the ordered keys."""
+    from repro_torch.kernels import ops as kops
+
+    whole = capacity >= 256 and capacity & (capacity - 1) == 0
+    x = _sort_keys(dtype, capacity, seed=capacity, max_key=whole)
+    for n_valid in sorted({0, capacity // 2, capacity}):
+        j, t = both({"x": x}, n_valid)
+        ordered = np.asarray(JL.ordered_u32(jnp.asarray(x))).astype(np.int64)
+        ordered[n_valid:] = 0xFFFFFFFF
+        oracle = np.argsort(ordered, kind="stable")
+        got = kops.bitonic_sort_permutation(t.columns["x"], t.row_count)
+        assert got.dtype == torch.int64
+        np.testing.assert_array_equal(got.numpy(), oracle)
+        for algorithm in ("bitonic", "auto"):
+            want = np.asarray(JL.sort_permutation(j, ["x"], algorithm=algorithm))
+            perm = TL.sort_permutation(t, ["x"], algorithm=algorithm).numpy()
+            np.testing.assert_array_equal(perm, got.numpy())
+            cut = capacity if whole else n_valid
+            np.testing.assert_array_equal(perm[:cut], want[:cut])
+
+
+@pytest.mark.parametrize("keys", [["k"], ["k", "v", "w"]])
+def test_row_pid_launches_no_histogram(monkeypatch, keys):
+    """The shuffle's destinations (``ops_dist._row_pid``) take the partition
+    entry alone: no histogram at the seam (repartition counts once);
+    ``hash_partition`` takes one. Both give the reference's pid."""
+    from repro_torch.core import ops_dist as TD
+    from repro_torch.kernels import ops as kops
+
+    calls = []
+    real = kops.bucket_histogram
+
+    def counted(ids, num_buckets):
+        calls.append(num_buckets)
+        return real(ids, num_buckets)
+
+    monkeypatch.setattr(kops, "bucket_histogram", counted)
+    j, t = relation(8, 400, 333, key_range=1000)
+    jp, _ = JL.hash_partition(j, keys, 8, seed=7)
+    pid = TD._row_pid(t, keys, 8, 7)
+    assert calls == []
+    np.testing.assert_array_equal(pid.numpy(), np.asarray(jp))
+    tp, _ = TL.hash_partition(t, keys, 8, seed=7)
+    assert calls == [8]
+    np.testing.assert_array_equal(tp.numpy(), pid.numpy())
