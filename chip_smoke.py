@@ -67,6 +67,21 @@ Phases (any failed check raises, and the script exits nonzero):
    static shared memory (flash's dynamic shared memory from the library),
    and each source's nvcc seconds.
 
+11. Statistics and the lazy plan, on the same tables (run after phase 6,
+   before they are freed): ``ctx.analyze`` of the four tables (every
+   TableStats field equal to the ``oracle_scope()`` run; hash32_partition
+   launched exactly ``ANALYZE_LAUNCHES`` times, once a key column over all
+   p x C slots; timed in turns with the plain run), the frame
+   ``frame(a).select(d0 > 0).join(frame(b), on="k").groupby("k", ...)``
+   on the analyzed tables (its ``explain()`` printed; rows equal to the
+   ``oracle_scope()`` run and to the eager chain on the plain tables; timed
+   in turns with that chain), groupby ``"auto"`` on ``b`` (``shuffle`` with
+   stats, ``two_phase`` without; both timed), the shuffles elided off a
+   sort's range tag and a ``partition_by``'s hash tag (``plan_report``
+   against the executed records), one safe-capacity re-run at 8 x 2**16
+   rows (stats that understate the rows overflow a cost-sized bucket), and
+   one ``torch.profiler`` trace of each timed call.
+
 Then, with the relational tables freed, the serving path (the LM slice):
 
 8. llama3-8b at full width and depth (random bf16 weights from a
@@ -93,13 +108,15 @@ size 1 and 4, hd 64 and 128, fp32 and bf16, scores up to +-1e4); phase 7
 times it at the path's shape beside
 ``F.scaled_dot_product_attention`` (``library_ms``).
 
-It prints one JSON line with the main path's numbers, one with the serving
-path's, one with every kernel's, then the nvidia-smi line, then
+It prints one JSON line with the serving path's numbers, one with the main
+path's, one with phase 11's (``{"plan": ...}``), one with every kernel's,
+then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line. Without a card it exits
 2 and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -117,6 +134,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import ops_local as L  # noqa: E402
+from repro_torch.core import stats as S  # noqa: E402
 from repro_torch.core.context import DistContext, DistTable  # noqa: E402
 from repro_torch.core.mesh import VirtualMesh  # noqa: E402
 from repro_torch.core.repartition import repartition  # noqa: E402
@@ -226,6 +244,21 @@ MAIN_PATH_LAUNCHES = {
     "segment_reduce_tiles": SEG_REDUCE_LAUNCHES, "segment_scan_tiles": 6 * P}
 # the relational main path's kernels; flash_attention is the serving path's
 RELATIONAL = tuple(MAIN_PATH_LAUNCHES)
+ZERO_LAUNCHES = {name: 0 for name in KERNELS}
+# phase 11: analyze sketches each 1-D key-typed column of the four tables
+# (k and three float32 columns each) in one hash32_partition launch over all
+# p * C slots, and launches nothing else
+ANALYZE_LAUNCHES = {"hash32_partition": 16}
+# the kernels phase 11's frame pipeline must launch: the join's two hash
+# shuffles (partition entry and histogram) and the groupby's reductions
+PIPELINE_KERNELS = ("hash32_partition", "bucket_histogram",
+                    "segment_reduce_tiles")
+# aggregations exact in any order (so the plain run and the eager chain agree
+# bit for bit): count, min, max and the first row of each group
+PLAN_AGGS = {"d0": ["count", "min", "max", "first"], "d1": ["min", "max"]}
+# rows a shard in phase 11's safe-capacity re-run: at 2**22 the safe join
+# bucket is a whole shard, 8 x 8 x 2**22 slots of 16 B a side
+SAFE_RERUN_ROWS = 1 << 16
 
 
 # the __global__ functions of src/repro_torch/kernels/csrc/*.cu, as the
@@ -1074,6 +1107,286 @@ def profiled(name: str, call, top: int = 8) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: statistics and the lazy plan, on the main path's tables
+# ---------------------------------------------------------------------------
+
+
+def in_turns(first, second, rounds: int = 2) -> tuple[float, float]:
+    """Median wall ms of two calls run in turns (first, second, second,
+    first) x ``rounds``, the host clock around each synchronised call."""
+    samples = ([], [])
+    for _ in range(rounds):
+        for which in (0, 1, 1, 0):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = (first, second)[which]()
+            torch.cuda.synchronize()
+            samples[which].append((time.perf_counter() - t0) * 1e3)
+            del res
+    return statistics.median(samples[0]), statistics.median(samples[1])
+
+
+def counted(call):
+    """(result, launch counts, peak device bytes) of one call, the counts
+    zeroed just before it and read just after."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    set_launches(0)
+    res = call()
+    torch.cuda.synchronize()
+    return res, launches(), torch.cuda.max_memory_allocated()
+
+
+def understated() -> S.TableStats:
+    """TableStats claiming 16 rows over 2 keys: every bucket the cost model
+    sizes from them is ~7 slots, far below the rows a shard sends."""
+    return S.TableStats(rows=16.0, columns=(("k", S.ColumnStats(2.0)),),
+                        max_shard_rows=2.0)
+
+
+def pipeline_frame(ctx: DistContext, a: DistTable, b: DistTable):
+    """Phase 11's frame: ``frame(a).select(d0 > 0).join(frame(b), on="k")
+    .groupby("k", PLAN_AGGS)``."""
+    return ctx.frame(a).select(lambda c: c["d0"] > 0, key="d0>0").join(
+        ctx.frame(b), on="k").groupby("k", PLAN_AGGS)
+
+
+def eager_chain(ctx: DistContext, a: DistTable, b: DistTable, report=None):
+    """The same three operators as eager calls (one-node plans)."""
+    s = ctx.select(a, lambda c: c["d0"] > 0, report=report)
+    j, _ = ctx.join(s, b, "k", report=report)
+    del s
+    return ctx.groupby(j, "k", PLAN_AGGS, report=report)
+
+
+def plan_calls(ctx: DistContext, tabs, analyzed) -> dict:
+    """Phase 11's calls that are timed and profiled, by name."""
+    a, b = tabs[:2]
+    a2, b2 = analyzed[:2]
+    return {
+        "analyze": lambda: [ctx.analyze(t) for t in tabs],
+        "pipeline": lambda: pipeline_frame(ctx, a2, b2).collect_with_stats(),
+        "eager_chain": lambda: eager_chain(ctx, a, b),
+        "groupby_with_stats": lambda: ctx.frame(b2).groupby(
+            "k", PLAN_AGGS).collect_with_stats(),
+        "groupby_without_stats": lambda: ctx.frame(b).groupby(
+            "k", PLAN_AGGS).collect_with_stats(),
+    }
+
+
+def phase_plan(ctx: DistContext, tabs, dev, small_rows: int) -> dict:
+    """Statistics and the lazy plan at the main path's size (phase 11).
+
+    1. ``ctx.analyze`` of the four tables: every TableStats field equal, by
+       repr, to the same call under ``oracle_scope()``; hash32_partition
+       launched once a table and key column (``ANALYZE_LAUNCHES``); timed
+       in turns with the plain run.
+    2. :func:`pipeline_frame` on the analyzed tables (the groupby elided on
+       the join's tag): rows bit for bit against the same frame under
+       ``oracle_scope()`` and against :func:`eager_chain` on the plain
+       tables (``compare_rows``: count/min/max/first are exact in any
+       order); every kernel of ``PIPELINE_KERNELS`` launched; timed in
+       turns with the eager chain.
+    3. groupby "auto" on ``b`` (keys uniform over [0, 8 * rows)): shuffle
+       with stats, two_phase without; both timed.
+    4. Elision: a groupby over ``ctx.sort(a)``'s output and a join over
+       ``ctx.partition_by(b)``'s output; the elided records of
+       ``plan_report`` equal the executed ones, their stats are zero, the
+       wire bytes agree.
+    5. The safe-capacity re-run at ``small_rows`` a shard: two tables whose
+       stats understate their rows; one re-run, rows as without stats.
+
+    Returns the numbers, and the analyzed tables under ``"analyzed"``.
+    """
+    a, b, g, w = tabs
+    out: dict = {}
+    # 1. analyze
+    analyzed, n, peak = counted(lambda: [ctx.analyze(t) for t in tabs])
+    check(n == {**ZERO_LAUNCHES, **ANALYZE_LAUNCHES},
+          f"analyze launched {n}, want {ANALYZE_LAUNCHES}")
+    with kops.oracle_scope():
+        plain = [ctx.analyze(t) for t in tabs]
+    check(launches() == n, "analyze under oracle_scope launched kernels")
+    for t, got, want in zip("abgw", analyzed, plain):
+        check(repr(got.stats) == repr(want.stats),
+              f"analyze({t}) differs from the plain run:\n{got.stats}\n"
+              f"{want.stats}")
+    calls = plan_calls(ctx, tabs, analyzed)
+    kern, plain_ms = in_turns(calls["analyze"],
+                              lambda: _plain(calls["analyze"]))
+    out["analyzed"] = analyzed
+    out["analyze"] = {"ms": kern, "plain_ms": plain_ms, "launches": n,
+                      "peak_bytes": peak,
+                      "stats": {t: repr(s.stats) for t, s in zip("abgw",
+                                                                 analyzed)}}
+    a2, b2, _, _ = analyzed
+
+    # 2. the frame pipeline against the oracle run and the eager chain
+    frame = pipeline_frame(ctx, a2, b2)
+    out["explain"] = frame.explain()
+    (res, stats), n, peak = counted(frame.collect_with_stats)
+    check(all(n[k] > 0 for k in PIPELINE_KERNELS),
+          f"pipeline launched {n}: a kernel of {PIPELINE_KERNELS} never ran")
+    got = summarize(res, stats)
+    with kops.oracle_scope():
+        want = summarize(*frame.collect_with_stats())
+    check(got["row_counts"] == want["row_counts"]
+          and got["received"] == want["received"],
+          "pipeline: counts differ from the plain run")
+    compare_rows("pipeline vs plain", got["rows"], want["rows"])
+    chain_report = []
+    chain = summarize(*eager_chain(ctx, a, b, chain_report))
+    check(sum(chain["row_counts"]) == sum(got["row_counts"]),
+          "pipeline: rows differ from the eager chain")
+    compare_rows("pipeline vs eager chain", got["rows"], chain["rows"])
+    check(all(sum(o) == 0 for o in got["overflow"]), "pipeline overflowed")
+    fr_ms, ch_ms = in_turns(calls["pipeline"], calls["eager_chain"])
+    out["pipeline"] = {"ms": fr_ms, "eager_chain_ms": ch_ms, "launches": n,
+                       "peak_bytes": peak, "rows": sum(got["row_counts"]),
+                       "report": frame.plan_report(),
+                       "eager_chain_report": chain_report}
+    del res, stats, got, want, chain
+
+    # 3. the strategy choice on the join table
+    with_stats = ctx.frame(b2).groupby("k", PLAN_AGGS)
+    without = ctx.frame(b).groupby("k", PLAN_AGGS)
+    strategies, rows = {}, {}
+    for name, f in (("with_stats", with_stats), ("without_stats", without)):
+        strategies[name] = f.optimized().strategy
+        (res, stats), n, peak = counted(f.collect_with_stats)
+        rows[name] = summarize(res, stats)["rows"]
+        out[f"groupby_{name}"] = {"strategy": strategies[name],
+                                  "report": f.plan_report(), "launches": n,
+                                  "peak_bytes": peak,
+                                  "rows": int(res.row_counts.sum())}
+        del res, stats
+    check(strategies == {"with_stats": "shuffle", "without_stats": "two_phase"},
+          f"groupby auto picked {strategies}")
+    compare_rows("groupby with stats vs without", rows["with_stats"],
+                 rows["without_stats"])
+    del rows
+    ms_with, ms_without = in_turns(calls["groupby_with_stats"],
+                                   calls["groupby_without_stats"])
+    out["groupby_with_stats"]["ms"] = ms_with
+    out["groupby_without_stats"]["ms"] = ms_without
+
+    # 4. elision off placement tags
+    sorted_a, _ = ctx.sort(a2, "k")
+    part_b, _ = ctx.partition_by(b2, "k")
+    elided = {}
+    for name, f, want_elided in (
+            ("sorted_groupby", ctx.frame(sorted_a).groupby("k", PLAN_AGGS),
+             [True]),
+            ("partitioned_join", ctx.frame(part_b).join(ctx.frame(a2), on="k"),
+             [True, False])):
+        static = f.plan_report()
+        executed = []
+        res, stats = f.collect_with_stats(report=executed)
+        check([r["elided"] for r in static] == want_elided,
+              f"{name}: plan_report elided {[r['elided'] for r in static]}")
+        check(static == executed, f"{name}: plan_report differs from the run")
+        for r, s in zip(executed, stats):
+            if r["elided"]:
+                check(int(s.received.sum()) == 0 and int(s.overflow.sum()) == 0,
+                      f"{name}: an elided shuffle moved rows")
+        elided[name] = {"elided": sum(r["elided"] for r in static),
+                        "wire_bytes": sum(r["wire_bytes"] for r in static),
+                        "executed_wire_bytes": sum(r["wire_bytes"]
+                                                   for r in executed)}
+        del res, stats
+    out["elided"] = elided
+    del sorted_a, part_b
+
+    # 5. the safe-capacity re-run on small tables with understated stats
+    x, y = (ctx.from_local_parts([
+        random_table(small_rows, key_range=P * small_rows, seed=seed, shard=i,
+                     device=dev) for i in range(P)]) for seed in (5, 6))
+    bad = [dataclasses.replace(t, stats=understated()) for t in (x, y)]
+    before = ctx.overflow_retries
+    res, stats = ctx.frame(bad[0]).join(ctx.frame(bad[1]), on="k") \
+        .collect_with_stats()
+    check(ctx.overflow_retries - before == 1,
+          f"{ctx.overflow_retries - before} safe re-runs, want 1")
+    check(res.stats is None, "a failed estimate's stats were propagated")
+    got = summarize(res, stats)
+    want = summarize(*ctx.frame(x).join(ctx.frame(y), on="k")
+                     .collect_with_stats())
+    check(got["row_counts"] == want["row_counts"],
+          "safe re-run: row counts differ from the run without stats")
+    compare_rows("safe re-run", got["rows"], want["rows"])
+    out["safe_rerun"] = {"rows_per_shard": small_rows, "overflow_retries": 1,
+                         "rows": sum(got["row_counts"])}
+    return out
+
+
+def say_plan(plan: dict, card: str, secs: float) -> None:
+    an, pl = plan["analyze"], plan["pipeline"]
+    say(f"[11] analyze of 4 tables: {an['ms']:.2f} ms (plain {an['plain_ms']:.2f})"
+        f", stats equal to the plain run; launches {an['launches']} on {card}")
+    for t, st in an["stats"].items():
+        say(f"[11]   {t}: {st}")
+    say("[11] pipeline explain():")
+    for line in plan["explain"].splitlines():
+        say(f"      {line}")
+    say(f"[11] pipeline: {pl['ms']:.1f} ms (eager chain {pl['eager_chain_ms']:.1f})"
+        f", {pl['rows']} rows equal to the plain run and to the eager chain; "
+        f"peak {pl['peak_bytes'] / 2**30:.2f} GiB; launches {pl['launches']}")
+    for name in ("with_stats", "without_stats"):
+        gb = plan[f"groupby_{name}"]
+        say(f"[11] groupby auto {name}: {gb['strategy']}, {gb['ms']:.1f} ms, "
+            f"bucket {gb['report'][0]['bucket']}, wire "
+            f"{gb['report'][0]['wire_bytes']} B, peak "
+            f"{gb['peak_bytes'] / 2**30:.2f} GiB")
+    for name, e in plan["elided"].items():
+        say(f"[11] {name}: {e['elided']} shuffle(s) elided, wire bytes "
+            f"{e['wire_bytes']} planned = {e['executed_wire_bytes']} run")
+    say(f"[11] safe-capacity re-run at {plan['safe_rerun']['rows_per_shard']} "
+        f"rows a shard: 1 re-run, rows equal to the run without stats "
+        f"({secs:.1f} s for phase 11)")
+
+
+def plan_summary(plan: dict, rows: int) -> dict:
+    """Phase 11's numbers for the JSON line."""
+    pl = plan["pipeline"]
+
+    def buckets(report):
+        return [{k: r[k] for k in ("op", "elided", "bucket", "wire_bytes",
+                                   "stages")} for r in report]
+
+    return {
+        "rows_per_shard": rows,
+        "analyze_ms": plan["analyze"]["ms"],
+        "analyze_plain_ms": plan["analyze"]["plain_ms"],
+        "analyze_launches": plan["analyze"]["launches"],
+        "pipeline_ms": pl["ms"], "eager_chain_ms": pl["eager_chain_ms"],
+        "pipeline_launches": pl["launches"],
+        "groupby_auto_ms": {k: plan[f"groupby_{k}"]["ms"]
+                            for k in ("with_stats", "without_stats")},
+        "groupby_strategy": {k: plan[f"groupby_{k}"]["strategy"]
+                             for k in ("with_stats", "without_stats")},
+        "groupby_launches": {k: plan[f"groupby_{k}"]["launches"]
+                             for k in ("with_stats", "without_stats")},
+        "buckets": {
+            "pipeline_cost_sized": buckets(pl["report"]),
+            "eager_chain_no_stats": buckets(pl["eager_chain_report"]),
+            "groupby_cost_sized": buckets(plan["groupby_with_stats"]["report"]),
+            "groupby_no_stats": buckets(plan["groupby_without_stats"]["report"]),
+        },
+        "elided": plan["elided"],
+        "peak_bytes": {"analyze": plan["analyze"]["peak_bytes"],
+                       "pipeline": pl["peak_bytes"],
+                       **{f"groupby_{k}": plan[f"groupby_{k}"]["peak_bytes"]
+                          for k in ("with_stats", "without_stats")}},
+        "safe_rerun": plan["safe_rerun"],
+    }
+
+
+def _plain(call):
+    with kops.oracle_scope():
+        return call()
+
+
+# ---------------------------------------------------------------------------
 # phase 7: per-kernel times at the path's shapes
 # ---------------------------------------------------------------------------
 
@@ -1460,7 +1773,20 @@ def main() -> None:
             f"ported kernels {pr['ported_kernels_ms']:.2f} ms")
         for kname, ms in pr["top"]:
             say(f"      {ms:8.2f} ms  {kname[:110]}")
-    del res, tabs
+    del res
+    t0 = time.perf_counter()
+    plan = phase_plan(ctx, tabs, dev, SAFE_RERUN_ROWS)
+    say_plan(plan, card, time.perf_counter() - t0)
+    plan_prof = {name: profiled(name, call) for name, call in
+                 plan_calls(ctx, tabs, plan.pop("analyzed")).items()}
+    for name, pr in plan_prof.items():
+        say(f"[11] {name}: profiled wall {pr['wall_ms']:.1f} ms, GPU kernels "
+            f"{pr['device_ms']:.1f} ms, busy share {pr['busy_share']:.2f}, "
+            f"ported kernels {pr['ported_kernels_ms']:.2f} ms, "
+            f"{pr['host_ops']} torch ops dispatched by the host")
+        for kname, ms in pr["top"]:
+            say(f"      {ms:8.2f} ms  {kname[:110]}")
+    del tabs
     torch.cuda.empty_cache()
 
     for src, (secs, _) in sorted(_build.LOGS.items()):
@@ -1569,6 +1895,11 @@ def main() -> None:
                         "ported_kernels_ms": v["ported_kernels_ms"]}
                     for k, v in prof.items()},
     }}))
+    say(json.dumps({"plan": {**plan_summary(plan, rows), "profile": {
+        k: {"wall_ms": v["wall_ms"], "device_ms": v["device_ms"],
+            "busy_share": v["busy_share"],
+            "ported_kernels_ms": v["ported_kernels_ms"],
+            "host_ops": v["host_ops"]} for k, v in plan_prof.items()}}}))
     say(json.dumps({"kernels": kernels}))
     say(nvidia_smi())
     say(json.dumps({"ok": True, "device": {

@@ -12,6 +12,7 @@ device; only the host-side edges (``to_numpy``) read it.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -19,6 +20,14 @@ import torch
 from repro_torch.utils import resolve_device
 
 KEY_DTYPES = (torch.int32, torch.uint32, torch.float32)
+
+
+class ColumnSpec(NamedTuple):
+    """One column's row type: the trailing shape of a row and the dtype
+    (the port's counterpart of ``jax.ShapeDtypeStruct``)."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
 
 
 def _rc(n, device) -> torch.Tensor:

@@ -265,11 +265,13 @@ def _chip_smoke():
                           capture_output=True, text=True, timeout=300, cwd=ROOT)
 
 
-def test_chip_smoke_cpu_rehearsal_drives_the_main_path():
+def test_chip_smoke_cpu_rehearsal_drives_the_main_path(monkeypatch):
     """chip_smoke.py's main-path calls and its comparison of a run against
     the ``oracle_scope()`` run, at 8 x 1024 rows on the CPU (plain versions
     on both sides, so equal bit for bit). The window's output is also held
-    against the one-host window of all rows."""
+    against the one-host window of all rows. Then phase 11 (statistics and
+    the lazy plan) on the same tables, each wrapper's call counted as its
+    launch, its safe-capacity re-run at 8 x 256 rows."""
     import importlib.util
 
     from repro_torch.core.context import DistContext
@@ -301,6 +303,21 @@ def test_chip_smoke_cpu_rehearsal_drives_the_main_path():
         rows = dict(got["rows"], d0_cumsum=got["rows"]["d0_cumsum"].clone())
         rows["d0_cumsum"][7] += 1
         smoke.compare_results("window", dict(got, rows=rows), got)
+
+    _counted_launches(monkeypatch, smoke)
+    plan = smoke.phase_plan(ctx, tabs, cpu, 256)
+    assert plan["analyze"]["launches"]["hash32_partition"] == 16
+    assert plan["groupby_with_stats"]["strategy"] == "shuffle"
+    assert plan["groupby_without_stats"]["strategy"] == "two_phase"
+    assert {k: v["elided"] for k, v in plan["elided"].items()} == \
+        {"sorted_groupby": 1, "partitioned_join": 1}
+    assert plan["safe_rerun"]["overflow_retries"] == 1
+    assert "cost-sized" in plan["explain"]
+    summary = smoke.plan_summary(plan, 1024)
+    json.dumps(summary)
+    # analyzed shuffles are sized from the stats, not the table capacity
+    sized = summary["buckets"]["groupby_cost_sized"][0]["bucket"]
+    assert sized < summary["buckets"]["groupby_no_stats"][0]["bucket"]
 
 
 def _counted_launches(monkeypatch, smoke):

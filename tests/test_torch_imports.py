@@ -59,3 +59,10 @@ def test_importing_the_port_loads_no_jax():
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert out.stdout.startswith("clean")
+
+
+def test_the_plan_layer_is_checked():
+    """The statistics and plan modules are among the files checked above."""
+    names = {str(f.relative_to(ROOT)) for f in _files()}
+    for mod in ("stats", "plan", "frame", "context"):
+        assert f"src/repro_torch/core/{mod}.py" in names, mod
