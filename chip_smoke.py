@@ -46,10 +46,13 @@ Phases (any failed check raises, and the script exits nonzero):
    and what derives from them (sum, mean, var) within the tolerance stated
    in ``compare_groupby``.
 5. Each operator's median wall time through the kernels and through the
-   plain versions, run in turns.
+   plain versions, run in turns; then through ``submit`` (the eager
+   route) and straight into ``execute_plan`` (no plan cache, future or
+   ladder), in turns in one process, with the same rows and the host
+   syncs of one call of each.
 6. One ``torch.profiler`` trace of each operator through the kernels (GPU
-   busy share, the device time of the port's own kernels, the kernels
-   that took the most device time).
+   busy share, the device time of the port's own kernels, the torch ops
+   the host dispatched, the kernels that took the most device time).
 7. Each kernel's median time at the path's shape beside its plain
    version's, one PyTorch library call's where one computes the same
    function (none computes a segmented scan: ``torch.cumsum`` of the same
@@ -82,6 +85,39 @@ Phases (any failed check raises, and the script exits nonzero):
    rows (stats that understate the rows overflow a cost-sized bucket), and
    one ``torch.profiler`` trace of each timed call.
 
+13a. (after phase 11, on its tables) The plan verifier at full width:
+   ``explain(verify=True)`` of phase 11's frames ends ``verification:
+   clean``, and ``audit_collectives`` of its frame pipeline (one run,
+   ``VirtualMesh.counts`` zeroed first) counts what ``expected_collectives``
+   derives from the run's shuffle records.
+
+12. The serving open loop (benchmarks/bench_serving.py's workload at the
+   main path's scale): ``orders`` of 8 shards x 2**22 rows (``k`` int32 over
+   64 keys, ``d0`` integer-valued float32, ``d1`` int32; 12 B a row) and a
+   64-row ``dims``, registered with ``analyze=True`` in a
+   ``ServingSession``; the shapes ``gb``, ``topn`` (sort + limit 32), ``sel``
+   (an inline keyless lambda, cached by its content key) and ``join``; 8
+   clients x 6 queries, at most 8 in flight, in three phases: cold
+   sequential, warm sequential, warm async. Every query's rows equal across
+   the phases and to the frame collected under ``oracle_scope()``; the warm
+   phases prepare and re-prepare nothing; no query fails, degrades or is
+   quarantined; hash32_partition, bucket_histogram, segment_reduce_tiles and
+   bitonic_sort_permutation launch in every phase (the same counts in both
+   warm phases); each shape's ``explain(verify=True)`` is clean. It prints
+   each phase's q/s, p50/p99 ms, overflow re-runs and peak GiB, and the
+   host synchronisations ``submit`` makes for one warm query of each shape
+   (``torch.cuda.set_sync_debug_mode``). No ordering of the modes' speeds
+   is asserted.
+13b. Faults at 8 x 2**16 rows: each case of ``repro.testing.chaos_cases``
+   through the port (shuffle garble and raise on staged and ring exchanges,
+   kernel raise, NaN and persistent, a derated ``stats.estimate``,
+   ``cache.admission`` miss and evict, ``compile`` on the warm hit, a
+   serving loop that survives a kernel fault and a raising query): rows
+   equal to the fault-free run bit for bit, the recovery counters
+   tests/test_chaos.py asserts. A RuntimeError raised at the
+   segment_reduce seam, and NaN written there while validation is on,
+   propagate through ``result()`` with no rung taken.
+
 Then, with the relational tables freed, the serving path (the LM slice):
 
 8. llama3-8b at full width and depth (random bf16 weights from a
@@ -109,7 +145,8 @@ times it at the path's shape beside
 ``F.scaled_dot_product_attention`` (``library_ms``).
 
 It prints one JSON line with the serving path's numbers, one with the main
-path's, one with phase 11's (``{"plan": ...}``), one with every kernel's,
+path's, one with phase 11's (``{"plan": ...}``), one with phases 12-13's
+(``{"serving": ...}``), one with every kernel's,
 then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line. Without a card it exits
 2 and prints no result.
@@ -134,6 +171,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import ops_local as L  # noqa: E402
+from repro_torch.core import plan as PL  # noqa: E402
 from repro_torch.core import stats as S  # noqa: E402
 from repro_torch.core.context import DistContext, DistTable  # noqa: E402
 from repro_torch.core.mesh import VirtualMesh  # noqa: E402
@@ -1065,6 +1103,56 @@ def phase_operator_times(ctx, tabs, rounds: int = 2) -> dict[str, dict]:
     return out
 
 
+def direct_route(ctx: DistContext, call):
+    """``call``'s operator on the route eager operators took before
+    ``submit``: its one-node plan through the cost pass and straight into
+    ``execute_plan``, with no plan cache, future, event or recovery ladder
+    (for inputs without statistics, as on the main path)."""
+    seen = []
+    real = ctx._run_plan
+    ctx._run_plan = lambda plan, tabs, **kw: (
+        seen.append((plan, tabs)) or real(plan, tabs, **kw))
+    try:
+        call()
+    finally:
+        del ctx._run_plan
+    (plan, tabs), = seen
+    check(all(t.stats is None for t in tabs), "direct_route: analyzed input")
+    schemas, p = [t.schema for t in tabs], ctx.num_shards
+    part = PL.output_partitioning(plan, schemas, p)
+    plan = PL.apply_cost_model(plan, schemas, p, [None] * len(tabs))
+
+    def run():
+        out, stats = PL.execute_plan(plan, [t.shards() for t in tabs],
+                                     mesh=ctx.mesh)
+        return DistTable.from_shards(out, part), stats
+
+    return run
+
+
+def phase_submit_route(ctx, tabs, rounds: int = 3) -> dict[str, dict]:
+    """Each main-path operator through ``submit`` (the eager route) and
+    through :func:`direct_route`, in one process: the same rows from both,
+    the host syncs of one call of each (submit counted before and after
+    the direct call, so an allocator's sync on whichever call comes first
+    shows), and median wall ms of each in turns (direct, submit, submit,
+    direct) x ``rounds``."""
+    out = {}
+    for name, call in main_path_calls(ctx, *tabs):
+        direct = direct_route(ctx, call)
+        got, syncs = count_syncs(call)
+        got = summarize(*got)
+        want, direct_syncs = count_syncs(direct)
+        compare_results(name, got, summarize(*want))
+        del got, want
+        _, syncs_after = count_syncs(call)
+        direct_ms, submit_ms = in_turns(direct, call, rounds)
+        out[name] = {"submit_ms": submit_ms, "direct_ms": direct_ms,
+                     "submit_syncs": [syncs, syncs_after],
+                     "direct_syncs": direct_syncs, "samples": 2 * rounds}
+    return out
+
+
 def phase_profile(ctx, tabs, top: int = 8) -> dict[str, dict]:
     """One :func:`profiled` run of each operator through the kernels."""
     return {name: profiled(name, call, top)
@@ -1379,6 +1467,394 @@ def plan_summary(plan: dict, rows: int) -> dict:
                           for k in ("with_stats", "without_stats")}},
         "safe_rerun": plan["safe_rerun"],
     }
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the serving open loop; phase 13: faults and the verifier
+# ---------------------------------------------------------------------------
+
+# benchmarks/bench_serving.py's workload at the main path's scale: 8 clients
+# x 6 queries a client over 4 shapes, at most 8 in flight
+SERVE_KEYS = 64
+SERVE_CLIENTS = 8
+SERVE_QUERIES_PER_CLIENT = 6
+SERVE_IN_FLIGHT = 8
+SERVE_MODES = (("cold_sequential", "sequential"),
+               ("warm_sequential", "sequential"), ("warm_async", "async"))
+# the kernels every serving phase must launch: the hash shuffles' partition
+# entry and histogram, groupby's reductions and its two-phase combine's sort
+SERVING_KERNELS = ("hash32_partition", "bucket_histogram",
+                   "segment_reduce_tiles", "bitonic_sort_permutation")
+# rows a shard in phase 13's fault cases: faults are control flow
+FAULT_ROWS = 1 << 16
+
+
+def serving_tables(ctx: DistContext, rows: int, device, seed: int = 42):
+    """``orders`` (8 shards of ``rows``: ``k`` int32 over [0, 64), ``d0``
+    integer-valued float32 over [-50, 50), ``d1`` int32 over [0, 1000); 12 B
+    a row) and ``dims`` (64 rows: ``k`` 0..63, ``w`` integer-valued float32
+    over [0, 9)), as benchmarks/bench_serving.py draws them."""
+    rng = np.random.default_rng(seed)
+    parts = [Table.from_numpy({
+        "k": rng.integers(0, SERVE_KEYS, rows).astype(np.int32),
+        "d0": rng.integers(-50, 50, rows).astype(np.float32),
+        "d1": rng.integers(0, 1000, rows).astype(np.int32)}, device=device)
+        for _ in range(P)]
+    dims = Table.from_numpy({
+        "k": np.arange(SERVE_KEYS, dtype=np.int32),
+        "w": rng.integers(0, 9, SERVE_KEYS).astype(np.float32)}, device=device)
+    return ctx.from_local_parts(parts), dims
+
+
+def serving_workload():
+    """The four query shapes; ``sel``'s lambda is re-created on every call
+    and must hit the plan cache through its content key."""
+    return [
+        ("gb", lambda s: s.frame("orders")
+            .groupby("k", (("d0", "sum"), ("d0", "count")))),
+        ("topn", lambda s: s.frame("orders").sort("k").limit(32)),
+        ("sel", lambda s: s.frame("orders")
+            .select(lambda c: c["d0"] > 0.0)
+            .groupby("k", (("d0", "mean"),))),
+        ("join", lambda s: s.frame("orders").join(s.frame("dims"), "k")
+            .groupby("k", (("w", "sum"),))),
+    ]
+
+
+def same_rows(name: str, got, want) -> None:
+    """Bitwise equality of two results' valid rows, in shard order (each a
+    DistTable or a collapsed Table)."""
+    a, b = (t.to_table().columns if isinstance(t, DistTable) else t.columns
+            for t in (got, want))
+    check(sorted(a) == sorted(b), f"{name}: columns {sorted(a)} vs {sorted(b)}")
+    for n in b:
+        check(torch.equal(_bits(a[n]), _bits(b[n])), f"{name}: column {n} differs")
+
+
+def count_syncs(call) -> tuple[object, int]:
+    """(result, host synchronisations the call made), counted by
+    ``torch.cuda.set_sync_debug_mode("warn")``'s warnings."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = call()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return res, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def phase_serving(ctx: DistContext, dev, rows: int, profile=None) -> dict:
+    """The serving open loop (phase 12): ``ServingSession.run_open_loop``
+    over :func:`serving_workload` on ``orders`` and ``dims`` (both
+    registered with ``analyze=True``), three phases: cold sequential, warm
+    sequential, warm async. Checks: every query's rows equal across the
+    phases and to the same frame collected under ``oracle_scope()``; the
+    cold phase prepares each shape once (4 misses, plus one ``plan-safe``
+    entry for each shape whose estimates overflowed), the warm phases none
+    and recompile nothing; no query failed, degraded or was quarantined;
+    each of ``SERVING_KERNELS`` launched in every phase, the same counts in
+    both warm phases. Then the host synchronisations ``submit`` makes for
+    one warm query of each shape, and, given ``profile`` (:func:`profiled`),
+    one trace of a warm query of each shape."""
+    from repro_torch.core.serving import ServingSession
+
+    orders, dims = serving_tables(ctx, rows, dev)
+    sess = ServingSession(ctx, max_in_flight=SERVE_IN_FLIGHT)
+    sess.register("orders", orders, analyze=True)
+    sess.register("dims", dims, analyze=True)
+    del orders
+    workload = serving_workload()
+    out: dict = {"rows_per_shard": rows, "clients": SERVE_CLIENTS,
+                 "queries_per_client": SERVE_QUERIES_PER_CLIENT,
+                 "max_in_flight": SERVE_IN_FLIGHT}
+    results = {}
+    for name, mode in SERVE_MODES:
+        (rep, res), n, peak = counted(lambda: sess.run_open_loop(
+            workload, num_clients=SERVE_CLIENTS,
+            queries_per_client=SERVE_QUERIES_PER_CLIENT, mode=mode))
+        check(rep.failed == 0 and rep.degraded == 0 and rep.quarantines == 0,
+              f"{name}: {rep.failed} failed, {rep.degraded} degraded, "
+              f"{rep.quarantines} quarantined: {rep.errors}")
+        check(all(n[k] > 0 for k in SERVING_KERNELS),
+              f"{name}: launched {n}; a kernel of {SERVING_KERNELS} never ran")
+        results[name] = [r.to_table() for r in res]
+        out[name] = {**{k: v for k, v in rep.to_dict().items()
+                        if k not in ("errors", "cache")},
+                     "overflow_retries": rep._delta("overflow_retries"),
+                     "peak_bytes": peak, "launches": n,
+                     "shapes": rep.shapes}
+        del res
+    cold = out["cold_sequential"]
+    check(cold["compiles"] == len(workload) + cold["overflow_retries"],
+          f"cold phase prepared {cold['compiles']} plans, want "
+          f"{len(workload)} + {cold['overflow_retries']} safe")
+    for name in ("warm_sequential", "warm_async"):
+        check(out[name]["compiles"] == 0 and out[name]["recompiles"] == 0,
+              f"{name}: {out[name]['compiles']} prepared, "
+              f"{out[name]['recompiles']} re-prepared on a warm cache")
+        check(out[name]["overflow_retries"] == 0, f"{name}: overflow re-runs")
+    check(out["warm_sequential"]["launches"] == out["warm_async"]["launches"],
+          "warm phases launched different kernel counts: "
+          f"{out['warm_sequential']['launches']} vs "
+          f"{out['warm_async']['launches']}")
+    if cold["overflow_retries"] == 0:
+        check(cold["launches"] == out["warm_sequential"]["launches"],
+              "the cold phase launched other kernel counts than the warm")
+    shapes = cold["shapes"]
+    oracle = {}
+    for label, make in workload:
+        with kops.oracle_scope():
+            oracle[label] = make(sess).collect().to_table()
+    for i, label in enumerate(shapes):
+        for name, _ in SERVE_MODES:
+            same_rows(f"{name} query {i} ({label}) vs oracle_scope()",
+                      results[name][i], oracle[label])
+    out["explain"] = {}
+    for label, make in workload:
+        text = make(sess).explain(verify=True)
+        check(text.endswith("\nverification: clean"),
+              f"serving shape {label}: verifier findings:\n{text}")
+        out["explain"][label] = text
+    syncs = {}
+    for label, make in workload:
+        fut, syncs[label] = count_syncs(lambda: sess.submit(make))
+        fut.result()
+    out["submit_host_syncs"] = syncs
+    if profile is not None:
+        out["profile"] = {label: profile(label, lambda m=make:
+                                         sess.submit(m).result())
+                          for label, make in workload}
+    out["per_query_launches"] = {
+        name: {k: out[name]["launches"][k] / len(shapes)
+               for k in SERVING_KERNELS} for name, _ in SERVE_MODES}
+    del results, oracle, sess
+    return out
+
+
+def say_serving(out: dict, card: str, secs: float) -> None:
+    say(f"[12] serving open loop: {P} x {out['rows_per_shard']} rows of "
+        f"orders, {out['clients']} clients x {out['queries_per_client']} "
+        f"queries, at most {out['max_in_flight']} in flight; rows equal "
+        f"across phases and to oracle_scope() ({secs:.1f} s)")
+    for name, _ in SERVE_MODES:
+        r = out[name]
+        say(f"[12] {name}: {r['qps']:.2f} q/s, p50 {r['p50_ms']:.1f} ms, p99 "
+            f"{r['p99_ms']:.1f} ms, {r['compiles']} prepared "
+            f"({r['recompiles']} re-prepared), {r['overflow_retries']} overflow "
+            f"re-runs, peak {r['peak_bytes'] / 2**30:.2f} GiB, launches "
+            f"{r['launches']} on {card}")
+    say(f"[12] host syncs at submit of one warm query: "
+        f"{out['submit_host_syncs']}")
+    for label, text in out["explain"].items():
+        say(f"[12] {label} explain(verify=True):")
+        for line in text.splitlines():
+            say(f"      {line}")
+
+
+def fault_orders(ctx: DistContext, rows: int, device, keys: int = 57,
+                 seed: int = 11) -> DistTable:
+    """repro.testing.chaos_cases' orders at ``rows`` a shard."""
+    rng = np.random.default_rng(seed)
+    n = rows * P
+    return ctx.scatter(Table.from_numpy({
+        "k": rng.integers(0, keys, n).astype(np.int32),
+        "d0": rng.integers(-50, 50, n).astype(np.float32),
+        "d1": rng.integers(0, 1000, n).astype(np.int32)}, device=device))
+
+
+def phase_faults(dev, rows: int) -> dict:
+    """Each case of ``repro.testing.chaos_cases`` through the port at
+    ``rows`` a shard (phase 13): the recovered rows equal the fault-free
+    run's bit for bit, and the counters ``tests/test_chaos.py`` asserts
+    hold. Then a real fault at a kernel seam (a RuntimeError, not a
+    FaultError; or NaN the kernel writes while validation is on)
+    propagates through ``result()`` and rides no rung."""
+    from repro_torch.core import faults as FLT
+    from repro_torch.core.serving import ServingSession
+
+    def ctx_with(faults=None, retry=None):
+        return DistContext(num_shards=P, device=dev, faults=faults,
+                           retry_policy=retry or FLT.RetryPolicy())
+
+    out: dict = {}
+    bucket = 2 * rows // P
+    # shuffle.chunk on staged and ring exchanges
+    for tag, kw in (("staged", {"stages": 3}), ("ring", {"shuffle_mode": "ring"})):
+        c0 = ctx_with()
+        ref, _ = c0.partition_by(fault_orders(c0, rows, dev), "k",
+                                 bucket_capacity=bucket, **kw)
+        for fmode in ("raise", "garble"):
+            c = ctx_with([FLT.FaultPlan("shuffle.chunk", mode=fmode, nth=1)])
+            got, _ = c.partition_by(fault_orders(c, rows, dev), "k",
+                                    bucket_capacity=bucket, **kw)
+            same_rows(f"shuffle {tag} {fmode}", got, ref)
+            cs = c.cache_stats()
+            rung = "degraded_shuffle" if fmode == "raise" else "quarantines"
+            check(cs[rung] >= 1 and cs["failed_queries"] == 0
+                  and cs["fault_fires"] == 1,
+                  f"shuffle {tag} {fmode}: {cs}")
+            out[f"shuffle_{tag}_{fmode}"] = cs
+    # kernel.dispatch: raise, NaN, persistent
+    for fmode, aggs, rung in (("raise", (("d0", "sum"), ("d0", "count")),
+                               "degraded_kernel"),
+                              ("nan", (("d0", "sum"),), "quarantines")):
+        c0 = ctx_with()
+        ref, _ = c0.groupby(fault_orders(c0, rows, dev), "k", aggs)
+        c = ctx_with([FLT.FaultPlan("kernel.dispatch", mode=fmode, nth=1)])
+        got, _ = c.groupby(fault_orders(c, rows, dev), "k", aggs)
+        same_rows(f"kernel {fmode}", got, ref)
+        cs = c.cache_stats()
+        check(cs[rung] >= 1 and cs["failed_queries"] == 0,
+              f"kernel {fmode}: {cs}")
+        out[f"kernel_{fmode}"] = cs
+        if fmode == "raise":
+            c = ctx_with([FLT.FaultPlan("kernel.dispatch", probability=1.0,
+                                        max_fires=10_000)],
+                         FLT.RetryPolicy(max_attempts=3))
+            got, _ = c.groupby(fault_orders(c, rows, dev), "k", aggs)
+            same_rows("kernel persistent", got, ref)
+            cs = c.cache_stats()
+            check(cs["failed_queries"] == 0 and cs["degraded_kernel"] >= 1,
+                  f"kernel persistent: {cs}")
+            out["kernel_persistent"] = cs
+    # stats.estimate under an analyzed, cost-sized groupby
+    c0 = ctx_with()
+    ref, _ = c0.groupby(c0.analyze(fault_orders(c0, rows, dev, keys=97)), "k",
+                        (("d0", "sum"),), strategy="shuffle")
+    c = ctx_with([FLT.FaultPlan("stats.estimate", probability=1.0,
+                                max_fires=10_000, factor=64.0)])
+    dt = c.analyze(fault_orders(c, rows, dev, keys=97))
+    for i in range(2):
+        got, _ = c.groupby(dt, "k", (("d0", "sum"),), strategy="shuffle")
+        same_rows(f"stats.estimate submit {i}", got, ref)
+    cs = c.cache_stats()
+    check(cs["overflow_retries"] == 1 and cs["failed_queries"] == 0
+          and cs["fault_fires"] > 0, f"stats.estimate: {cs}")
+    out["stats_estimate"] = cs
+    del dt
+    # cache.admission miss / evict on the warm hit, compile on the warm hit
+    c0 = ctx_with()
+    ref, _ = c0.groupby(fault_orders(c0, rows, dev), "k", (("d0", "sum"),))
+    for site, mode, counter in (("cache.admission", "miss", "recompiles"),
+                                ("cache.admission", "evict", "recompiles"),
+                                ("compile", None, "compile_retries")):
+        c = ctx_with([FLT.FaultPlan(site, mode=mode,
+                                    nth=2 if site == "cache.admission" else 1)])
+        dt = fault_orders(c, rows, dev)
+        for i in range(2):
+            got, _ = c.groupby(dt, "k", (("d0", "sum"),))
+            same_rows(f"{site} {mode} run {i}", got, ref)
+        cs = c.cache_stats()
+        check(cs[counter] >= 1 and cs["failed_queries"] == 0,
+              f"{site} {mode}: {cs}")
+        out[f"{site}_{mode or 'raise'}"] = cs
+    # a serving loop survives a kernel fault and a raising query
+    t = fault_orders(ctx_with(), rows, dev, keys=64)
+    workload = [
+        ("gb", lambda s: s.frame("orders")
+            .groupby("k", (("d0", "sum"), ("d0", "count")))),
+        ("sel", lambda s: s.frame("orders")
+            .select(lambda c: c["d0"] > 0.0, key=("pos",))
+            .groupby("k", (("d0", "sum"),))),
+        ("sort", lambda s: s.frame("orders").sort("k").limit(16)),
+    ]
+
+    def loop(c, wl):
+        sess = ServingSession(c, max_in_flight=4)
+        sess.register("orders", t)
+        return sess.run_open_loop(wl, num_clients=3, queries_per_client=2,
+                                  mode="async")
+
+    def boom(_s):
+        raise ValueError("client bug")
+
+    ref_rep, ref_res = loop(ctx_with(), workload)
+    rep, res = loop(ctx_with([FLT.FaultPlan("kernel.dispatch", probability=1.0,
+                                            max_fires=1)]), workload)
+    for i, (a, b) in enumerate(zip(res, ref_res)):
+        check(a is not None, f"serving survival: query {i} failed")
+        same_rows(f"serving survival query {i}", a, b)
+    check(ref_rep.failed == 0 and rep.failed == 0
+          and rep.degraded + rep.quarantines >= 1
+          and rep.retries + rep.degraded + rep.quarantines <= rep.num_queries,
+          f"serving survival: {rep.to_dict()}")
+    rep2, res2 = loop(ctx_with(), list(workload) + [("boom", boom)])
+    check(rep2.failed == 1 and [e[0] for e in rep2.errors] == ["boom"]
+          and sum(r is not None for r in res2) == rep2.num_queries - 1,
+          f"serving with a raising query: {rep2.to_dict()}")
+    out["serving_survival"] = {"degraded": rep.degraded,
+                               "quarantines": rep.quarantines,
+                               "boom_failed": rep2.failed}
+    del ref_res, res, res2, t
+    # a real kernel fault is no FaultError: an error the kernel raises, or
+    # NaN it writes while validation is on (armed faults that never fire
+    # turn it on), fails the query and rides no rung
+    from repro_torch.kernels import segment_reduce as seg
+
+    real = seg.segment_reduce_tiles
+
+    def broken(*a, **kw):
+        raise RuntimeError("segment_reduce_tiles: launch failed")
+
+    def nan_writer(values, seg_ids, num_segments, op="sum", **kw):
+        if values.is_floating_point():
+            return torch.full((num_segments,), float("nan"),
+                              dtype=values.dtype, device=values.device)
+        return ref.segment_reduce_ref(values, seg_ids, num_segments, op)
+
+    for label, fake, want in (
+            ("real_kernel_error", broken, "launch failed"),
+            ("real_kernel_nan", nan_writer, "failed validation: NaN")):
+        c = ctx_with([FLT.FaultPlan("kernel.dispatch", nth=99)])
+        dt = fault_orders(c, rows, dev)
+        seg.segment_reduce_tiles = fake
+        try:
+            fut = c.submit(PL.GroupBy(PL.Scan(0), ("k",), (("d0", "sum"),)),
+                           [dt])
+            try:
+                fut.result()
+                raised = None
+            except RuntimeError as e:
+                raised = str(e)
+        finally:
+            seg.segment_reduce_tiles = real
+        cs = c.cache_stats()
+        check(raised is not None and want in raised
+              and cs["degraded_kernel"] == 0 and cs["quarantines"] == 0
+              and cs["failed_queries"] == 1 and cs["fault_fires"] == 0,
+              f"{label}: raised {raised!r}, {cs}")
+        out[label] = {"raised": raised, "degraded_kernel": 0,
+                      "quarantines": 0}
+    return out
+
+
+def phase_verify(ctx: DistContext, tabs, analyzed) -> dict:
+    """The plan verifier at full width (phase 13): ``explain(verify=True)``
+    of phase 11's frames shows no findings (phase 12 checks the serving
+    shapes'), and ``audit_collectives`` of phase 11's frame pipeline (run
+    once) counts the collectives its static accounting expects."""
+    from repro_torch.core import verify as V
+
+    b = tabs[1]
+    a2, b2 = analyzed[:2]
+    frames = {"pipeline": pipeline_frame(ctx, a2, b2),
+              "groupby_with_stats": ctx.frame(b2).groupby("k", PLAN_AGGS),
+              "groupby_without_stats": ctx.frame(b).groupby("k", PLAN_AGGS)}
+    clean = {}
+    for name, f in frames.items():
+        text = f.explain(verify=True)
+        check(text.endswith("\nverification: clean"),
+              f"{name}: verifier findings:\n{text}")
+        clean[name] = True
+    audit = V.audit_collectives(frames["pipeline"])
+    check(audit["matched"], f"audit_collectives: counted {audit['actual']}, "
+          f"expected {audit['expected']}")
+    return {"clean": clean, "audit": {"expected": audit["expected"],
+                                      "actual": audit["actual"]}}
 
 
 def _plain(call):
@@ -1766,19 +2242,28 @@ def main() -> None:
         say(f"[5] {name}: median {t['kernels']:.1f} ms through the kernels, "
             f"{t['plain']:.1f} ms plain ({t['samples']} runs each, in turns) "
             f"on {card}")
+    route = phase_submit_route(ctx, tabs)
+    for name, r in route.items():
+        say(f"[5] {name}: median {r['submit_ms']:.2f} ms through submit, "
+            f"{r['direct_ms']:.2f} ms straight into execute_plan "
+            f"({r['samples']} runs each, in turns); host syncs "
+            f"{r['submit_syncs'][0]} / {r['direct_syncs']} / "
+            f"{r['submit_syncs'][1]} (submit, direct, submit)")
     prof = phase_profile(ctx, tabs)
     for name, pr in prof.items():
         say(f"[6] {name}: profiled wall {pr['wall_ms']:.1f} ms, GPU kernels "
             f"{pr['device_ms']:.1f} ms, busy share {pr['busy_share']:.2f}, "
-            f"ported kernels {pr['ported_kernels_ms']:.2f} ms")
+            f"ported kernels {pr['ported_kernels_ms']:.2f} ms, "
+            f"{pr['host_ops']} torch ops dispatched by the host")
         for kname, ms in pr["top"]:
             say(f"      {ms:8.2f} ms  {kname[:110]}")
     del res
     t0 = time.perf_counter()
     plan = phase_plan(ctx, tabs, dev, SAFE_RERUN_ROWS)
     say_plan(plan, card, time.perf_counter() - t0)
+    analyzed = plan.pop("analyzed")
     plan_prof = {name: profiled(name, call) for name, call in
-                 plan_calls(ctx, tabs, plan.pop("analyzed")).items()}
+                 plan_calls(ctx, tabs, analyzed).items()}
     for name, pr in plan_prof.items():
         say(f"[11] {name}: profiled wall {pr['wall_ms']:.1f} ms, GPU kernels "
             f"{pr['device_ms']:.1f} ms, busy share {pr['busy_share']:.2f}, "
@@ -1786,7 +2271,34 @@ def main() -> None:
             f"{pr['host_ops']} torch ops dispatched by the host")
         for kname, ms in pr["top"]:
             say(f"      {ms:8.2f} ms  {kname[:110]}")
-    del tabs
+    verified = phase_verify(ctx, tabs, analyzed)
+    say(f"[13] explain(verify=True) clean for {sorted(verified['clean'])}; "
+        f"audit_collectives of the pipeline: counted "
+        f"{verified['audit']['actual']} = expected")
+    del tabs, analyzed
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    serving = phase_serving(DistContext(num_shards=P), dev, rows, profiled)
+    say_serving(serving, card, time.perf_counter() - t0)
+    for name, pr in serving.pop("profile").items():
+        say(f"[12] warm {name} query: profiled wall {pr['wall_ms']:.1f} ms, "
+            f"GPU kernels {pr['device_ms']:.1f} ms, busy share "
+            f"{pr['busy_share']:.2f}, ported kernels "
+            f"{pr['ported_kernels_ms']:.2f} ms, {pr['host_ops']} torch ops "
+            f"dispatched by the host")
+        for kname, ms in pr["top"]:
+            say(f"      {ms:8.2f} ms  {kname[:110]}")
+        serving.setdefault("profile", {})[name] = {
+            k: pr[k] for k in ("wall_ms", "device_ms", "busy_share",
+                               "ported_kernels_ms", "host_ops")}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    faults = phase_faults(dev, FAULT_ROWS)
+    say(f"[13] fault cases at {P} x {FAULT_ROWS} rows recovered bit for bit "
+        f"through their rungs ({time.perf_counter() - t0:.1f} s):")
+    for name, cs in faults.items():
+        say(f"[13]   {name}: {cs}")
     torch.cuda.empty_cache()
 
     for src, (secs, _) in sorted(_build.LOGS.items()):
@@ -1889,10 +2401,11 @@ def main() -> None:
     say(json.dumps({"main_path": {
         "rows_per_shard": rows, "peak_bytes": peak, "peak_bytes_by_call": peaks,
         "first_run_wall_ms": walls, "first_plain_run_wall_ms": plain["walls"],
-        "operator_median_ms": op_ms,
+        "operator_median_ms": op_ms, "submit_route": route,
         "profile": {k: {"wall_ms": v["wall_ms"], "device_ms": v["device_ms"],
                         "busy_share": v["busy_share"],
-                        "ported_kernels_ms": v["ported_kernels_ms"]}
+                        "ported_kernels_ms": v["ported_kernels_ms"],
+                        "host_ops": v["host_ops"]}
                     for k, v in prof.items()},
     }}))
     say(json.dumps({"plan": {**plan_summary(plan, rows), "profile": {
@@ -1900,6 +2413,8 @@ def main() -> None:
             "busy_share": v["busy_share"],
             "ported_kernels_ms": v["ported_kernels_ms"],
             "host_ops": v["host_ops"]} for k, v in plan_prof.items()}}}))
+    say(json.dumps({"serving": {**serving, "faults": faults,
+                                "verify": verified, "card": card}}))
     say(json.dumps({"kernels": kernels}))
     say(nvidia_smi())
     say(json.dumps({"ok": True, "device": {

@@ -4,10 +4,10 @@
 logical plan (``core/plan.py``) instead of running operator by operator.
 ``collect()`` optimizes the plan (predicate, limit and projection pushdown,
 shuffle elision from placement tags, the cost model when an input carries
-stats) and runs it through ``DistContext._run_plan``, the path every eager
-operator takes as a one-node plan. ``ctx.frame(eager_result)`` picks up the
-result's placement tag, so a groupby chained after a join on the same key
-elides its shuffle.
+stats) and submits it through ``DistContext.submit``, the route every eager
+operator takes as a one-node plan; ``collect_async()`` returns the future.
+``ctx.frame(eager_result)`` picks up the result's placement tag, so a
+groupby chained after a join on the same key elides its shuffle.
 """
 from __future__ import annotations
 
@@ -197,17 +197,38 @@ class LazyFrame:
 
     def optimized(self) -> PL.Node:
         """The plan after every optimizer pass (what collect() runs),
-        including the cost model's choices when an input carries stats."""
+        including the cost model's choices when an input carries stats.
+        Under ``REPRO_VERIFY_PLANS`` the verifier checks it (and raises on
+        a finding)."""
         return PL.optimize(self._plan, self._schemas(), self._ctx.num_shards,
                            self._stats())
 
-    def explain(self, *, optimize: bool = True) -> str:
+    def explain(self, *, optimize: bool = True, verify: bool = False,
+                recovery: bool = False) -> str:
         """The plan tree, one node per line. On the optimized plan every
         potential shuffle is marked ``alltoall``/``elided``; when inputs
         carry stats each node shows its estimated rows and the capacities
-        the cost model chose (``bucket=``, ``out=``, ``cost-sized``)."""
-        plan = self.optimized() if optimize else self._plan
-        return PL.explain(plan, self._schemas(), self._stats())
+        the cost model chose (``bucket=``, ``out=``, ``cost-sized``).
+
+        ``verify=True`` also runs the plan verifier over the (logical,
+        optimized) pair and appends its findings (or ``verification:
+        clean``): it reports instead of raising, so a broken rewrite can
+        be inspected. ``recovery=True`` shows each node's degradation
+        rungs (``core/faults.py``)."""
+        schemas, stats = self._schemas(), self._stats()
+        if not optimize:
+            return PL.explain(self._plan, schemas, stats, recovery=recovery)
+        # verify=False here: explain renders findings, it does not raise
+        plan = PL.optimize(self._plan, schemas, self._ctx.num_shards, stats,
+                           verify=False)
+        text = PL.explain(plan, schemas, stats, recovery=recovery)
+        if verify:
+            from repro_torch.core import verify as V
+
+            findings = V.verify_plan(self._plan, plan, schemas,
+                                     self._ctx.num_shards, stats)
+            text += "\n" + V.format_findings(findings)
+        return text
 
     def plan_report(self) -> list[dict]:
         """Static shuffle accounting of the optimized plan: one record per
@@ -231,3 +252,12 @@ class LazyFrame:
         """Optimize and run the whole chain."""
         out, _ = self.collect_with_stats()
         return out
+
+    def collect_async(self):
+        """Submit the optimized plan and return a
+        :class:`~repro_torch.core.context.PlanFuture` as soon as its work
+        is enqueued: the cost-sized overflow check waits for
+        ``future.result()`` (or folds into a later dispatch). Clients
+        submitting through one context share its plan cache; results equal
+        sequential ``collect()`` calls bit for bit."""
+        return self._ctx.submit(self._plan, self._inputs, optimize=True)

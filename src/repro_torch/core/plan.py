@@ -908,6 +908,24 @@ def _node_cost_sized(node: Node) -> bool:
     return getattr(node, "sized", False) or getattr(node, "out_sized", False)
 
 
+def degrade_shuffles(plan: Node) -> Node:
+    """The ``mono-shuffle`` recovery rung: the same plan with every
+    exchange pinned to one monolithic AllToAll (``stages=1``, no ring):
+    the same bits by the staging contract, but none of the pipelined-chunk
+    machinery a ``shuffle.chunk`` fault lives in. ``stages=None`` (cost
+    pick) is pinned too: the degraded run must not re-pick a staged
+    depth."""
+    node = _with_children(plan, [degrade_shuffles(c)
+                                 for c in children(plan)])
+    names = {f.name for f in dataclasses.fields(node)}
+    upd = {}
+    if "stages" in names and node.stages != 1:
+        upd["stages"] = 1
+    if "shuffle_mode" in names and node.shuffle_mode != "alltoall":
+        upd["shuffle_mode"] = "alltoall"
+    return replace(node, **upd) if upd else node
+
+
 def plan_cost_sized(plan: Node) -> bool:
     """True when any capacity in the plan came from a cardinality estimate:
     then a runtime overflow warrants the safe re-run."""
@@ -951,13 +969,12 @@ def optimize_with_partitioning(
     projection pushdown -> shuffle elision -> cost model. Pure plan to
     plan; also returns the result's static placement.
 
-    ``verify=True`` would run the static plan verifier, which is not
-    ported yet (ROADMAP queue 1, item 9): it raises NotImplementedError.
-    ``None`` and ``False`` run no verifier."""
-    if verify:
-        raise NotImplementedError(
-            "the plan verifier (repro.core.verify) is not ported yet; see "
-            "ROADMAP.md queue 1, item 9")
+    ``verify`` runs ``repro_torch.core.verify`` over the (logical,
+    optimized) pair and raises ``PlanVerificationError`` on any invariant
+    violation; ``None`` defers to the ``REPRO_VERIFY_PLANS`` env gate
+    (on under pytest). The verifier re-optimizes with ``verify=False``
+    for its idempotence rule, so this never recurses."""
+    logical = plan
     an = _Analysis(input_schemas)
     plan = _annotate_selects(plan, an)
     plan = _pushdown_selects(plan, an)
@@ -967,6 +984,12 @@ def optimize_with_partitioning(
     est = _Estimator(an, input_stats if input_stats is not None
                      else [None] * len(input_schemas))
     plan = _apply_costs(plan, est, num_shards)
+    if verify is None or verify:
+        from repro_torch.core import verify as V  # deferred: verify imports us
+
+        if verify or V.verification_enabled():
+            V.verify_or_raise(logical, plan, input_schemas, num_shards,
+                              input_stats)
     return plan, part
 
 
@@ -1438,14 +1461,36 @@ def _shuffle_word(skip: bool) -> str:
     return "elided" if skip else "alltoall"
 
 
+def _recovery_rungs(node: Node) -> list[str]:
+    """The degradation rungs that apply to ``node`` should its run fail:
+    the ``recovery=`` annotation of :func:`explain`."""
+    rungs = []
+    if isinstance(node, (Join, SetOp)):
+        live = not (node.skip_left_shuffle and node.skip_right_shuffle)
+    else:
+        live = not getattr(node, "skip_shuffle", True)
+    if live and any(f.name == "stages" for f in dataclasses.fields(node)):
+        rungs.append("mono-alltoall")
+    if isinstance(node, (GroupBy, Window)):
+        rungs.append("oracle-kernel")
+    if _node_cost_sized(node):
+        rungs.append("safe-capacity")
+    return rungs
+
+
 def explain(plan: Node, input_schemas: Sequence[dict] | None = None,
-            input_stats: Sequence | None = None) -> str:
+            input_stats: Sequence | None = None, *,
+            recovery: bool = False) -> str:
     """Human-readable plan tree: one node per line, with every potential
     shuffle marked ``alltoall`` or ``elided``.
 
     With ``input_schemas`` and ``input_stats`` every node also shows its
     estimated output rows (``~rows=``), and nodes whose capacities the cost
     model filled in show them (``bucket=``, ``out=``, ``cost-sized``).
+    ``recovery=True`` appends each node's degradation rungs
+    (``recovery=mono-alltoall+oracle-kernel+safe-capacity``): how the
+    retry ladder would run the node again after a failure (see
+    ``core/faults.py``).
     """
     est = None
     if input_schemas is not None and input_stats is not None \
@@ -1472,6 +1517,10 @@ def explain(plan: Node, input_schemas: Sequence[dict] | None = None,
             s = est.stats(node)
             if s is not None:
                 parts.append(f"~rows={int(round(s.rows))}")
+        if recovery:
+            rungs = _recovery_rungs(node)
+            if rungs:
+                parts.append("recovery=" + "+".join(rungs))
         return (", " + ", ".join(parts)) if parts else ""
 
     def walk(node: Node, depth: int):

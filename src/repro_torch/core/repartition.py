@@ -29,6 +29,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from repro_torch.core import faults as FLT
 from repro_torch.core.mesh import VirtualMesh
 from repro_torch.core.ops_local import compact
 from repro_torch.core.table import Table
@@ -154,6 +155,43 @@ def staged_all_to_all(buf: torch.Tensor, mesh: VirtualMesh, *, stages: int = 1,
                      dim=2)
 
 
+def _poison_chunk(recv: torch.Tensor, width: int) -> torch.Tensor:
+    """Overwrite the first ``width`` received capacity slots of every
+    (destination, source) bucket with the NaN bit pattern: the
+    ``shuffle.chunk`` garble/drop fault. Floats become NaN (caught by the
+    finalize NaN scan); a 4-byte carrier's bitcast counts decode to an
+    absurd row count (caught by the received-rows invariant). Writes in
+    place: ``recv`` is the exchange's fresh output."""
+    if recv.dtype.is_floating_point:
+        bad = float("nan")
+    elif recv.element_size() == 4:
+        # the float32 quiet-NaN bit pattern, so bitcast counts explode
+        bad = 0x7FC00000
+    else:
+        bad = torch.iinfo(recv.dtype).max
+    recv[:, :, :width] = bad
+    return recv
+
+
+def _shuffle_fault(bucket_capacity: int, stages: int,
+                   shuffle_mode: str) -> FLT.FaultPlan | None:
+    """Consult the ``shuffle.chunk`` site for one exchange (on a plan's
+    first run only: ``faults.check_first_run``). Only a pipelined exchange
+    (staged chunks or the ppermute ring) is eligible: the fault models
+    pipelining bugs, so the monolithic-AllToAll rung provably avoids it.
+    Raise mode raises here; garble mode returns the plan for
+    :func:`repartition` to poison a received chunk with."""
+    staged = (shuffle_mode == "ring"
+              or len(_chunk_bounds(bucket_capacity, stages)) > 1)
+    if not staged:
+        return None
+    fp = FLT.check_first_run("shuffle.chunk")
+    if fp is not None and fp.effective_mode == "raise":
+        raise FLT.FaultError("shuffle.chunk",
+                             f"stages={stages} mode={shuffle_mode}")
+    return fp
+
+
 def _counts_carrier(table: Table) -> str | None:
     """The column that carries the per-bucket send counts: the first
     (sorted) 4-byte column; None when none qualifies."""
@@ -187,6 +225,10 @@ def repartition(tables: Sequence[Table], part_ids: Sequence[torch.Tensor], *,
     hist = torch.stack([h for _, h in packs])          # (p_src, p_dst)
     sent = torch.clamp(hist, max=cb).to(torch.int32)
     carrier = _counts_carrier(t0)
+    fault = _shuffle_fault(cb, stages, shuffle_mode)
+    # garble the carrier (or the only exchanged column when none): its
+    # first received chunk, counts slot included
+    garble_col = carrier if carrier is not None else t0.column_names[0]
     shard = torch.arange(p, device=dev)[:, None, None]
     src_row = send_idx.clamp(0, max(c - 1, 0))
     sent_mask = send_idx >= 0
@@ -215,6 +257,10 @@ def repartition(tables: Sequence[Table], part_ids: Sequence[torch.Tensor], *,
             buf = torch.cat([meta, buf], dim=2)  # (p, p, cb + 1, *rest)
         recv = staged_all_to_all(buf, mesh, stages=stages,
                                  shuffle_mode=shuffle_mode)
+        if fault is not None and name == garble_col:
+            width = (_chunk_bounds(buf.shape[2], stages)[0][1]
+                     if shuffle_mode != "ring" else buf.shape[2])
+            recv = _poison_chunk(recv, width)
         if name == carrier:
             meta_r = recv[:, :, 0]
             if rest:

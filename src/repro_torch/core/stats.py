@@ -26,6 +26,8 @@ from typing import Mapping, Sequence
 
 import torch
 
+from repro_torch.core import faults as FLT
+
 # ---------------------------------------------------------------------------
 # slack constants (the no-stats path)
 # ---------------------------------------------------------------------------
@@ -160,9 +162,17 @@ def cap_rows(stats: TableStats, rows: float,
 def with_skew_margin(mean: float) -> int:
     """Slot budget for an expected occupancy of ``mean`` rows: the mean
     plus ~4 Poisson standard deviations plus a small-count floor. Every
-    consumer is backed by the overflow re-run."""
+    consumer is backed by the overflow re-run.
+
+    The ``stats.estimate`` fault site lives here: an armed fault derates
+    the budget (divides by ``FaultPlan.factor``), modelling a badly wrong
+    cardinality estimate, the chaos probe of the overflow re-run."""
     mean = max(mean, 0.0)
-    return max(1, math.ceil(mean + 4.0 * math.sqrt(mean) + 4.0))
+    budget = max(1, math.ceil(mean + 4.0 * math.sqrt(mean) + 4.0))
+    fp = FLT.check("stats.estimate")
+    if fp is not None:
+        budget = max(1, int(budget // max(fp.factor, 1.0)))
+    return budget
 
 
 def size_bucket(source_rows: float, p: int, factor: float = 1.0) -> int:

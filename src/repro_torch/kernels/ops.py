@@ -7,7 +7,10 @@ place. Each kernel wrapper itself takes its plain version for a CPU tensor
 and launches its kernel for a CUDA tensor. :func:`oracle_scope` (the
 reference's recovery rung) makes every function here call the plain
 versions instead, on whatever device the tensors are: a caller's request,
-never a fallback.
+never a fallback. The recovery ladder enters it only after an injected
+``FaultError`` at the ``kernel.dispatch`` site (:func:`_kernel_fault`, at
+the segment kernels' seams, as in the reference); an error the kernel
+itself raises propagates.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from contextlib import contextmanager
 
 import torch
 
+from repro_torch.core import faults as FLT
 from repro_torch.kernels import bitonic, flash_attention, hash64, histogram, ref
 from repro_torch.kernels import segment_reduce as seg
 from repro_torch.kernels import segment_scan as scan
@@ -54,6 +58,20 @@ def oracle_scope():
         yield
     finally:
         _oracle.depth -= 1
+
+
+def _kernel_fault(out: torch.Tensor) -> torch.Tensor:
+    """Apply an armed ``kernel.dispatch`` fault to a kernel's output: raise,
+    or return it NaN-poisoned (floats only; result validation finds the
+    NaNs and quarantines the run). Consulted on a plan's first run only,
+    once a call site (``faults.check_first_run``); no-op otherwise."""
+    fp = FLT.check_first_run("kernel.dispatch", per_shard=True)
+    if fp is None:
+        return out
+    mode = fp.effective_mode
+    if mode == "nan" and out.dtype.is_floating_point:
+        return torch.full_like(out, float("nan"))
+    raise FLT.FaultError("kernel.dispatch", f"mode={mode}")
 
 
 def hash32(x: torch.Tensor, seed: int = 0) -> torch.Tensor:
@@ -128,9 +146,9 @@ def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor,
             f"shape={tuple(values.shape)} dtype={values.dtype}. Use "
             f"use_kernel=None for the plain scatter.")
     if use_kernel and not oracle_only():
-        return seg.segment_reduce_tiles(values, seg_ids.to(torch.int32),
-                                        num_segments, op,
-                                        contiguous_runs=contiguous_runs)
+        return _kernel_fault(seg.segment_reduce_tiles(
+            values, seg_ids.to(torch.int32), num_segments, op,
+            contiguous_runs=contiguous_runs))
     return ref.segment_reduce_ref(values, seg_ids, num_segments, op)
 
 
@@ -162,8 +180,8 @@ def segment_scan(values: torch.Tensor, seg_ids: torch.Tensor, op: str = "sum",
             f"shape={tuple(values.shape)} dtype={values.dtype}. Use "
             f"use_kernel=None for the plain scan.")
     if use_kernel and not oracle_only():
-        return scan.segment_scan_tiles(values, seg_ids.to(torch.int32), op,
-                                       inclusive=inclusive)
+        return _kernel_fault(scan.segment_scan_tiles(
+            values, seg_ids.to(torch.int32), op, inclusive=inclusive))
     return ref.segment_scan_ref(values, seg_ids, op, inclusive)
 
 

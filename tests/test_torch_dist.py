@@ -15,6 +15,7 @@ jitted shard_map program XLA contracts ``sumsq/n - mean*mean`` into one
 fused multiply-add; the port, like the reference run eagerly (see
 tests/test_torch_groupby.py, bitwise there), rounds the product first.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -271,7 +272,9 @@ def test_chip_smoke_cpu_rehearsal_drives_the_main_path(monkeypatch):
     on both sides, so equal bit for bit). The window's output is also held
     against the one-host window of all rows. Then phase 11 (statistics and
     the lazy plan) on the same tables, each wrapper's call counted as its
-    launch, its safe-capacity re-run at 8 x 256 rows."""
+    launch, its safe-capacity re-run at 8 x 256 rows, and phases 12-13
+    (the verifier on phase 11's frames, the serving open loop, the fault
+    cases) at 8 x 1024 rows."""
     import importlib.util
 
     from repro_torch.core.context import DistContext
@@ -305,6 +308,12 @@ def test_chip_smoke_cpu_rehearsal_drives_the_main_path(monkeypatch):
         smoke.compare_results("window", dict(got, rows=rows), got)
 
     _counted_launches(monkeypatch, smoke)
+    # phase 5's second half: submit against the route straight into
+    # execute_plan, the same rows from both
+    route = smoke.phase_submit_route(ctx, tabs, rounds=1)
+    assert list(route) == names
+    assert all(r["samples"] == 2 for r in route.values())
+    assert "_run_plan" not in vars(ctx)  # the capture was undone
     plan = smoke.phase_plan(ctx, tabs, cpu, 256)
     assert plan["analyze"]["launches"]["hash32_partition"] == 16
     assert plan["groupby_with_stats"]["strategy"] == "shuffle"
@@ -318,6 +327,30 @@ def test_chip_smoke_cpu_rehearsal_drives_the_main_path(monkeypatch):
     # analyzed shuffles are sized from the stats, not the table capacity
     sized = summary["buckets"]["groupby_cost_sized"][0]["bucket"]
     assert sized < summary["buckets"]["groupby_no_stats"][0]["bucket"]
+
+    # phases 12-13: the verifier on phase 11's frames, the serving open
+    # loop and the fault cases, at 8 x 1024 rows
+    verified = smoke.phase_verify(ctx, tabs, plan["analyzed"])
+    assert verified["audit"]["expected"] == verified["audit"]["actual"]
+    serving = smoke.phase_serving(DistContext(num_shards=P, device=cpu), cpu,
+                                  1024)
+    assert serving["warm_async"]["compiles"] == 0
+    assert serving["cold_sequential"]["compiles"] == \
+        4 + serving["cold_sequential"]["overflow_retries"]
+    assert all(serving[m]["launches"]["segment_reduce_tiles"] > 0
+               for m, _ in smoke.SERVE_MODES)
+    assert sorted(serving["submit_host_syncs"]) == ["gb", "join", "sel",
+                                                    "topn"]
+    faults = smoke.phase_faults(cpu, 1024)
+    assert faults["kernel_raise"]["degraded_kernel"] == 1
+    assert faults["stats_estimate"]["overflow_retries"] == 1
+    assert faults["real_kernel_nan"]["quarantines"] == 0
+    json.dumps({"serving": {**serving, "faults": faults,
+                            "verify": verified}})
+    with pytest.raises(smoke.CheckFailed, match="differs"):
+        bad = dict(plan["analyzed"][0].columns)
+        smoke.same_rows("x", plan["analyzed"][0], dataclasses.replace(
+            plan["analyzed"][0], columns={**bad, "d0": bad["d0"] + 1}))
 
 
 def _counted_launches(monkeypatch, smoke):
@@ -340,7 +373,8 @@ def _counted_launches(monkeypatch, smoke):
             return _real(*a, **kw)
 
         monkeypatch.setattr(module, name, launch)
-    for name in ("synchronize", "reset_peak_memory_stats"):
+    for name in ("synchronize", "reset_peak_memory_stats",
+                 "set_sync_debug_mode"):
         monkeypatch.setattr(torch.cuda, name, lambda *a, **kw: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
 

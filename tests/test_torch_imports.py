@@ -62,7 +62,9 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_the_plan_layer_is_checked():
-    """The statistics and plan modules are among the files checked above."""
+    """The statistics, plan, verifier and serving modules are among the
+    files checked above."""
     names = {str(f.relative_to(ROOT)) for f in _files()}
-    for mod in ("stats", "plan", "frame", "context"):
+    for mod in ("stats", "plan", "frame", "context", "verify", "faults",
+                "plan_cache", "serving"):
         assert f"src/repro_torch/core/{mod}.py" in names, mod

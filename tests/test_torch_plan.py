@@ -414,13 +414,18 @@ def test_overflow_reruns_once_at_safe_capacity(reference, port):
                                           w[i, :got["rc"][i]])
 
 
-def test_verify_is_not_ported(port):
+def test_verify_true_runs_the_verifier(port):
+    """verify=True runs the verifier (tests/test_torch_verify.py) over the
+    (logical, optimized) pair and returns the same plan as verify=False."""
     from repro_torch.core import plan as PL
+    from repro_torch.core import verify as V
 
     ctx, plain, _ = port
     frame = ctx.frame(plain["a"]).groupby("k", {"v": "sum"})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PL.optimize(frame.logical_plan(), [plain["a"].schema], P, verify=True)
+    runs = V.counter_snapshot()["verify_runs"]
+    assert PL.optimize(frame.logical_plan(), [plain["a"].schema], P,
+                       verify=True) == frame.optimized()
+    assert V.counter_snapshot()["verify_runs"] > runs
     assert PL.optimize(frame.logical_plan(), [plain["a"].schema], P,
                        verify=False) == frame.optimized()
 
