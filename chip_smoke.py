@@ -108,15 +108,36 @@ Phases (any failed check raises, and the script exits nonzero):
    host synchronisations ``submit`` makes for one warm query of each shape
    (``torch.cuda.set_sync_debug_mode``). No ordering of the modes' speeds
    is asserted.
-13b. Faults at 8 x 2**16 rows: each case of ``repro.testing.chaos_cases``
-   through the port (shuffle garble and raise on staged and ring exchanges,
-   kernel raise, NaN and persistent, a derated ``stats.estimate``,
-   ``cache.admission`` miss and evict, ``compile`` on the warm hit, a
-   serving loop that survives a kernel fault and a raising query): rows
-   equal to the fault-free run bit for bit, the recovery counters
-   tests/test_chaos.py asserts. A RuntimeError raised at the
-   segment_reduce seam, and NaN written there while validation is on,
-   propagate through ``result()`` with no rung taken.
+13b. Faults at 8 x 2**16 rows: each case of the port's
+   ``repro_torch.testing.chaos_cases`` (shuffle garble and raise on staged
+   and ring exchanges, kernel raise, NaN and persistent, a derated
+   ``stats.estimate``, ``cache.admission`` miss and evict, ``compile`` on
+   the warm hit, a serving loop that survives a kernel fault and a raising
+   query): rows equal to the fault-free run bit for bit, on the same
+   shards in the same order, the recovery counters tests/test_chaos.py asserts, each shuffle fault fired once and
+   the derated estimate fired (``chaos_cases.checks``). A RuntimeError
+   raised at the segment_reduce seam, and NaN written there while
+   validation is on, propagate through ``result()`` with no rung taken.
+14. The relational token pipeline (``repro_torch.data.pipeline``) at
+   llama3-8b's width, vocab 128256, seq_len 4096, global_batch 1024 (4M
+   tokens a batch, Llama 3's initial batch), ``collect_stats=True``, at 1
+   shard (the default context) and at 8 virtual shards: shapes, dtypes and
+   token range; every row of a batch is a survivor of the quality filter
+   and the label join of its refill round, with its label's weight, against
+   host oracles built from the same seeded tables (``pipeline_oracle``);
+   the stats' counts exactly and their means and variances within
+   ``stats_bounds`` of a float64 oracle; ``global_batch(0)`` twice equal and
+   ``global_batch(1)`` different; the batch under ``oracle_scope()`` equal
+   bit for bit (the stats within the same bound); no plan prepared after
+   step 0; ``PIPE_KERNELS`` launched. It prints the median ms of 8 batches,
+   tokens/s assembled, refill rounds, host syncs, bytes uploaded and read
+   back, launches and peak GiB of one batch, ``Prefetcher(depth=2)`` over 8
+   steps (its batches equal the direct ones) and one profiled batch.
+15. The harnesses: ``repro_torch.testing.plan_fuzz.run_fuzz`` over 100
+   plans at 8 shards with the reference CI leg's seed 20260807 (every plan
+   verifier-clean and its fused result equal to the eager oracle), and each
+   of the 16 relational cases of ``repro_torch.testing.dist_cases`` once,
+   held to what tests/test_dist.py asserts (``dist_cases.checks``).
 
 Then, with the relational tables freed, the serving path (the LM slice):
 
@@ -146,7 +167,8 @@ times it at the path's shape beside
 
 It prints one JSON line with the serving path's numbers, one with the main
 path's, one with phase 11's (``{"plan": ...}``), one with phases 12-13's
-(``{"serving": ...}``), one with every kernel's,
+(``{"serving": ...}``), one with phases 14-15's (``{"pipeline": ...}``),
+one with every kernel's,
 then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line. Without a card it exits
 2 and prints no result.
@@ -154,6 +176,7 @@ then the nvidia-smi line, then
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -1655,141 +1678,23 @@ def say_serving(out: dict, card: str, secs: float) -> None:
             say(f"      {line}")
 
 
-def fault_orders(ctx: DistContext, rows: int, device, keys: int = 57,
-                 seed: int = 11) -> DistTable:
-    """repro.testing.chaos_cases' orders at ``rows`` a shard."""
-    rng = np.random.default_rng(seed)
-    n = rows * P
-    return ctx.scatter(Table.from_numpy({
-        "k": rng.integers(0, keys, n).astype(np.int32),
-        "d0": rng.integers(-50, 50, n).astype(np.float32),
-        "d1": rng.integers(0, 1000, n).astype(np.int32)}, device=device))
-
-
 def phase_faults(dev, rows: int) -> dict:
-    """Each case of ``repro.testing.chaos_cases`` through the port at
-    ``rows`` a shard (phase 13): the recovered rows equal the fault-free
-    run's bit for bit, and the counters ``tests/test_chaos.py`` asserts
-    hold. Then a real fault at a kernel seam (a RuntimeError, not a
-    FaultError; or NaN the kernel writes while validation is on)
-    propagates through ``result()`` and rides no rung."""
+    """Each case of ``repro_torch.testing.chaos_cases`` at ``rows`` a shard
+    (phase 13): the recovered rows equal the fault-free run's bit for bit,
+    on the same shards in the same order, and the counters
+    tests/test_chaos.py asserts hold, each shuffle fault fired once and the
+    derated estimate fired (``chaos_cases.checks``).
+    Then a real fault at a kernel seam (a RuntimeError, not a FaultError;
+    or NaN the kernel writes while validation is on) propagates through
+    ``result()`` and rides no rung."""
     from repro_torch.core import faults as FLT
-    from repro_torch.core.serving import ServingSession
+    from repro_torch.testing import chaos_cases
 
-    def ctx_with(faults=None, retry=None):
-        return DistContext(num_shards=P, device=dev, faults=faults,
-                           retry_policy=retry or FLT.RetryPolicy())
+    out = {name: case(rows=rows, device=dev)
+           for name, case in chaos_cases.CASES.items()}
+    for name, ok in chaos_cases.checks(out).items():
+        check(ok, f"chaos case {name}: {out[name.split(':')[0]]}")
 
-    out: dict = {}
-    bucket = 2 * rows // P
-    # shuffle.chunk on staged and ring exchanges
-    for tag, kw in (("staged", {"stages": 3}), ("ring", {"shuffle_mode": "ring"})):
-        c0 = ctx_with()
-        ref, _ = c0.partition_by(fault_orders(c0, rows, dev), "k",
-                                 bucket_capacity=bucket, **kw)
-        for fmode in ("raise", "garble"):
-            c = ctx_with([FLT.FaultPlan("shuffle.chunk", mode=fmode, nth=1)])
-            got, _ = c.partition_by(fault_orders(c, rows, dev), "k",
-                                    bucket_capacity=bucket, **kw)
-            same_rows(f"shuffle {tag} {fmode}", got, ref)
-            cs = c.cache_stats()
-            rung = "degraded_shuffle" if fmode == "raise" else "quarantines"
-            check(cs[rung] >= 1 and cs["failed_queries"] == 0
-                  and cs["fault_fires"] == 1,
-                  f"shuffle {tag} {fmode}: {cs}")
-            out[f"shuffle_{tag}_{fmode}"] = cs
-    # kernel.dispatch: raise, NaN, persistent
-    for fmode, aggs, rung in (("raise", (("d0", "sum"), ("d0", "count")),
-                               "degraded_kernel"),
-                              ("nan", (("d0", "sum"),), "quarantines")):
-        c0 = ctx_with()
-        ref, _ = c0.groupby(fault_orders(c0, rows, dev), "k", aggs)
-        c = ctx_with([FLT.FaultPlan("kernel.dispatch", mode=fmode, nth=1)])
-        got, _ = c.groupby(fault_orders(c, rows, dev), "k", aggs)
-        same_rows(f"kernel {fmode}", got, ref)
-        cs = c.cache_stats()
-        check(cs[rung] >= 1 and cs["failed_queries"] == 0,
-              f"kernel {fmode}: {cs}")
-        out[f"kernel_{fmode}"] = cs
-        if fmode == "raise":
-            c = ctx_with([FLT.FaultPlan("kernel.dispatch", probability=1.0,
-                                        max_fires=10_000)],
-                         FLT.RetryPolicy(max_attempts=3))
-            got, _ = c.groupby(fault_orders(c, rows, dev), "k", aggs)
-            same_rows("kernel persistent", got, ref)
-            cs = c.cache_stats()
-            check(cs["failed_queries"] == 0 and cs["degraded_kernel"] >= 1,
-                  f"kernel persistent: {cs}")
-            out["kernel_persistent"] = cs
-    # stats.estimate under an analyzed, cost-sized groupby
-    c0 = ctx_with()
-    ref, _ = c0.groupby(c0.analyze(fault_orders(c0, rows, dev, keys=97)), "k",
-                        (("d0", "sum"),), strategy="shuffle")
-    c = ctx_with([FLT.FaultPlan("stats.estimate", probability=1.0,
-                                max_fires=10_000, factor=64.0)])
-    dt = c.analyze(fault_orders(c, rows, dev, keys=97))
-    for i in range(2):
-        got, _ = c.groupby(dt, "k", (("d0", "sum"),), strategy="shuffle")
-        same_rows(f"stats.estimate submit {i}", got, ref)
-    cs = c.cache_stats()
-    check(cs["overflow_retries"] == 1 and cs["failed_queries"] == 0
-          and cs["fault_fires"] > 0, f"stats.estimate: {cs}")
-    out["stats_estimate"] = cs
-    del dt
-    # cache.admission miss / evict on the warm hit, compile on the warm hit
-    c0 = ctx_with()
-    ref, _ = c0.groupby(fault_orders(c0, rows, dev), "k", (("d0", "sum"),))
-    for site, mode, counter in (("cache.admission", "miss", "recompiles"),
-                                ("cache.admission", "evict", "recompiles"),
-                                ("compile", None, "compile_retries")):
-        c = ctx_with([FLT.FaultPlan(site, mode=mode,
-                                    nth=2 if site == "cache.admission" else 1)])
-        dt = fault_orders(c, rows, dev)
-        for i in range(2):
-            got, _ = c.groupby(dt, "k", (("d0", "sum"),))
-            same_rows(f"{site} {mode} run {i}", got, ref)
-        cs = c.cache_stats()
-        check(cs[counter] >= 1 and cs["failed_queries"] == 0,
-              f"{site} {mode}: {cs}")
-        out[f"{site}_{mode or 'raise'}"] = cs
-    # a serving loop survives a kernel fault and a raising query
-    t = fault_orders(ctx_with(), rows, dev, keys=64)
-    workload = [
-        ("gb", lambda s: s.frame("orders")
-            .groupby("k", (("d0", "sum"), ("d0", "count")))),
-        ("sel", lambda s: s.frame("orders")
-            .select(lambda c: c["d0"] > 0.0, key=("pos",))
-            .groupby("k", (("d0", "sum"),))),
-        ("sort", lambda s: s.frame("orders").sort("k").limit(16)),
-    ]
-
-    def loop(c, wl):
-        sess = ServingSession(c, max_in_flight=4)
-        sess.register("orders", t)
-        return sess.run_open_loop(wl, num_clients=3, queries_per_client=2,
-                                  mode="async")
-
-    def boom(_s):
-        raise ValueError("client bug")
-
-    ref_rep, ref_res = loop(ctx_with(), workload)
-    rep, res = loop(ctx_with([FLT.FaultPlan("kernel.dispatch", probability=1.0,
-                                            max_fires=1)]), workload)
-    for i, (a, b) in enumerate(zip(res, ref_res)):
-        check(a is not None, f"serving survival: query {i} failed")
-        same_rows(f"serving survival query {i}", a, b)
-    check(ref_rep.failed == 0 and rep.failed == 0
-          and rep.degraded + rep.quarantines >= 1
-          and rep.retries + rep.degraded + rep.quarantines <= rep.num_queries,
-          f"serving survival: {rep.to_dict()}")
-    rep2, res2 = loop(ctx_with(), list(workload) + [("boom", boom)])
-    check(rep2.failed == 1 and [e[0] for e in rep2.errors] == ["boom"]
-          and sum(r is not None for r in res2) == rep2.num_queries - 1,
-          f"serving with a raising query: {rep2.to_dict()}")
-    out["serving_survival"] = {"degraded": rep.degraded,
-                               "quarantines": rep.quarantines,
-                               "boom_failed": rep2.failed}
-    del ref_res, res, res2, t
     # a real kernel fault is no FaultError: an error the kernel raises, or
     # NaN it writes while validation is on (armed faults that never fire
     # turn it on), fails the query and rides no rung
@@ -1809,8 +1714,9 @@ def phase_faults(dev, rows: int) -> dict:
     for label, fake, want in (
             ("real_kernel_error", broken, "launch failed"),
             ("real_kernel_nan", nan_writer, "failed validation: NaN")):
-        c = ctx_with([FLT.FaultPlan("kernel.dispatch", nth=99)])
-        dt = fault_orders(c, rows, dev)
+        c = DistContext(num_shards=P, device=dev,
+                        faults=[FLT.FaultPlan("kernel.dispatch", nth=99)])
+        dt = c.scatter(chaos_cases._orders(rows, device=dev))
         seg.segment_reduce_tiles = fake
         try:
             fut = c.submit(PL.GroupBy(PL.Scan(0), ("k",), (("d0", "sum"),)),
@@ -1855,6 +1761,297 @@ def phase_verify(ctx: DistContext, tabs, analyzed) -> dict:
           f"expected {audit['expected']}")
     return {"clean": clean, "audit": {"expected": audit["expected"],
                                       "actual": audit["actual"]}}
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the relational token pipeline at llama3-8b's width
+# ---------------------------------------------------------------------------
+
+# llama3-8b's vocabulary and context and Llama 3's initial pre-training batch
+# of 4M tokens (arXiv:2407.21783 section 3.4.1: 1024 sequences of 4096)
+PIPE_SEQ, PIPE_BATCH = 4096, 1024
+PIPE_STEPS = 8
+# the kernels the pipeline must launch: the local hash join's key hash and
+# the stats stage's reductions; at 8 shards also the join's two shuffles
+PIPE_KERNELS = {1: ("hash32", "segment_reduce_tiles"),
+                P: ("hash32", "segment_reduce_tiles", "hash32_partition",
+                    "bucket_histogram")}
+
+
+def pipeline_config(seq_len: int, batch: int):
+    from repro_torch.data.pipeline import PipelineConfig
+
+    return PipelineConfig(seq_len=seq_len, global_batch=batch,
+                          vocab_size=get_config(LM_ARCH).vocab_size,
+                          collect_stats=True)
+
+
+def pipeline_oracle(cfg, raw_rows: int, step: int) -> dict:
+    """What batch ``step`` must hold, from the host's own tables: every
+    round's surviving rows (quality above the threshold and a label),
+    their token bytes -> weight bits, how many rows each round gives the
+    batch, and the consumed rounds' sources and qualities."""
+    from repro_torch.data import synthetic as TS
+
+    rounds, src, qual, got = [], [], [], 0
+    for refill in range(cfg.max_refills):
+        s = TS.lm_samples_table(raw_rows, cfg.seq_len, cfg.vocab_size,
+                                seed=cfg.seed, step=step, shard=refill,
+                                device="cpu").to_numpy()
+        lab = TS.lm_labels_table(s["sample_id"], seed=cfg.seed, step=step,
+                                 shard=refill, device="cpu").to_numpy()
+        keep = (s["quality"] > cfg.quality_threshold) & \
+            np.isin(s["sample_id"], lab["sample_id"])
+        weight = dict(zip(lab["sample_id"].tolist(),
+                          lab["weight"].view(np.int32).tolist()))
+        rows = {t.tobytes(): weight[i] for t, i in
+                zip(s["tokens"][keep], s["sample_id"][keep].tolist())}
+        take = min(len(rows), cfg.global_batch, cfg.global_batch - got)
+        rounds.append((rows, take))
+        src.append(s["source"])
+        qual.append(s["quality"])
+        got += take
+        if got >= cfg.global_batch:
+            break
+    return {"rounds": rounds, "source": np.concatenate(src),
+            "quality": np.concatenate(qual), "rows": got}
+
+
+def check_pipeline_batch(name: str, batch: dict, cfg, oracle: dict) -> None:
+    """Shapes, dtypes and token range; each round's rows in the batch are
+    that round's survivors with their label's weight, no survivor twice;
+    the wrap-pad repeats the rows before it."""
+    b, s = cfg.global_batch, cfg.seq_len
+    check(batch["tokens"].shape == (b, s) and batch["tokens"].dtype == np.int32
+          and batch["weight"].shape == (b,)
+          and batch["weight"].dtype == np.float32,
+          f"{name}: shapes {batch['tokens'].shape} {batch['tokens'].dtype}, "
+          f"{batch['weight'].shape} {batch['weight'].dtype}")
+    check(int(batch["tokens"].min()) >= 1
+          and int(batch["tokens"].max()) < cfg.vocab_size,
+          f"{name}: tokens outside [1, {cfg.vocab_size})")
+    w = batch["weight"].view(np.int32)
+    at = 0
+    for rows, take in oracle["rounds"]:
+        for i in range(at, at + take):
+            check(rows.get(batch["tokens"][i].tobytes()) == w[i],
+                  f"{name}: row {i} is no survivor of its round, or its "
+                  "weight is not its label's")
+        at += take
+    check(len({t.tobytes() for t in batch["tokens"][:at]}) == at,
+          f"{name}: a survivor appears twice before the wrap-pad")
+    if at < b:
+        reps = -(-b // max(at, 1))
+        check(np.array_equal(batch["tokens"][at:],
+                             np.tile(batch["tokens"][:at], (reps, 1))[:b - at]),
+              f"{name}: the wrap-pad does not repeat the rows before it")
+
+
+# a mean or variance of the stats stage against another summation order (a
+# float64 oracle, the plain run): tests/test_torch_pipeline.py's bound
+def stats_bounds(stats: dict) -> dict[str, np.ndarray]:
+    n = stats["quality_count"].astype(np.float64)
+    mean = stats["quality_mean"].astype(np.float64)
+    var = stats["quality_var"].astype(np.float64)
+    u = 2.0 ** -24
+    return {"quality_mean": u * (2 * n + 2) * mean,
+            "quality_var": u * (6 * n + 4) * (mean ** 2 + var)}
+
+
+def check_pipeline_stats(name: str, got: dict, want: dict) -> float:
+    """Sources, counts, minima and maxima bit for bit; means and variances
+    within :func:`stats_bounds`. Returns the largest mean/var difference."""
+    for k in ("source", "quality_count", "quality_min", "quality_max"):
+        check(np.array_equal(got[k], want[k]), f"{name}: stats {k} differ")
+    worst = 0.0
+    for k, bound in stats_bounds(want).items():
+        diff = np.abs(got[k].astype(np.float64) - want[k])
+        check(bool((diff <= bound).all()),
+              f"{name}: stats {k} off by {diff.max():.3g} (bound "
+              f"{bound.max():.3g})")
+        worst = max(worst, float(diff.max()))
+    return worst
+
+
+def stats_oracle(oracle: dict) -> dict:
+    """The stats stage over the consumed rounds, in float64 on the host."""
+    src, q = oracle["source"], oracle["quality"].astype(np.float64)
+    keys = np.unique(src)
+    return {"source": keys.astype(np.int32),
+            "quality_count": np.array([(src == k).sum() for k in keys],
+                                      np.int32),
+            "quality_mean": np.array([q[src == k].mean() for k in keys]),
+            "quality_var": np.array([q[src == k].var() for k in keys]),
+            "quality_min": np.array([q[src == k].min() for k in keys],
+                                    np.float32),
+            "quality_max": np.array([q[src == k].max() for k in keys],
+                                    np.float32)}
+
+
+def phase_pipeline(dev, shards: int, seq_len: int = PIPE_SEQ,
+                   batch: int = PIPE_BATCH, steps: int = PIPE_STEPS,
+                   profile=None) -> dict:
+    """The relational token pipeline (phase 14) at ``shards`` shards: its
+    batches and stats against the host oracles (:func:`pipeline_oracle`),
+    ``global_batch(0)`` twice equal and ``global_batch(1)`` different, the
+    plain run (``oracle_scope()``) equal, no plan prepared after step 0,
+    then ``steps`` batches timed, the host syncs, bytes and launches of one
+    batch, ``Prefetcher(depth=2)`` over the same steps and, given
+    ``profile`` (:func:`profiled`), one trace of a batch."""
+    from repro_torch.data.pipeline import Prefetcher, RelationalTokenPipeline
+
+    cfg = pipeline_config(seq_len, batch)
+    ctx = None if shards == 1 else DistContext(num_shards=shards, device=dev)
+    pipe = RelationalTokenPipeline(cfg, ctx, device=dev)
+    name = f"pipeline at {shards} shard{'s' * (shards > 1)}"
+    rounds, round_ms = [], []
+    real_round = pipe._round
+
+    def counted_round(step, refill):
+        # the bytes each round uploads, and the host's time to draw them
+        # and copy them from pageable memory (which returns when done)
+        t0 = time.perf_counter()
+        tabs = real_round(step, refill)
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+        rounds.append(sum(v.nbytes for t in tabs for v in t.columns.values()))
+        return tabs
+
+    pipe._round = counted_round
+    b0, first, first_peak = counted(lambda: pipe.global_batch(0))
+    stats0 = pipe.last_stats
+    prepared = pipe._ctx.cache_stats()["misses"]
+    oracle = pipeline_oracle(cfg, pipe._raw_rows, 0)
+    check_pipeline_batch(name, b0, cfg, oracle)
+    stats_err = check_pipeline_stats(f"{name} vs the float64 oracle", stats0,
+                                     stats_oracle(oracle))
+    again = pipe.global_batch(0)
+    check(all(np.array_equal(again[k], b0[k]) for k in b0),
+          f"{name}: global_batch(0) twice differs")
+    b1 = pipe.global_batch(1)
+    check(not np.array_equal(b1["tokens"], b0["tokens"]),
+          f"{name}: global_batch(1) equals global_batch(0)")
+    check_pipeline_batch(f"{name} step 1", b1, cfg,
+                         pipeline_oracle(cfg, pipe._raw_rows, 1))
+    with kops.oracle_scope():
+        plain = pipe.global_batch(0)
+    plain_stats = pipe.last_stats
+    check(all(np.array_equal(plain[k].view(np.int32), b0[k].view(np.int32))
+              for k in b0), f"{name}: the plain run's batch differs")
+    plain_err = check_pipeline_stats(f"{name} vs the plain run", stats0,
+                                     plain_stats)
+    del again, b1, plain
+    walls, direct = [], [b0]
+    round_ms.clear()
+    for step in range(1, steps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        direct.append(pipe.global_batch(step))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    check(pipe._ctx.cache_stats()["misses"] == prepared,
+          f"{name}: {pipe._ctx.cache_stats()['misses'] - prepared} plans "
+          "prepared after step 0")
+    draw_ms = statistics.median(round_ms)
+    rounds.clear()
+    read_back = []
+    real_to_numpy = Table.to_numpy
+
+    def counted_to_numpy(self):
+        # the bytes a batch reads back: each round's rows and the stats
+        cols = real_to_numpy(self)
+        read_back.append(sum(v.nbytes for v in cols.values()))
+        return cols
+
+    Table.to_numpy = counted_to_numpy
+    try:
+        _, n, peak = counted(lambda: pipe.global_batch(steps + 1))
+    finally:
+        Table.to_numpy = real_to_numpy
+    n_rounds, uploaded, read_back = len(rounds), sum(rounds), sum(read_back)
+    for k in PIPE_KERNELS[shards]:
+        check(n[k] > 0, f"{name}: {k} never launched ({n})")
+    _, syncs = count_syncs(lambda: pipe.global_batch(steps + 1))
+    t0 = time.perf_counter()
+    # a finite source: the thread ends with the last batch, so no batch of
+    # it runs on under the profile or the next shard count's measurements
+    pf = list(Prefetcher(itertools.islice(pipe, steps), depth=2))
+    prefetch_s = time.perf_counter() - t0
+    for step, got in enumerate(pf):
+        check(all(np.array_equal(got[k], direct[step][k]) for k in got),
+              f"{name}: the Prefetcher's batch {step} differs")
+    del pf, direct
+    med = statistics.median(walls)
+    out = {"shards": shards, "seq_len": seq_len, "global_batch": batch,
+           "vocab_size": cfg.vocab_size, "raw_rows": pipe._raw_rows,
+           "median_ms": med, "batch_ms": walls, "round_draw_ms": draw_ms,
+           "tokens_per_s": batch * seq_len / (med / 1e3),
+           "rounds_per_batch": n_rounds, "host_syncs": syncs,
+           "uploaded_bytes": uploaded, "read_back_bytes": read_back,
+           "launches": n, "first_batch_launches": first,
+           "plans_prepared": prepared,
+           "plans_prepared_after_step_0": pipe._ctx.cache_stats()["misses"]
+           - prepared, "peak_bytes": peak, "first_peak_bytes": first_peak,
+           "prefetch_s": prefetch_s, "stats_err_vs_float64": stats_err,
+           "stats_err_vs_plain": plain_err}
+    if profile is not None:
+        pr = profile(name, lambda: pipe.global_batch(steps + 2))
+        out["profile"] = pr
+    return out
+
+
+def say_pipeline(r: dict, card: str) -> None:
+    say(f"[14] pipeline at {r['shards']} shard(s), seq {r['seq_len']}, batch "
+        f"{r['global_batch']}, vocab {r['vocab_size']} ({r['raw_rows']} sample "
+        f"rows a round): median {r['median_ms']:.1f} ms a batch over "
+        f"{len(r['batch_ms'])} steps, {r['tokens_per_s'] / 1e6:.2f} M tokens/s "
+        f"assembled (a round's tables drawn and uploaded in "
+        f"{r['round_draw_ms']:.1f} ms); {r['rounds_per_batch']} round(s) a batch, "
+        f"{r['host_syncs']} host syncs, {r['uploaded_bytes'] / 2**20:.2f} MiB "
+        f"uploaded, {r['read_back_bytes'] / 2**20:.2f} MiB read back; "
+        f"launches {r['launches']}; {r['plans_prepared']} plan(s) prepared by "
+        f"step 0, {r['plans_prepared_after_step_0']} after; peak "
+        f"{r['peak_bytes'] / 2**30:.2f} GiB; Prefetcher(depth=2) "
+        f"{len(r['batch_ms'])} batches in {r['prefetch_s']:.2f} s; stats within "
+        f"{r['stats_err_vs_float64']:.3g} of float64, {r['stats_err_vs_plain']:.3g}"
+        f" of the plain run; on {card}")
+    pr = r.get("profile")
+    if pr:
+        say(f"[14] profiled batch: wall {pr['wall_ms']:.1f} ms, GPU kernels "
+            f"{pr['device_ms']:.2f} ms, busy share {pr['busy_share']:.2f}, "
+            f"ported kernels {pr['ported_kernels_ms']:.3f} ms, "
+            f"{pr['host_ops']} torch ops dispatched by the host")
+        for kname, ms in pr["top"]:
+            say(f"      {ms:8.3f} ms  {kname[:110]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the test harnesses on the card
+# ---------------------------------------------------------------------------
+
+FUZZ_PLANS, FUZZ_SEED = 100, 20260807  # the reference CI leg's seed
+
+
+def phase_harnesses(dev, plans: int = FUZZ_PLANS) -> dict:
+    """The port's test harnesses on the card (phase 15): ``run_fuzz`` over
+    ``plans`` seeded plans at 8 shards (verifier-clean, fused equal to the
+    eager oracle, with ``REPRO_VERIFY_PLANS`` on), and each relational case
+    of ``repro_torch.testing.dist_cases`` once, held to its own oracle
+    checks (``dist_cases.checks``, what tests/test_dist.py asserts)."""
+    from repro_torch.testing import dist_cases, plan_fuzz
+
+    t0 = time.perf_counter()
+    fuzz = plan_fuzz.run_fuzz(plans, FUZZ_SEED, num_shards=P, device=dev)
+    fuzz["seconds"] = time.perf_counter() - t0
+    check(fuzz["plans"] == plans and fuzz["verify"]["verify_findings"] == 0,
+          f"plan fuzz: {fuzz}")
+    cases, secs = {}, {}
+    for name, case in dist_cases.CASES.items():
+        t0 = time.perf_counter()
+        cases[name] = case(device=dev)
+        secs[name] = time.perf_counter() - t0
+    for name, ok in dist_cases.checks(cases).items():
+        check(ok, f"dist case {name}: {cases[name.split(':')[0]]}")
+    return {"fuzz": fuzz, "dist_cases_seconds": secs,
+            "dist_cases": {k: cases[k] for k in ("plan_fused", "cost_groupby")}}
 
 
 def _plain(call):
@@ -2301,6 +2498,27 @@ def main() -> None:
         say(f"[13]   {name}: {cs}")
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    pipelines = {}
+    for shards in (1, P):
+        pipelines[shards] = phase_pipeline(dev, shards, profile=profiled)
+        say_pipeline(pipelines[shards], card)
+        torch.cuda.empty_cache()
+    say(f"[14] pipeline batches equal the host oracles and the plain run at 1 "
+        f"and {P} shards ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    harnesses = phase_harnesses(dev)
+    fz = harnesses["fuzz"]
+    say(f"[15] plan fuzz: {fz['plans']} plans at {P} shards, seed {FUZZ_SEED}: "
+        f"{fz['cost_sized']} cost-sized, {fz['cacheable']} cacheable, "
+        f"{fz['rows']} result rows, verifier {fz['verify']}, "
+        f"{fz['seconds']:.1f} s")
+    say(f"[15] {len(harnesses['dist_cases_seconds'])} dist cases passed their "
+        f"oracle checks: " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in harnesses["dist_cases_seconds"].items()))
+    say(f"[15] harnesses on {card} ({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
+
     for src, (secs, _) in sorted(_build.LOGS.items()):
         say(f"[7] nvcc {src}: {secs:.1f} s (all sources compiled together)")
     lib = _build.library()
@@ -2415,6 +2633,13 @@ def main() -> None:
             "host_ops": v["host_ops"]} for k, v in plan_prof.items()}}}))
     say(json.dumps({"serving": {**serving, "faults": faults,
                                 "verify": verified, "card": card}}))
+    for r in pipelines.values():
+        if "profile" in r:
+            r["profile"] = {k: r["profile"][k] for k in (
+                "wall_ms", "device_ms", "busy_share", "ported_kernels_ms",
+                "host_ops", "top")}
+    say(json.dumps({"pipeline": {str(k): v for k, v in pipelines.items()},
+                    "harnesses": harnesses, "card": card}))
     say(json.dumps({"kernels": kernels}))
     say(nvidia_smi())
     say(json.dumps({"ok": True, "device": {

@@ -49,7 +49,7 @@ from repro_torch.core.mesh import VirtualMesh
 from repro_torch.core.plan_cache import PlanCache
 from repro_torch.core.repartition import (Partitioning, RangePartitioning,
                                           fresh_range_fingerprint)
-from repro_torch.core.table import KEY_DTYPES, ColumnSpec, Table
+from repro_torch.core.table import KEY_DTYPES, ColumnSpec, Table, to_device
 from repro_torch.kernels import ops as kops
 from repro_torch.utils import ceil_div, resolve_device
 
@@ -303,7 +303,7 @@ class DistContext:
         """Build a DistTable from one local Table per shard (equal capacity)."""
         if len(parts) != self.num_shards:
             raise ValueError(f"need {self.num_shards} parts, got {len(parts)}")
-        return DistTable.from_shards([_to(t, self.device) for t in parts])
+        return DistTable.from_shards([to_device(t, self.device) for t in parts])
 
     # -- statistics (the cost-model input) -----------------------------------
     def analyze(self, t: DistTable) -> DistTable:
@@ -857,8 +857,3 @@ class DistContext:
                          samples_per_shard=samples_per_shard,
                          stages=stages, shuffle_mode=shuffle_mode)
         return self._run_plan(plan, [t], report=report)
-
-
-def _to(t: Table, device: torch.device) -> Table:
-    return Table({k: v.to(device) for k, v in t.columns.items()},
-                 t.row_count.to(device))

@@ -979,7 +979,13 @@ def optimize_with_partitioning(
     plan = _annotate_selects(plan, an)
     plan = _pushdown_selects(plan, an)
     plan = _pushdown_limits(plan)
-    plan = _pushdown_projections(plan, None, an)
+    # to a fixpoint: a Project that a consumer narrowed in one pass lets the
+    # next push its columns further down (a window's input). The reference
+    # runs one pass, and its optimize() is then not idempotent on such plans
+    # (plan_fuzz seed 20260807, plan 44); where one pass reaches the
+    # fixpoint, both packages give the same plan.
+    while (pushed := _pushdown_projections(plan, None, an)) != plan:
+        plan = pushed
     plan, part = _elide(plan, num_shards, an)
     est = _Estimator(an, input_stats if input_stats is not None
                      else [None] * len(input_schemas))

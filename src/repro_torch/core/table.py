@@ -185,3 +185,9 @@ def concat_tables(a: Table, b: Table) -> Table:
     cols = {k: where_rows(from_a, va[k], where_rows(valid_b, vb[k]))
             for k in a.columns}
     return Table(cols, (a.row_count + b.row_count).to(torch.int32))
+
+
+def to_device(t: Table, device: torch.device) -> Table:
+    """``t`` with every column and the row count on ``device``."""
+    return Table({k: v.to(device) for k, v in t.columns.items()},
+                 t.row_count.to(device))

@@ -9,6 +9,13 @@ none. Each case must agree on every shard's rows (bitwise, in order), the
 per-shard row counts, every shuffle's per-shard overflow and received rows,
 and the ``report`` records (bucket, bytes per row, wire bytes, stages).
 
+The same subprocess also runs the relational token pipeline
+(``repro.data.pipeline``, ``PIPELINE``) on an 8-device context; the port's
+pipeline on 8 virtual shards must give the same batches, tokens and
+weights bit for bit and in order, and the same ``last_stats`` (counts,
+minima, maxima exact; means and variances within the summation-order
+bound stated in tests/test_torch_pipeline.py).
+
 One stated exception: a variance may differ by the rounding of
 ``mean*mean``, at most 2**-21 * (mean**2 + var). Inside the reference's
 jitted shard_map program XLA contracts ``sumsq/n - mean*mean`` into one
@@ -41,6 +48,24 @@ WIN_C = ["rank", "dense_rank", "row_number", ("lag", "d0"), ("lead", "d0"),
          ("lag", "d1", 3), ("lead", "d1", 2), ("lag", "d0", 700),
          ("lead", "d1", 900), ("cumsum", "d0"), ("cumsum", "d1"),
          ("cummax", "d0"), ("cummax", "d1"), ("running_mean", "d0")]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's tensors, restored after it:
+    the port's many small CPU ops spin in the thread pool's barriers when
+    test workers share the cores (tens of times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# the pipeline at 8 shards: ~10 sample rows a shard a round, two refills a
+# batch at this threshold, two batches
+PIPELINE = dict(seq_len=16, global_batch=48, vocab_size=300,
+                quality_threshold=0.4, collect_stats=True, seed=6)
+PIPELINE_STEPS = (0, 3)
 
 # name -> (method, input tables, positional args, keyword args)
 CASES = {
@@ -133,6 +158,7 @@ def reference_main(out_path: str) -> None:
         a, rep = _run(ctx, make, case)
         arrays.update({f"{case}/{k}": v for k, v in a.items()})
         reports[case] = rep
+    arrays.update(_pipeline_batches(DistContext(), "repro"))
     np.savez(out_path, **arrays)
     with open(out_path + ".json", "w") as f:
         json.dump(reports, f)
@@ -153,6 +179,22 @@ def reference(tmp_path_factory):
     with open(path + ".json") as f:
         reports = json.load(f)
     return arrays, reports
+
+
+def _pipeline_batches(ctx, package: str) -> dict[str, np.ndarray]:
+    """``PIPELINE``'s batches and stats at ``PIPELINE_STEPS`` on ``ctx``,
+    through ``package``'s pipeline (``repro`` or ``repro_torch``)."""
+    import importlib
+
+    mod = importlib.import_module(f"{package}.data.pipeline")
+    pipe = mod.RelationalTokenPipeline(mod.PipelineConfig(**PIPELINE), ctx)
+    out = {}
+    for step in PIPELINE_STEPS:
+        for k, v in pipe.global_batch(step).items():
+            out[f"pipeline/{step}/{k}"] = v
+        for k, v in pipe.last_stats.items():
+            out[f"pipeline/{step}/stats/{k}"] = v
+    return out
 
 
 def _port_case(case):
@@ -210,6 +252,34 @@ def test_port_matches_reference(reference, case):
     port_cols = {k[4:]: v for k, v in got.items() if k.startswith("col/")}
     port_table = DistTable.from_numpy(port_cols, got["rc"], P, device="cpu")
     assert tables_bitwise_equal(ref_table, port_table)
+
+
+def test_pipeline_at_8_shards_matches_reference_in_order(reference):
+    from repro_torch.core.context import DistContext
+
+    want = {k: v for k, v in reference[0].items() if k.startswith("pipeline/")}
+    got = _pipeline_batches(DistContext(num_shards=P, device="cpu"),
+                            "repro_torch")
+    assert sorted(got) == sorted(want) and want
+    u = 2.0 ** -24
+    for step in PIPELINE_STEPS:
+        w = {k.split("/", 2)[2]: v for k, v in want.items()
+             if k.startswith(f"pipeline/{step}/")}
+        g = {k: got[f"pipeline/{step}/{k}"] for k in w}
+        n = w["stats/quality_count"].astype(np.float64)
+        mean = w["stats/quality_mean"].astype(np.float64)
+        var = w["stats/quality_var"].astype(np.float64)
+        bounds = {"stats/quality_mean": u * (2 * n + 2) * mean,
+                  "stats/quality_var": u * (6 * n + 4) * (mean ** 2 + var)}
+        for k, v in w.items():
+            assert g[k].dtype == v.dtype and g[k].shape == v.shape, k
+            if k in bounds:
+                assert (np.abs(g[k].astype(np.float64) - v) <= bounds[k]).all(), k
+            else:
+                np.testing.assert_array_equal(g[k].view(np.int32),
+                                              v.view(np.int32), err_msg=k)
+    assert len({tuple(r) for r in got["pipeline/0/tokens"].tolist()}) == \
+        PIPELINE["global_batch"]
 
 
 def test_groupby_auto_is_two_phase_without_stats():
@@ -279,6 +349,7 @@ def test_chip_smoke_cpu_rehearsal_drives_the_main_path(monkeypatch):
 
     from repro_torch.core.context import DistContext
     from repro_torch.kernels import ops as kops
+    from repro_torch.testing import chaos_cases
 
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
@@ -342,15 +413,57 @@ def test_chip_smoke_cpu_rehearsal_drives_the_main_path(monkeypatch):
     assert sorted(serving["submit_host_syncs"]) == ["gb", "join", "sel",
                                                     "topn"]
     faults = smoke.phase_faults(cpu, 1024)
-    assert faults["kernel_raise"]["degraded_kernel"] == 1
-    assert faults["stats_estimate"]["overflow_retries"] == 1
+    assert faults["kernel_recovery"]["raise_rung"] == 1
+    assert faults["stats_overflow_recovery"]["overflow_retries"] == 1
     assert faults["real_kernel_nan"]["quarantines"] == 0
+    bad = dict(faults["kernel_recovery"], nan_identical=False)
+    assert not chaos_cases.checks({"kernel_recovery": bad})[
+        "kernel_recovery: nan identical"]
     json.dumps({"serving": {**serving, "faults": faults,
                             "verify": verified}})
     with pytest.raises(smoke.CheckFailed, match="differs"):
         bad = dict(plan["analyzed"][0].columns)
         smoke.same_rows("x", plan["analyzed"][0], dataclasses.replace(
             plan["analyzed"][0], columns={**bad, "d0": bad["d0"] + 1}))
+
+
+def test_chip_smoke_cpu_rehearsal_drives_the_pipeline_and_harnesses(
+        monkeypatch):
+    """chip_smoke.py's phases 14 and 15 on the CPU, each wrapper's call
+    counted as its launch: the pipeline at 1 and 8 shards at a small width
+    (its host oracles, the plain run, no plan prepared after step 0, the
+    kernels of ``PIPE_KERNELS`` launched), then the plan fuzzer over a few
+    plans and every dist case against its checks."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    _counted_launches(monkeypatch, smoke)
+    cpu = torch.device("cpu")
+    for shards in (1, P):
+        r = smoke.phase_pipeline(cpu, shards, seq_len=64, batch=32, steps=3)
+        assert r["plans_prepared"] == 1 and r["plans_prepared_after_step_0"] == 0
+        assert r["rounds_per_batch"] >= 1 and r["read_back_bytes"] > 0
+        assert (r["launches"]["hash32_partition"] > 0) == (shards > 1)
+        json.dumps(r)
+    cfg = smoke.pipeline_config(16, 8)
+    pipe_oracle = smoke.pipeline_oracle(cfg, 13, 0)
+    batch = {"tokens": np.ones((8, 16), np.int32),
+             "weight": np.ones(8, np.float32)}
+    with pytest.raises(smoke.CheckFailed, match="no survivor"):
+        smoke.check_pipeline_batch("x", batch, cfg, pipe_oracle)
+    # one survivor repeated through the batch, with its label's weight
+    assert pipe_oracle["rounds"][0][1] >= 2
+    tokens, weight = next(iter(pipe_oracle["rounds"][0][0].items()))
+    batch = {"tokens": np.tile(np.frombuffer(tokens, np.int32), (8, 1)),
+             "weight": np.full(8, weight, np.int32).view(np.float32)}
+    with pytest.raises(smoke.CheckFailed, match="appears twice"):
+        smoke.check_pipeline_batch("x", batch, cfg, pipe_oracle)
+    h = smoke.phase_harnesses(cpu, plans=6)
+    assert h["fuzz"]["plans"] == 6 and len(h["dist_cases_seconds"]) == 16
+    json.dumps(h)
 
 
 def _counted_launches(monkeypatch, smoke):

@@ -68,3 +68,25 @@ def test_the_plan_layer_is_checked():
     for mod in ("stats", "plan", "frame", "context", "verify", "faults",
                 "plan_cache", "serving"):
         assert f"src/repro_torch/core/{mod}.py" in names, mod
+
+
+def test_the_pipeline_and_the_harnesses_are_checked():
+    """The data pipeline and the testing harnesses are among the files
+    checked above, and importing them loads neither jax nor repro."""
+    names = {str(f.relative_to(ROOT)) for f in _files()}
+    for mod in ("data/synthetic", "data/pipeline", "testing/compare",
+                "testing/plan_fuzz", "testing/chaos_cases",
+                "testing/dist_cases"):
+        assert f"src/repro_torch/{mod}.py" in names, mod
+    code = ("import sys\n"
+            "import repro_torch.data, repro_torch.testing.compare\n"
+            "from repro_torch.data import RelationalTokenPipeline, Prefetcher\n"
+            "from repro_torch.data import lm_samples_table, lm_labels_table\n"
+            "from repro_torch.testing import plan_fuzz, chaos_cases, dist_cases\n"
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr

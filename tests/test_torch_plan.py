@@ -41,6 +41,17 @@ WIN = ["rank", "dense_rank", ("lag", "d0"), ("lead", "d1", 2),
 THRESHOLD = 2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's tensors, restored after it:
+    the port's many small CPU ops spin in the thread pool's barriers when
+    test workers share the cores (tens of times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def inputs() -> dict[str, list[tuple[dict, int]]]:
     """Per-shard (columns, valid rows) of each input table; garbage rows
     past the count on purpose."""

@@ -5,14 +5,18 @@ The pure-Python modules (``faults``, ``plan_cache``) are held against the
 reference's in this process, call for call. The rest runs in one
 subprocess (``XLA_FLAGS=--xla_force_host_platform_device_count=8``, as in
 tests/test_torch_dist.py) that runs every case below on the reference and
-pickles what it saw; the port runs the same cases, built by the same code,
-on 8 virtual shards on the CPU, and also each case's fault-free run, which
-its recovered rows must equal. The cases are those of
-``repro.testing.chaos_cases`` (shuffle garble and raise on staged and ring
-exchanges, kernel raise, NaN and persistent faults, a derated
-``stats.estimate``, ``cache.admission`` miss and evict, ``compile`` on the
-warm hit, an open loop that survives a kernel fault and a raising query)
-and ``case_serving_async`` of ``repro.testing.dist_cases``. Tolerance:
+pickles what it saw. The port runs the chaos cases through its own
+``repro_torch.testing.chaos_cases`` (each case records its runs' rows and
+counters), on 8 virtual shards on the CPU; the reference side runs them
+through the code below, which makes the same calls in the same order (so
+the verifier's process-wide counters agree too), fault-free runs first.
+The cases are those of ``repro.testing.chaos_cases`` (shuffle garble and
+raise on staged and ring exchanges, kernel raise, NaN and persistent
+faults, a derated ``stats.estimate``, ``cache.admission`` miss and evict,
+``compile`` on the warm hit, an open loop that survives a kernel fault and
+a raising query) and ``case_serving_async`` of
+``repro.testing.dist_cases``, which both sides run through the code below.
+Every recovered run's rows must also equal its fault-free run's. Tolerance:
 none. For every case these must be equal: the rows (bitwise, in shard
 order) and every ``cache_stats()`` counter, the verifier's counters taken
 from zero at the start of the case; for the open loops also every
@@ -39,6 +43,17 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 P = 8
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's tensors, restored after it:
+    the port's many small CPU ops spin in the thread pool's barriers when
+    test workers share the cores (tens of times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ---------------------------------------------------------------------------
 # the cases, one code for both sides (``api`` holds one side's modules)
 # ---------------------------------------------------------------------------
@@ -63,11 +78,10 @@ def case_shuffle_recovery(api):
     out = {}
     for mode_name, kw in (("staged", {"stages": 3}),
                           ("ring", {"shuffle_mode": "ring"})):
-        if api.fault_free:
-            ctx0 = api.ctx()
-            ref, _ = ctx0.partition_by(ctx0.scatter(t), "k",
-                                       bucket_capacity=1024, **kw)
-            out[f"{mode_name}_ref"] = seen(api, ctx0, ref)
+        ctx0 = api.ctx()
+        ref, _ = ctx0.partition_by(ctx0.scatter(t), "k",
+                                   bucket_capacity=1024, **kw)
+        out[f"{mode_name}_ref"] = seen(api, ctx0, ref)
         for fmode in ("raise", "garble"):
             ctx = api.ctx(faults=[FLT.FaultPlan("shuffle.chunk", mode=fmode,
                                                 nth=1)])
@@ -81,12 +95,13 @@ def case_kernel_recovery(api):
     FLT = api.FLT
     t = orders(api)
     out = {}
-    for fmode, aggs in (("raise", (("d0", "sum"), ("d0", "count"))),
-                        ("nan", (("d0", "sum"),))):
-        if api.fault_free:
-            ctx0 = api.ctx()
-            ref, _ = ctx0.groupby(ctx0.scatter(t), "k", aggs)
-            out[f"{fmode}_ref"] = seen(api, ctx0, ref)
+    modes = (("raise", (("d0", "sum"), ("d0", "count"))),
+             ("nan", (("d0", "sum"),)))
+    for fmode, aggs in modes:
+        ctx0 = api.ctx()
+        ref, _ = ctx0.groupby(ctx0.scatter(t), "k", aggs)
+        out[f"{fmode}_ref"] = seen(api, ctx0, ref)
+    for fmode, aggs in modes:
         ctx = api.ctx(faults=[FLT.FaultPlan("kernel.dispatch", mode=fmode,
                                             nth=1)])
         got, _ = ctx.groupby(ctx.scatter(t), "k", aggs)
@@ -104,11 +119,10 @@ def case_stats_overflow_recovery(api):
     FLT = api.FLT
     t = orders(api, keys=97)
     out = {}
-    if api.fault_free:
-        ctx0 = api.ctx()
-        ref, _ = ctx0.groupby(api.analyze(ctx0, ctx0.scatter(t)), "k",
-                              (("d0", "sum"),), strategy="shuffle")
-        out["ref"] = seen(api, ctx0, ref)
+    ctx0 = api.ctx()
+    ref, _ = ctx0.groupby(api.analyze(ctx0, ctx0.scatter(t)), "k",
+                          (("d0", "sum"),), strategy="shuffle")
+    out["ref"] = seen(api, ctx0, ref)
     ctx = api.ctx(faults=[FLT.FaultPlan("stats.estimate", probability=1.0,
                                         max_fires=10_000, factor=64.0)])
     dt = api.analyze(ctx, ctx.scatter(t))
@@ -122,7 +136,9 @@ def case_stats_overflow_recovery(api):
 def case_cache_and_compile(api):
     FLT = api.FLT
     t = orders(api)
-    out = {}
+    ctx0 = api.ctx()
+    ref, _ = ctx0.groupby(ctx0.scatter(t), "k", (("d0", "sum"),))
+    out = {"ref": seen(api, ctx0, ref)}
     for fmode in ("miss", "evict"):
         ctx = api.ctx(faults=[FLT.FaultPlan("cache.admission", mode=fmode,
                                             nth=2)])  # the warm hit
@@ -169,13 +185,10 @@ def case_serving_survival(api):
     def boom(_s):
         raise ValueError("client bug")
 
-    out = {
-        "fault": loop(api.ctx(faults=[FLT.FaultPlan(
-            "kernel.dispatch", probability=1.0, max_fires=1)]), workload),
-        "boom": loop(api.ctx(), list(workload) + [("boom", boom)]),
-    }
-    if api.fault_free:
-        out["ref"] = loop(api.ctx(), workload)
+    out = {"ref": loop(api.ctx(), workload)}
+    out["fault"] = loop(api.ctx(faults=[FLT.FaultPlan(
+        "kernel.dispatch", probability=1.0, max_fires=1)]), workload)
+    out["boom"] = loop(api.ctx(), list(workload) + [("boom", boom)])
     return out
 
 
@@ -253,7 +266,6 @@ def reference_api():
         return {k: np.asarray(v)[:n] for k, v in sorted(t.columns.items())}
 
     return types.SimpleNamespace(
-        fault_free=False,
         FLT=FLT, V=V, ServingSession=ServingSession, analyze=analyze,
         rows=rows, table=lambda cols: Table.from_arrays(cols),
         ctx=lambda faults=None, retry=None: DistContext(
@@ -268,7 +280,6 @@ def port_api():
     from repro_torch.core.table import Table
 
     return types.SimpleNamespace(
-        fault_free=True,
         FLT=FLT, V=V, ServingSession=ServingSession,
         analyze=lambda ctx, dt: ctx.analyze(dt),
         rows=lambda dt: dt.to_table().to_numpy(),
@@ -309,8 +320,41 @@ def reference(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def port():
-    return run_cases(port_api())
+def port_run():
+    """The chaos cases through ``repro_torch.testing.chaos_cases`` (their
+    recorded runs and their JSON), ``serving_async`` through
+    :func:`case_serving_async`; the verifier's counters from zero at each
+    case's start."""
+    from repro_torch.core import verify as V
+    from repro_torch.testing import chaos_cases as C
+
+    api = port_api()
+    records, results = {}, {}
+    for name, case in CASES.items():
+        V.reset_counters()
+        if name in C.CASES:
+            records[name] = {}
+            results[name] = C.CASES[name](device="cpu", record=records[name])
+        else:
+            records[name] = case(api)
+    return records, results
+
+
+@pytest.fixture(scope="module")
+def port(port_run):
+    return port_run[0]
+
+
+@pytest.fixture(scope="module")
+def chaos(port_run):
+    """Each chaos case's JSON, as its CLI prints it."""
+    return port_run[1]
+
+
+def test_the_port_runs_every_chaos_case_of_its_module():
+    from repro_torch.testing import chaos_cases as C
+
+    assert set(C.CASES) == set(CASES) - {"serving_async"}
 
 
 def assert_same(got, want, path: str = "") -> None:
@@ -335,11 +379,7 @@ def assert_same(got, want, path: str = "") -> None:
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_case_matches_reference(reference, port, case):
-    want = reference[case]
-    # the port alone also runs each case's fault-free oracle (the runs
-    # the recovered rows are held against below)
-    got = {k: v for k, v in port[case].items() if k in want}
-    assert_same(got, want, case)
+    assert_same(port[case], reference[case], case)
 
 
 def test_chaos_recovers_through_its_rung(port):
@@ -379,6 +419,40 @@ def test_chaos_recovers_through_its_rung(port):
     assert [e[0] for e in v["boom"]["report"]["errors"]] == ["boom"]
     assert sum(r is not None for r in v["boom"]["rows"]) == \
         v["boom"]["report"]["queries"] - 1
+
+
+CHAOS = [c for c in CASES if c != "serving_async"]
+
+
+@pytest.mark.parametrize("case", CHAOS)
+def test_chaos_case_meets_its_checks(chaos, case):
+    """What tests/test_chaos.py asserts of the reference's JSON, and that
+    each shuffle fault fired once and the derated estimate fired
+    (``chaos_cases.checks``, which chip_smoke.py's phase 13 uses too)."""
+    from repro_torch.testing import chaos_cases as C
+
+    failed = [k for k, ok in C.checks({case: chaos[case]}).items() if not ok]
+    assert not failed, (failed, chaos[case])
+
+
+# one bad value a case, planted in its real JSON: each must fail its checks
+PLANTED = {
+    "shuffle_recovery": ("staged_raise_fires", 2),
+    "kernel_recovery": ("nan_identical", False),
+    "stats_overflow_recovery": ("fires", False),
+    "cache_and_compile": ("evict_recompiles", 0),
+    "serving_survival": ("boom_failed_labels", ["boom", "gb"]),
+}
+
+
+@pytest.mark.parametrize("case", CHAOS)
+def test_a_planted_bad_chaos_output_fails_its_checks(chaos, case):
+    from repro_torch.testing import chaos_cases as C
+
+    key, value = PLANTED[case]
+    assert key in chaos[case]
+    bad = {**chaos[case], key: value}
+    assert not all(C.checks({case: bad}).values()), bad
 
 
 def test_serving_async_warm_cache(port):
