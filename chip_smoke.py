@@ -159,16 +159,52 @@ Then, with the relational tables freed, the serving path (the LM slice):
    device memory, and one ``torch.profiler`` trace of a prefill and of
    decode steps (busy share, flash's device ms, the largest kernels, the
    torch ops the host dispatched).
+Then, with the serving model freed, the training path:
+
+16. granite-3-2b (40 layers, d 2048, 32/8 heads of 64, tied embeddings of
+   49280 x 2048; 2.53 B parameters) at full width and depth, random bf16
+   weights from a ``torch.Generator`` seeded 0 on the card, trained by
+   ``train.steps.make_train_step`` on batches of the relational token
+   pipeline (seq 1024, global batch 8, vocab 49155): the reference's 4
+   interleaved microbatches (``train_microbatches``), ``remat="full"``,
+   AdamW on fp32 masters (lr 3e-4, warmup 1, 8 total). One warm-up step,
+   then 4 steps, the counts zeroed just before and read just after: each
+   step launches the LSE forward 2 x 40 x 4 = 320 times (forward and
+   recompute) and the backward 40 x 4 = 160 times, the serving entry and
+   the relational kernels never. It prints each step's ms, tokens/s and
+   their share of the dense bf16 peak (6N plus the attention's products a
+   token), loss and grad norm, peak GiB, the launches, one profiled step
+   (busy share, top kernels) and the pipeline's ms a batch. Checks: finite
+   losses; at 2 layers of the same width, every gradient leaf and one
+   step's loss and grad norm against ``oracle_scope()`` (plain attention
+   on the card) within ``TRAIN_GRAD_TOL`` / ``TRAIN_LOSS_TOL`` /
+   ``TRAIN_GNORM_TOL``; at the narrow config (granite-3-2b's TINY with head
+   dim 64) a run that crashes at step 4 with checkpoints every 2 steps,
+   resumed, bitwise equal to 6 uninterrupted steps (deterministic
+   algorithms on for it), and 60 steps on one batch lowering the loss by
+   more than 1.0.
 Phase 2 also holds flash_attention against its plain version (S 1 to
 4096, around the 64-row fp32 and 128-row bf16 tiles, causal or not, group
-size 1 and 4, hd 64 and 128, fp32 and bf16, scores up to +-1e4); phase 7
-times it at the path's shape beside
-``F.scaled_dot_product_attention`` (``library_ms``).
+size 1 and 4, hd 64 and 128, fp32 and bf16, scores up to +-1e4), and the
+training entries (``check_flash_train``): flash_attention_lse's out equal
+to the serving entry's and its lse against a float64 logsumexp;
+flash_attention_bwd against autograd through ``attention_ref`` at the
+training path's shape and llama3-8b's (hd 128), at S 1, 127, 1000, 1025,
+causal or not, bf16 and fp32, group size 1, each of dq, dk, dv in every
+64-row tile within ``FLASH_BWD_TOL`` of the tile's plain norm (a planted
+fault, the lse off by ln 2 past the first four tiles, must fail), the same bits
+on two runs. Phase 7 times
+flash_attention at the serving path's shape beside
+``F.scaled_dot_product_attention`` (``library_ms``), and the training
+entries at one microbatch of the training path (B 2, S 1024, H 32, KV 8,
+hd 64) beside their plain versions and the calls SDPA's flash backend
+makes (``aten._scaled_dot_product_flash_attention``, which also returns
+the log-sum-exp, and its ``_backward`` on that call's out and lse).
 
 It prints one JSON line with the serving path's numbers, one with the main
 path's, one with phase 11's (``{"plan": ...}``), one with phases 12-13's
 (``{"serving": ...}``), one with phases 14-15's (``{"pipeline": ...}``),
-one with every kernel's,
+one with phase 16's (``{"train": ...}``), one with every kernel's,
 then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line. Without a card it exits
 2 and prints no result.
@@ -184,6 +220,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -192,7 +229,7 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_tiny, train_microbatches  # noqa: E402
 from repro_torch.core import ops_local as L  # noqa: E402
 from repro_torch.core import plan as PL  # noqa: E402
 from repro_torch.core import stats as S  # noqa: E402
@@ -206,13 +243,17 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.bitonic import (bitonic_sort_permutation,  # noqa: E402
                                          bitonic_sort_tiles, latency_probe)
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_bwd, flash_attention_lse)
 from repro_torch.kernels.hash64 import hash32, hash32_partition  # noqa: E402
 from repro_torch.kernels.histogram import bucket_histogram  # noqa: E402
 from repro_torch.kernels.segment_reduce import segment_reduce_tiles  # noqa: E402
 from repro_torch.kernels.segment_scan import segment_scan_tiles  # noqa: E402
 from repro_torch.launch.serve import generate, prompts  # noqa: E402
 from repro_torch.models.factory import build_model  # noqa: E402
+from repro_torch.train import steps as TS  # noqa: E402
+from repro_torch.train.loop import LoopConfig, run  # noqa: E402
+from repro_torch.train.optimizer import OptConfig  # noqa: E402
 from repro_torch.train.steps import make_decode_step, make_prefill_step  # noqa: E402
 
 P = 8
@@ -230,6 +271,25 @@ SCALAR_OPS_PER_S = 67e12
 TENSOR_BF16_OPS_PER_S = 989e12
 # the serving path: llama3-8b, 4 prompts of 1024 tokens, 32 greedy tokens
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "llama3-8b", 4, 1024, 32
+# the training path (phase 16): granite-3-2b at full width and depth, 8 x
+# 1024-token batches from the relational token pipeline, the reference's
+# microbatch count for it (4), a warm-up step, then 4 steps
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = "granite-3-2b", 1024, 8, 4
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=8)
+# phase 16's kernel-against-plain check runs the same width at 2 layers
+TRAIN_PLAIN_LAYERS = 2
+# Kernel run against plain attention on the card at 2 layers, the same
+# weights and batch: each gradient leaf within 5e-2 of its largest plain
+# value (the bf16 attention rounds its probabilities and dS to bf16 and
+# its gradients are bf16, ~2^-8 relative each, carried through two layers'
+# bf16 backward; a wrong dq, dk or dv moves its leaves by their own size;
+# this per-leaf check is the one that holds the backward), the loss within
+# 1e-4 of the plain one and the grad norm within 1e-3 (relative; readings
+# 2.8e-6 and 1.1e-5 on an H100, PERF.md).
+TRAIN_GRAD_TOL, TRAIN_LOSS_TOL, TRAIN_GNORM_TOL = 5e-2, 1e-4, 1e-3
+# the narrow config of phase 16's crash-resume and overfit checks: the
+# kernels need head dim 64 or 128, and the TINY configs have 16
+NARROW_SEQ, NARROW_BATCH = 128, 8
 # Logits of two runs of the serving path that differ only in how prefill
 # attention rounds (the kernel rounds its probabilities to bf16 for the
 # tensor-core p v, the plain version keeps fp32, the decode einsums round
@@ -289,7 +349,18 @@ KERNELS = {
     "flash_attention": (flash_attention,
                         "src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:78"),
+    # the training entries: the forward's LSE-writing instance, and the
+    # gradient of the TPU kernel's function (which has none; the reference
+    # differentiates its einsum attention, src/repro/models/layers.py:223)
+    "flash_attention_lse": (flash_attention_lse,
+                            "src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:78"),
+    "flash_attention_bwd": (flash_attention_bwd,
+                            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                            "src/repro/kernels/flash_attention.py:78"),
 }
+# the LM kernels, whose launches phases 8 and 16 count
+LM_KERNELS = ("flash_attention", "flash_attention_lse", "flash_attention_bwd")
 # each relational kernel's launches over phase 3's main path, exactly:
 # hash32_partition once a shard for each hash shuffle (the sort join's and
 # the hash join's two sides, groupby two_phase's and shuffle's: 6 a shard);
@@ -303,7 +374,7 @@ MAIN_PATH_LAUNCHES = {
     "hash32": 2 * P, "hash32_partition": 6 * P, "bucket_histogram": 8 * P,
     "bitonic_sort_tiles": 0, "bitonic_sort_permutation": P,
     "segment_reduce_tiles": SEG_REDUCE_LAUNCHES, "segment_scan_tiles": 6 * P}
-# the relational main path's kernels; flash_attention is the serving path's
+# the relational main path's kernels; the LM_KERNELS are the LM paths'
 RELATIONAL = tuple(MAIN_PATH_LAUNCHES)
 ZERO_LAUNCHES = {name: 0 for name in KERNELS}
 # phase 11: analyze sketches each 1-D key-typed column of the four tables
@@ -327,7 +398,8 @@ SAFE_RERUN_ROWS = 1 << 16
 PORTED_KERNELS = ("hash32_kernel", "hash32_partition_kernel", "hist_regs",
                   "hist_global", "hist_shared", "bitonic_tile", "bitonic_perm",
                   "seg_fill", "seg_pass1", "seg_pass2",
-                  "scan_lookback", "flash_fwd_bf16", "flash_fwd_f32")
+                  "scan_lookback", "flash_fwd_bf16", "flash_fwd_f32",
+                  "flash_bwd_dot", "flash_bwd_dkdv", "flash_bwd_dq")
 
 
 class CheckFailed(RuntimeError):
@@ -369,7 +441,8 @@ def nvidia_smi() -> str:
 
 # the kernels whose build report phase 7 prints (those redesigned in the
 # last three rounds), and the op codes of the segment kernels
-REPORTED_KERNELS = ("flash_fwd_bf16", "seg_fill", "seg_pass1", "seg_pass2",
+REPORTED_KERNELS = ("flash_fwd_bf16", "flash_bwd_dkdv_bf16",
+                    "flash_bwd_dq_bf16", "seg_fill", "seg_pass1", "seg_pass2",
                     "scan_lookback", "hist_regs", "hash32_partition_kernel",
                     "bitonic_tile", "bitonic_perm")
 _OPS = {"0": "sum", "1": "min", "2": "max"}
@@ -387,12 +460,17 @@ def ptxas_report() -> list[dict]:
             if "Compiling entry function" in line:
                 m = pat.search(line)
                 cur = None
-                if m:  # template arguments: Li128 (hd), fLi0 (float, sum)
+                if m:  # template arguments: Li128 (hd), fLi0 (float, sum),
+                    # Lb1 (flash's LSE-writing training instance)
                     args = m.group(2) or ""
                     t = {"f": "float", "i": "int"}.get(args[:1])
                     n = re.findall(r"Li(\d+)", args)
                     label = ("" if not n else f"<{n[0]}>" if t is None else
                              f"<{t}, {_OPS.get(n[0], n[0])}>")
+                    lse = re.findall(r"Lb(\d)", args)
+                    if lse:
+                        label = label[:-1] + (", lse>" if lse[0] == "1"
+                                              else ", serving>")
                     cur = {"kernel": m.group(1) + label}
                     found.append(cur)
             elif cur is not None and "spill stores" in line:
@@ -565,6 +643,22 @@ def phase_kernels(dev) -> None:
         f"within {scan_err['one_run']:.3g} of the plain version in float64 "
         f"(tolerance {SCAN_F32_TOL:g}); the same bits on 5 runs of each")
     check_flash(dev, rng)
+    worst = check_flash_train(dev, rng)
+    bf, f32, bad = worst["bf16"], worst["f32"], worst["planted"]
+    zero_rms = max(bf["zero_rms"], f32["zero_rms"])
+    say(f"[2] flash training entries: the LSE instance's out equal to the "
+        f"serving one's, lse within {FLASH_LSE_TOL:g} of float64; the "
+        f"backward's worst {FLASH_BWD_TILE}-row tile of dq, dk or dv within "
+        f"{bf['rel']:.3g} (bf16) and {f32['rel']:.3g} (fp32) of its plain "
+        f"norm (limits {FLASH_BWD_TOL[torch.bfloat16]:g}, "
+        f"{FLASH_BWD_TOL[torch.float32]:g}), RMS {zero_rms:.3g} where the "
+        f"plain gradient is 0 (floor {FLASH_BWD_ATOL:g}); at most "
+        f"{max(bf['excess'], f32['excess']):.3g} of a limit over "
+        f"{len(flash_train_cases())} cases, the same bits on two runs; the "
+        f"lse off by ln 2 past the first four tiles fails at dq "
+        f"{bad['dq']:.3g}, dk {bad['dk']:.3g}, dv {bad['dv']:.3g} times the "
+        f"limit (its largest |diff| {bad['max_over_max']:.3g} of the "
+        f"largest |plain|)")
     torch.cuda.synchronize()
 
 
@@ -911,6 +1005,139 @@ def check_flash(dev, rng) -> None:
     # the scores of the last case reach past +-1e4
     top = torch.einsum("bsd,btd->bst", q[:, :, 0].float(), k[:, :, 0].float())
     check(float(top.abs().max()) / math.sqrt(128) > 1e4, "flash: scores < 1e4")
+
+
+# The flash backward against autograd through attention_ref (fp32 inside)
+# on the same bf16 or fp32 inputs: each of dq, dk and dv on its own, in
+# every 64-row tile of the sequence (query rows for dq, key rows for dk and
+# dv; the tile's batches and heads together), as
+#     ||got - plain||_F <= tol * ||plain||_F + FLASH_BWD_ATOL * sqrt(n)
+# over the tile's n elements. A causal gradient shrinks along the sequence
+# (about 10 in the first rows, 0.1 by row 500), so a scale taken from the
+# largest value would let through a fault in every later tile; each tile's
+# own norm does not (``check_flash_train`` plants one: the lse off by ln 2
+# past the first four tiles must fail). bf16: the kernel rounds P and dS to bf16
+# for the tensor-core products, takes D from the forward's bf16 output and
+# writes bf16 gradients (2^-9 relative each, independent from element to
+# element, so a tile's norm of them stays near 2^-9). fp32: FMA sums in
+# another order than the plain version's. The floor is for S 1, where the
+# exact dq and dk are 0 (dP and D cancel) and the kernel's rounding of the
+# two remains. Each limit is 3-5 times the largest reading on an H100 over
+# phase 2's cases (bf16 3.7e-3, fp32 1.8e-6, RMS where plain is 0 4.9e-7;
+# PERF.md).
+FLASH_BWD_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+FLASH_BWD_ATOL, FLASH_BWD_TILE = 2e-6, 64
+# the training forward's lse against a float64 logsumexp of the same inputs:
+# fp32 sums of up to S exp2 terms (ex2.approx, 2^-22 relative)
+FLASH_LSE_TOL = 1e-4
+# phase 7's library calls for the training entries must compute the same
+# function: their output and lse within this of the plain version's
+# (absolute; bf16 outputs of size ~3 round by 2^-8 of that), their
+# gradients' worst tile within it of the plain norm. A wrong head map or
+# mask moves either by its own size.
+LIBRARY_SAME_FN = 5e-2
+
+
+def flash_train_cases():
+    """(B, S, H, KV, hd, causal, dtype) of phase 2's training checks: the
+    path's shape (granite-3-2b's heads, B 2, S 1024, bf16, causal) and
+    llama3-8b's (hd 128); S 1, 127, 1000, 1025 (around the 64-row tiles)
+    for both head dims, causal or not, bf16 and fp32; group size 1."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [(2, 1024, 32, 8, 64, True, bf), (2, 1024, 32, 8, 128, True, bf)]
+    cases += [(2 if s < 1025 else 1, s, 8, 2, hd, causal, dt)
+              for dt in (bf, f32) for hd in (64, 128)
+              for causal in (True, False) for s in (1, 127, 1000, 1025)]
+    cases += [(2, s, 4, 4, 64, True, bf) for s in (127, 1025)]
+    return cases
+
+
+def _tile_squares(x: torch.Tensor) -> torch.Tensor:
+    """Sums of squares of x (B, S, heads, hd) over each ``FLASH_BWD_TILE``
+    rows of S, in float64."""
+    r = x.double().square().sum(dim=(0, 2, 3))
+    return F.pad(r, (0, -r.numel() % FLASH_BWD_TILE)).view(
+        -1, FLASH_BWD_TILE).sum(1)
+
+
+def bwd_errors(got, want, dtype) -> dict[str, dict[str, float]]:
+    """For each of dq, dk, dv: ``excess``, the worst tile's ||got - plain||
+    over its limit (``FLASH_BWD_TOL``, ``FLASH_BWD_ATOL``; at most 1 to
+    pass), ``rel``, the worst ||got - plain|| / ||plain|| of a tile whose
+    plain norm is not 0, and ``zero_rms``, the worst RMS error of a tile
+    whose plain gradient is 0."""
+    res = {}
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        err = _tile_squares(a.double() - w.double()).sqrt()
+        norm = _tile_squares(w).sqrt()
+        n = _tile_squares(torch.ones_like(w[..., :1])) * w.shape[-1]
+        limit = FLASH_BWD_TOL[dtype] * norm + FLASH_BWD_ATOL * n.sqrt()
+        nz = norm > 0
+        res[name] = {
+            "excess": float((err / limit).max()),
+            "rel": float((err[nz] / norm[nz]).max()) if nz.any() else 0.0,
+            "zero_rms": float((err[~nz] / n[~nz].sqrt()).max())
+            if (~nz).any() else 0.0}
+    return res
+
+
+def check_flash_train(dev, rng) -> dict:
+    """The training entries against their plain versions on the card:
+    flash_attention_lse's out bit-equal to the serving entry's and its lse
+    within ``FLASH_LSE_TOL`` of a float64 logsumexp; flash_attention_bwd
+    against autograd through ``attention_ref`` per gradient and tile
+    (``bwd_errors``), the same bits on a second run. At the path's shape a
+    planted fault, the lse off by ln 2 past the first four tiles, must fail
+    each of dq, dk, dv. Returns the worst readings by dtype and the planted
+    fault's excess, beside its largest |diff| over the largest |plain|
+    (``max_over_max``, the measure this check replaced)."""
+    worst = {key: {"rel": 0.0, "zero_rms": 0.0, "excess": 0.0}
+             for key in ("bf16", "f32")}
+    planted = None
+    for b, s, h, kv, hd, causal, dtype in flash_train_cases():
+        def x(*shape):
+            a = rng.standard_normal(shape).astype(np.float32)
+            return torch.from_numpy(a).to(dev, dtype)
+        q, k, v, dout = x(b, s, h, hd), x(b, s, kv, hd), x(b, s, kv, hd), \
+            x(b, s, h, hd)
+        name = (f"flash train {dtype} B={b} S={s} H={h} KV={kv} hd={hd} "
+                f"causal={causal}")
+        out, lse = flash_attention_lse(q, k, v, causal=causal)
+        check(torch.equal(out, flash_attention(q, k, v, causal=causal)),
+              f"{name}: the LSE instance's out differs from the serving one")
+        _, want_lse = ref.attention_lse_ref(q.double(), k.double(), v.double(),
+                                            causal=causal)
+        err = float((lse.double() - want_lse).abs().max())
+        check(err <= FLASH_LSE_TOL * max(1.0, float(want_lse.abs().max())),
+              f"{name}: lse differs from float64 by {err}")
+        got = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+        want = ref.attention_bwd_ref(q, k, v, dout, causal=causal)
+        key = "bf16" if dtype == torch.bfloat16 else "f32"
+        for gname, e in bwd_errors(got, want, dtype).items():
+            check(e["excess"] <= 1.0,
+                  f"{name}: {gname} at {e['excess']:.3g} times its limit "
+                  f"(worst tile ||diff|| / ||plain|| {e['rel']:.3g}, RMS "
+                  f"where plain is 0 {e['zero_rms']:.3g})")
+            for m in worst[key]:
+                worst[key][m] = max(worst[key][m], e[m])
+        again = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+        check(all(torch.equal(a, c) for a, c in zip(got, again)),
+              f"{name}: bits differ between two runs")
+        if planted is None:  # the first case: the path's shape
+            shifted = lse.clone()
+            shifted[:, :, 4 * FLASH_BWD_TILE:] += math.log(2)
+            bad = flash_attention_bwd(q, k, v, out, shifted, dout,
+                                      causal=causal)
+            planted = {g: e["excess"]
+                       for g, e in bwd_errors(bad, want, dtype).items()}
+            check(all(x > 1.0 for x in planted.values()),
+                  f"{name}: the lse off by ln 2 past the first four tiles "
+                  f"passes the backward's check ({planted} times the limit)")
+            planted["max_over_max"] = max(
+                float((a.float() - w.float()).abs().max()) for a, w in
+                zip(bad, want)) / max(float(w.float().abs().max())
+                                      for w in want)
+    return {**worst, "planted": planted}
 
 
 def phase_semantics(dev) -> None:
@@ -2036,11 +2263,15 @@ def phase_harnesses(dev, plans: int = FUZZ_PLANS) -> dict:
     eager oracle, with ``REPRO_VERIFY_PLANS`` on), and each relational case
     of ``repro_torch.testing.dist_cases`` once, held to its own oracle
     checks (``dist_cases.checks``, what tests/test_dist.py asserts)."""
+    from repro_torch.core import verify as V
     from repro_torch.testing import dist_cases, plan_fuzz
 
+    # the verifier's counters are the process's: count the fuzz's own runs
+    before = V.counter_snapshot()
     t0 = time.perf_counter()
     fuzz = plan_fuzz.run_fuzz(plans, FUZZ_SEED, num_shards=P, device=dev)
     fuzz["seconds"] = time.perf_counter() - t0
+    fuzz["verify"] = {k: n - before[k] for k, n in fuzz["verify"].items()}
     check(fuzz["plans"] == plans and fuzz["verify"]["verify_findings"] == 0,
           f"plan fuzz: {fuzz}")
     cases, secs = {}, {}
@@ -2237,7 +2468,85 @@ def phase_timing(dev, rows: int) -> dict[str, dict]:
         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
         max_abs_err=float((flash_attention(q, k, v) - want).float().abs().max()),
         library_max_abs_err=float((lib_out - want).float().abs().max()))
+    out.update(flash_train_timing(dev, timer))
     return out
+
+
+def flash_train_timing(dev, timer) -> dict[str, dict]:
+    """The training entries at the training path's shape: one layer of one
+    microbatch of granite-3-2b (B 2, S 1024, H 32, KV 8, hd 64, bf16,
+    causal), each beside its plain version and beside the call SDPA's flash
+    backend makes for the same function on the same (transposed, GQA)
+    inputs: ``aten._scaled_dot_product_flash_attention``, which returns the
+    output and the log-sum-exp, and ``_backward`` on that call's output and
+    log-sum-exp, each one call timed directly. The library's results must
+    agree with the plain versions (``LIBRARY_SAME_FN``). Bounds: each input
+    read and output written once; the forward's s(s+1)/2 products, and 2.5
+    times them for the backward, at 989 TFLOP/s."""
+    cfg = get_config(TRAIN_ARCH)
+    b, s, h, kv, hd = TRAIN_BATCH // train_microbatches(TRAIN_ARCH), \
+        TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    g = torch.Generator(device=dev).manual_seed(13)
+    q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+                   for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd),
+                                 (b, s, h, hd)))
+    fwd_ops = 4 * b * h * hd * s * (s + 1) / 2
+    io = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v in, out
+    lse_bytes = 4 * b * h * s
+    out, lse = flash_attention_lse(q, k, v)
+    for _ in range(100):  # load the card before the first reading
+        flash_attention_bwd(q, k, v, out, lse, do)
+    ms = timer(lambda: flash_attention_lse(q, k, v))
+    serving = timer(lambda: flash_attention(q, k, v))
+    plain = timer(lambda: ref.attention_lse_ref(q, k, v))
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    aten = torch.ops.aten
+
+    def lib_fwd():
+        return aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, True)
+
+    lib = timer(lib_fwd)
+    bms, by = bound_ms(io + lse_bytes, fwd_ops, TENSOR_BF16_OPS_PER_S)
+    want_out, want_lse = ref.attention_lse_ref(q, k, v)
+    fwd = lib_fwd()
+    lib_err = max(float((fwd[0].transpose(1, 2) - want_out).float().abs().max()),
+                  float((fwd[1][..., :s] - want_lse).abs().max()))
+    check(lib_err <= LIBRARY_SAME_FN,
+          f"the library's flash forward differs from the plain version by "
+          f"{lib_err}")
+    res = {"flash_attention_lse": dict(
+        ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+        max_abs_err=max(float((out - want_out).float().abs().max()),
+                        float((lse - want_lse).abs().max())),
+        serving_entry_ms=serving, library_max_abs_err=lib_err)}
+
+    def lib_bwd():
+        return aten._scaled_dot_product_flash_attention_backward(
+            dot, qt, kt, vt, fwd[0], fwd[1], *fwd[2:6], 0.0, True,
+            *fwd[6:8])
+
+    bwd = timer(lambda: flash_attention_bwd(q, k, v, out, lse, do))
+    plain = timer(lambda: ref.attention_bwd_ref(q, k, v, do))
+    lib = timer(lib_bwd)
+    # dq, dk, dv written; q, k, v, o, dO read (and lse, a row each)
+    bms, by = bound_ms(2 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel())
+                       + lse_bytes, 2.5 * fwd_ops, TENSOR_BF16_OPS_PER_S)
+    got = flash_attention_bwd(q, k, v, out, lse, do)
+    want = ref.attention_bwd_ref(q, k, v, do)
+    lib_rel = max(e["rel"] for e in bwd_errors(
+        [x.transpose(1, 2) for x in lib_bwd()], want, q.dtype).values())
+    check(lib_rel <= LIBRARY_SAME_FN,
+          f"the library's flash backward differs from the plain version by "
+          f"{lib_rel} of a tile's norm")
+    res["flash_attention_bwd"] = dict(
+        ms=bwd, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+        max_abs_err=max(float((a.float() - w.float()).abs().max())
+                        for a, w in zip(got, want)),
+        tile_rel_err=max(e["rel"] for e in bwd_errors(got, want,
+                                                      q.dtype).values()),
+        library_tile_rel_err=lib_rel,
+        tflops=2.5 * fwd_ops / (bwd * 1e-3) / 1e12)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2269,7 +2578,8 @@ def phase_serve(dev):
     check(counts["flash_attention"] == cfg.num_layers,
           f"flash_attention launched {counts['flash_attention']} times in "
           f"generate, want {cfg.num_layers} (once a layer, in the prefill)")
-    check(all(counts[k] == 0 for k in RELATIONAL), f"serving launched {counts}")
+    check(all(counts[k] == 0 for k in RELATIONAL + LM_KERNELS[1:]),
+          f"serving launched {counts}")
     check(tuple(gen.tokens.shape) == (LM_BATCH, LM_GEN), "generated shape")
     check(bool(((gen.tokens >= 0) & (gen.tokens < cfg.padded_vocab)).all()),
           "generated token ids out of range")
@@ -2384,6 +2694,236 @@ def phase_serve_profile(model, tokens, steps: int = 8) -> dict:
     # counts), so ``ported_kernels_ms`` is flash's device time
     return {"prefill": profiled("prefill", run_prefill),
             f"decode x{steps}": profiled("decode", run_decode)}
+
+
+# ---------------------------------------------------------------------------
+# phase 16: training, granite-3-2b at full width and depth
+# ---------------------------------------------------------------------------
+
+
+def train_launches(cfg, microbatches: int) -> dict[str, int]:
+    """Each kernel's launches in one train step: with ``remat="full"`` every
+    layer runs the LSE forward once in the forward and once more when its
+    block is recomputed in the backward, and the backward once, for each
+    microbatch; the serving entry and the relational kernels never."""
+    fwd = 2 if cfg.remat == "full" else 1
+    return {**ZERO_LAUNCHES,
+            "flash_attention_lse": fwd * cfg.num_layers * microbatches,
+            "flash_attention_bwd": cfg.num_layers * microbatches}
+
+
+def train_batches(dev, cfg, n: int) -> tuple[list[dict], list[float]]:
+    """``n`` batches of the relational token pipeline at the training path's
+    shape on the card, and the ms each took (host clock, synchronised)."""
+    from repro_torch.data.pipeline import PipelineConfig, RelationalTokenPipeline
+
+    pipe = RelationalTokenPipeline(PipelineConfig(
+        seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, vocab_size=cfg.vocab_size,
+        seed=0), device=dev)
+    batches, walls = [], []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = {k: torch.from_numpy(v).to(dev) for k, v in
+             pipe.global_batch(i).items()}
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        check(tuple(b["tokens"].shape) == (TRAIN_BATCH, TRAIN_SEQ) and
+              b["tokens"].dtype == torch.int32 and
+              int(b["tokens"].max()) < cfg.vocab_size and
+              tuple(b["weight"].shape) == (TRAIN_BATCH,),
+              f"pipeline batch {i}: {b['tokens'].shape} {b['tokens'].dtype}")
+        batches.append(b)
+    return batches, walls
+
+
+def phase_train_plain(dev, batch) -> dict:
+    """Phase 16's check against plain attention at full width and
+    ``TRAIN_PLAIN_LAYERS`` layers: the gradients of every leaf through the
+    kernels and under ``oracle_scope()`` (plain attention on the card),
+    then one train step of each from the same weights: loss and grad norm.
+    The kernel run's launches must be ``train_launches``' (the plain run's
+    none)."""
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=TRAIN_PLAIN_LAYERS)
+    k = train_microbatches(TRAIN_ARCH)
+    model = build_model(cfg, dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    state = TS.bind_state(model)
+    set_launches(0)
+    grads, _ = TS._accumulate_grads(model, state.params, batch, k)
+    check(launches() == train_launches(cfg, k),
+          f"{TRAIN_PLAIN_LAYERS}-layer gradients launched {launches()}, want "
+          f"{train_launches(cfg, k)}")
+    with kops.oracle_scope():
+        plain, _ = TS._accumulate_grads(model, state.params, batch, k)
+    errs = {}
+    for name, g in grads.items():
+        scale = float(plain[name].abs().max())
+        errs[name] = float((g - plain[name]).abs().max()) / max(scale, 1e-30)
+        check(errs[name] <= TRAIN_GRAD_TOL,
+              f"{TRAIN_PLAIN_LAYERS}-layer gradient {name}: kernel run "
+              f"differs from plain attention by {errs[name]:.4g} of its max")
+    del grads, plain
+    step = TS.make_train_step(model, OptConfig(**TRAIN_OPT), microbatches=k)
+    set_launches(0)
+    _, mk = step(state, batch)
+    mk = {n: float(v) for n, v in mk.items()}
+    set_launches(0)
+    with kops.oracle_scope():
+        _, mp = step(TS.init_train_state(model, 0), batch)
+    check(all(v == 0 for v in launches().values()),
+          f"the plain train step launched {launches()}")
+    mp = {n: float(v) for n, v in mp.items()}
+    dl = abs(mk["loss"] - mp["loss"]) / abs(mp["loss"])
+    dg = abs(mk["grad_norm"] - mp["grad_norm"]) / mp["grad_norm"]
+    check(dl <= TRAIN_LOSS_TOL and dg <= TRAIN_GNORM_TOL,
+          f"{TRAIN_PLAIN_LAYERS}-layer step: loss {mk['loss']} vs plain "
+          f"{mp['loss']}, grad norm {mk['grad_norm']} vs {mp['grad_norm']}")
+    worst = max(errs, key=errs.get)
+    return {"layers": TRAIN_PLAIN_LAYERS, "loss": mk["loss"],
+            "plain_loss": mp["loss"], "grad_norm": mk["grad_norm"],
+            "plain_grad_norm": mp["grad_norm"], "loss_rel_err": dl,
+            "grad_norm_rel_err": dg, "worst_grad_leaf": worst,
+            "worst_grad_rel_err": errs[worst]}
+
+
+def phase_train(dev, batches, profile=None) -> dict:
+    """Phase 16: granite-3-2b at full width and depth, random bf16 weights
+    from a ``torch.Generator`` seeded 0 on the card, trained by
+    ``make_train_step`` (4 interleaved microbatches of 2 x 1024, AdamW on
+    fp32 masters) on the pipeline's batches: one warm-up step, then
+    ``TRAIN_STEPS`` steps with the counts zeroed just before and read just
+    after (each step's launches must be ``train_launches``'), then one
+    profiled step. Every loss and grad norm finite."""
+    cfg = get_config(TRAIN_ARCH)
+    k = train_microbatches(TRAIN_ARCH)
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    state = TS.bind_state(model)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    step = TS.make_train_step(model, OptConfig(**TRAIN_OPT), microbatches=k)
+    want = train_launches(cfg, k)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m = step(state, batches[0])
+    metrics = [{n: float(v) for n, v in m.items()}]
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    walls, per_step = [], []
+    set_launches(0)
+    for i in range(1, TRAIN_STEPS + 1):
+        before = launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batches[i])
+        metrics.append({n: float(v) for n, v in m.items()})  # synchronises
+        walls.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({n: c - before[n] for n, c in launches().items()})
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    for i, n in enumerate(per_step):
+        check(n == want, f"train step {i + 1} launched {n}, want {want}")
+    check(all(math.isfinite(x["loss"]) and math.isfinite(x["grad_norm"])
+              for x in metrics), f"non-finite training metrics: {metrics}")
+    check(int(state.step) == TRAIN_STEPS + 1, "the state's step count")
+    prof = None
+    if profile is not None:
+        held = {}
+
+        def one_step():
+            held["state"], _ = step(held.pop("state"), batches[TRAIN_STEPS + 1])
+        held["state"] = state
+        prof = profile("train step", one_step)
+        state = held["state"]
+    del state, step, model
+    med = statistics.median(walls)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # model FLOPs a token: 6N (the tied embedding counted once: the
+    # unembedding's product) plus the causal attention's products, forward
+    # and backward: 3 x 2 products x 2 hd FLOPs over (S + 1) / 2 keys a head
+    # a layer; the remat recompute is not counted
+    flops_tok = 6 * n_params + 6 * cfg.num_layers * cfg.num_heads * cfg.hd * \
+        (TRAIN_SEQ + 1)
+    tok_s = tokens / (med / 1e3)
+    return {"arch": TRAIN_ARCH, "parameters": n_params, "microbatches": k,
+            "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
+            "init_s": init_s, "warmup_step_ms": warm_ms, "step_ms": walls,
+            "median_step_ms": med, "tokens_per_s": tok_s,
+            "flops_per_token": flops_tok,
+            "bf16_peak_share": tok_s * flops_tok / TENSOR_BF16_OPS_PER_S,
+            "loss": [x["loss"] for x in metrics],
+            "grad_norm": [x["grad_norm"] for x in metrics],
+            "lr": [x["lr"] for x in metrics], "peak_bytes": peak,
+            "launches": counts, "launches_per_step": want, "profile": prof}
+
+
+def phase_train_narrow(dev) -> dict:
+    """Phase 16 at the narrow config (granite-3-2b's TINY with head dim 64,
+    the kernels' smallest): a run with ``ckpt_every=2`` that fails at step
+    4, resumed, ends bitwise equal to an uninterrupted 6-step run (the
+    parameters, masters and moments; in a temporary directory, removed
+    after), with ``torch.use_deterministic_algorithms`` on for it (the
+    embedding lookup's backward, ``index_put_`` with accumulate, adds with
+    atomics otherwise); then 60 steps on one repeated batch lower the loss
+    by more than 1.0 (``tests/test_train.py``'s overfit check)."""
+    from repro_torch.data.pipeline import PipelineConfig, RelationalTokenPipeline
+
+    cfg = get_tiny(TRAIN_ARCH).replace(head_dim=64)
+    model = build_model(cfg, dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+
+    def pipe(seq, seed):
+        return RelationalTokenPipeline(PipelineConfig(
+            seq_len=seq, global_batch=NARROW_BATCH, vocab_size=cfg.vocab_size,
+            seed=seed), device=dev)
+
+    def leaves(state):
+        return {f"{part}.{n}": t.clone() for part, tree in (
+            ("params", state.params), ("master", state.opt.master),
+            ("m", state.opt.m), ("v", state.opt.v)) for n, t in tree.items()}
+
+    ocfg = OptConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    quiet = lambda s: None  # noqa: E731
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ref_state, _ = run(model, pipe(NARROW_SEQ, 5), ocfg,
+                           LoopConfig(total_steps=6, log_every=100), log=quiet)
+        want = leaves(ref_state)
+        with tempfile.TemporaryDirectory() as d:
+            lcfg = LoopConfig(total_steps=6, ckpt_dir=d, ckpt_every=2,
+                              log_every=100)
+            try:
+                run(model, pipe(NARROW_SEQ, 5), ocfg, lcfg, fail_at_step=4,
+                    log=quiet)
+                check(False, "the injected failure at step 4 did not raise")
+            except RuntimeError as e:
+                check("injected failure at step 4" in str(e), str(e))
+            logs = []
+            resumed, _ = run(model, pipe(NARROW_SEQ, 5), ocfg, lcfg,
+                             log=logs.append)
+            check(logs[:1] == ["[resume] from step 4"], f"resume log {logs}")
+            got = leaves(resumed)
+        differ = [n for n in want if not torch.equal(want[n], got[n])]
+        check(not differ and int(resumed.step) == 6,
+              f"crash-resume differs from the uninterrupted run in {differ}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in pipe(32, 7).global_batch(0).items()}
+    step = TS.make_train_step(model, OptConfig(
+        lr=3e-3, warmup_steps=10, total_steps=200, weight_decay=0.0))
+    state = TS.init_train_state(model, 0)
+    losses = []
+    for _ in range(60):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    check(losses[-1] < losses[0] - 1.0,
+          f"60 steps on one batch: loss {losses[0]} -> {losses[-1]}")
+    return {"config": f"{TRAIN_ARCH} TINY, head_dim 64", "resumed_bitwise":
+            len(want), "overfit_first_loss": losses[0],
+            "overfit_last_loss": losses[-1]}
 
 
 # ---------------------------------------------------------------------------
@@ -2523,9 +3063,10 @@ def main() -> None:
         say(f"[7] nvcc {src}: {secs:.1f} s (all sources compiled together)")
     lib = _build.library()
     for r in ptxas_report():
-        hd = re.search(r"<(\d+)>", r["kernel"]) if "flash" in r["kernel"] else None
-        dyn = (f", {lib.repro_flash_attention_smem(int(hd.group(1)))} B dynamic"
-               if hd else "")
+        hd = re.search(r"<(\d+)", r["kernel"]) if "flash" in r["kernel"] else None
+        smem = (lib.repro_flash_attention_bwd_smem if "bwd" in r["kernel"]
+                else lib.repro_flash_attention_smem)
+        dyn = f", {smem(int(hd.group(1)))} B dynamic" if hd else ""
         say(f"[7] ptxas {r['kernel']}: {r.get('registers')} registers, stack "
             f"frame {r.get('stack_frame_bytes')} B, spills "
             f"{r.get('spill_store_bytes')} B stored / {r.get('spill_load_bytes')}"
@@ -2590,6 +3131,70 @@ def main() -> None:
         for kname, ms in pr["top"]:
             say(f"      {ms:8.3f} ms  {kname[:110]}")
     del model, tokens
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    train_cfg = get_config(TRAIN_ARCH)
+    batches, pipe_ms = train_batches(dev, train_cfg, TRAIN_STEPS + 2)
+    train_plain = phase_train_plain(dev, batches[0])
+    torch.cuda.empty_cache()
+    say(f"[16] {TRAIN_PLAIN_LAYERS} layers of {TRAIN_ARCH}'s width, kernels vs "
+        f"plain attention on the card: every gradient leaf within "
+        f"{train_plain['worst_grad_rel_err']:.4g} of its largest (worst "
+        f"{train_plain['worst_grad_leaf']}, tolerance {TRAIN_GRAD_TOL:g}); one "
+        f"step's loss {train_plain['loss']:.6f} vs {train_plain['plain_loss']:.6f}"
+        f", grad norm {train_plain['grad_norm']:.5f} vs "
+        f"{train_plain['plain_grad_norm']:.5f}")
+    narrow = phase_train_narrow(dev)
+    torch.cuda.empty_cache()
+    say(f"[16] {narrow['config']}: crash at step 4 and resume from the step-4 "
+        f"checkpoint = the uninterrupted 6 steps, all {narrow['resumed_bitwise']}"
+        f" parameter, master and moment tensors bit for bit; 60 steps on one "
+        f"batch: loss {narrow['overfit_first_loss']:.4f} -> "
+        f"{narrow['overfit_last_loss']:.4f}")
+    train = phase_train(dev, batches, profiled)
+    del batches
+    torch.cuda.empty_cache()
+    say(f"[16] {TRAIN_ARCH} at full width and depth: {train['parameters']} "
+        f"parameters drawn in {train['init_s']:.1f} s; {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens a step in {train['microbatches']} microbatches; "
+        f"warm-up step {train['warmup_step_ms']:.1f} ms, then "
+        f"{[round(x, 1) for x in train['step_ms']]} ms: median "
+        f"{train['median_step_ms']:.1f} ms, {train['tokens_per_s']:.0f} tokens/s, "
+        f"{100 * train['bf16_peak_share']:.1f}% of the dense bf16 peak "
+        f"({train['flops_per_token'] / 1e9:.2f} GFLOP a token), peak "
+        f"{train['peak_bytes'] / 2**30:.2f} GiB on {card}")
+    say(f"[16] loss {[round(x, 4) for x in train['loss']]}, grad norm "
+        f"{[round(x, 4) for x in train['grad_norm']]}; the first loss "
+        f"{train['loss'][0]:.4f} beside ln({train_cfg.padded_vocab}) = "
+        f"{math.log(train_cfg.padded_vocab):.4f} and the {TRAIN_PLAIN_LAYERS}-"
+        f"layer plain run's {train_plain['plain_loss']:.4f}")
+    say(f"[16] launches a step {train['launches_per_step']['flash_attention_lse']}"
+        f" LSE forwards + {train['launches_per_step']['flash_attention_bwd']} "
+        f"backwards (expected: 2 x {train_cfg.num_layers} layers x "
+        f"{train['microbatches']} microbatches with remat, {train_cfg.num_layers}"
+        f" x {train['microbatches']}), in all {train['launches']}")
+    say(f"[16] pipeline ms a batch {[round(x, 1) for x in pipe_ms]} (median "
+        f"{statistics.median(pipe_ms):.1f}) against a step's "
+        f"{train['median_step_ms']:.1f} ms")
+    pr = train["profile"]
+    say(f"[16] one profiled step: wall {pr['wall_ms']:.1f} ms, GPU kernels "
+        f"{pr['device_ms']:.1f} ms, busy share {pr['busy_share']:.2f}, flash "
+        f"{pr['ported_kernels_ms']:.2f} ms, {pr['host_ops']} torch ops "
+        f"dispatched by the host, on {card}")
+    for kname, ms in pr["top"]:
+        say(f"      {ms:8.2f} ms  {kname[:110]}")
+    say(f"[16] training phase {time.perf_counter() - t0:.1f} s")
+    for name in ("flash_attention_lse", "flash_attention_bwd"):
+        t = times[name]
+        extra = (f"serving entry {t['serving_entry_ms']:.4f} ms, library "
+                 f"within {t['library_max_abs_err']:.3g} of the plain version"
+                 if name == "flash_attention_lse"
+                 else f"{t['tflops']:.1f} TFLOP/s, worst tile within "
+                 f"{t['tile_rel_err']:.3g} of its plain norm (library "
+                 f"{t['library_tile_rel_err']:.3g})")
+        say(f"[7] {name} at B 2, S {TRAIN_SEQ}, H {train_cfg.num_heads}, KV "
+            f"{train_cfg.num_kv_heads}, hd {train_cfg.hd}: {extra}, on {card}")
 
     kernels = []
     for name, (fn, source, replaces) in KERNELS.items():
@@ -2597,7 +3202,8 @@ def main() -> None:
         say(f"[7] {name}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, library "
             f"{t['library_ms'] if t['library_ms'] is None else round(t['library_ms'], 4)}"
             f", bound {t['bound_ms']:.5f} by {t['bound_by']}) on {card}")
-        n = lm_counts[name] if name == "flash_attention" else counts[name]
+        n = (lm_counts[name] if name == "flash_attention" else
+             train["launches"][name] if name in LM_KERNELS else counts[name])
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": t["max_abs_err"],
@@ -2640,6 +3246,12 @@ def main() -> None:
                 "host_ops", "top")}
     say(json.dumps({"pipeline": {str(k): v for k, v in pipelines.items()},
                     "harnesses": harnesses, "card": card}))
+    train["profile"] = {k: train["profile"][k] for k in (
+        "wall_ms", "device_ms", "busy_share", "ported_kernels_ms", "host_ops",
+        "top")}
+    say(json.dumps({"train": {**train, "pipeline_ms": pipe_ms,
+                              "plain": train_plain, "narrow": narrow,
+                              "card": card}}))
     say(json.dumps({"kernels": kernels}))
     say(nvidia_smi())
     say(json.dumps({"ok": True, "device": {

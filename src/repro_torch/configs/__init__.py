@@ -25,6 +25,21 @@ ARCH_IDS = [
 
 PORTED = ("llama3-8b", "granite-3-2b")
 
+# grad-accumulation microbatch counts for the train_4k cell, copied from the
+# reference (its per-arch memory budget on a 16 GB v5e chip)
+TRAIN_MICROBATCHES = {
+    "internvl2-76b": 16,
+    "dbrx-132b": 16,
+    "stablelm-12b": 8,
+    "llama3-8b": 8,
+    "minicpm3-4b": 8,
+    "granite-3-2b": 4,
+    "zamba2-1.2b": 4,
+    "qwen2-moe-a2.7b": 4,
+    "xlstm-1.3b": 4,
+    "whisper-base": 1,
+}
+
 
 def _module(arch: str):
     if arch not in ARCH_IDS:
@@ -43,3 +58,7 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_tiny(arch: str) -> ModelConfig:
     return _module(arch).TINY
+
+
+def train_microbatches(arch: str) -> int:
+    return TRAIN_MICROBATCHES.get(arch, 1)

@@ -57,6 +57,10 @@
 // every time.
 // Design, fp32 (tests only): FMA loops over synchronously staged 64-row
 // tiles, 128 threads a 64-row query tile; see flash_fwd_f32.
+// Training: a second bf16 instance (the LSE template flag) also writes each
+// row's natural-log sum of exp(scaled scores), (m + log2 l) ln 2, to lse (B,
+// H, S) fp32, for the backward in flash_attention_bwd.cu; the fp32 kernel
+// writes it when given a pointer. The serving instance is unchanged.
 // Later work: ping-pong scheduling of the two consumers, and skipping the
 // half of the diagonal tile that the first consumer's rows never see.
 #include <cuda.h>  // CUtensorMap and the tensor-map enums (no libcuda link)
@@ -68,6 +72,7 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr unsigned kFull = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
@@ -371,13 +376,16 @@ __device__ __forceinline__ Work work_tile(int w, int S, int H, int B, int causal
   return t;
 }
 
-template <int HD>
+// LSE: the training instance, which also writes each row's natural-log
+// sum of exp(scaled scores) to lse (B, H, S) fp32; the serving instance
+// (LSE false) compiles without that store (lse unused).
+template <int HD, bool LSE>
 __global__ void __launch_bounds__(kFlashThreads, 1)
     flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
                    const __grid_constant__ CUtensorMap to, int B, int S, int H,
-                   int KV, float scale, int causal) {
+                   int KV, float scale, int causal, float* __restrict__ lse) {
   using L = Layout<HD>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -553,6 +561,15 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
       l[i] += __shfl_xor_sync(kFull, l[i], 2);
     }
     const float d0 = 1.f / fmaxf(l[0], 1e-30f), d1 = 1.f / fmaxf(l[1], 1e-30f);
+    if constexpr (LSE) {
+      // sum_j exp(scale s_j) = 2^m l: the log-sum-exp of rows r0, r0 + 8 in
+      // natural units, once a quad
+      if ((lane & 3) == 0) {
+        float* lrow = lse + ((long long)t.b * H + t.h) * S;
+        if (row0 < S) lrow[row0] = (m[0] + log2f(l[0])) * kLn2;
+        if (row0 + 8 < S) lrow[row0 + 8] = (m[1] + log2f(l[1])) * kLn2;
+      }
+    }
     // epilogue: this warpgroup's 64 rows into the staging tile in TMA's
     // 128-byte swizzled layout (16-byte chunk k of row r at chunk k ^ (r % 8):
     // a warp's 8 rows land on 32 distinct banks), then one TMA store a box.
@@ -628,14 +645,14 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int hd
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                        int S, int H, int KV, float scale, int causal,
+template <int HD, bool LSE>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
+                        int B, int S, int H, int KV, float scale, int causal,
                         cudaStream_t stream) {
   // the shared-memory opt-in above the 48 KB default is a property of the
   // function, so each instance sets it once
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_bf16<HD, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Layout<HD>::kSmem);
   if (attr != cudaSuccess) return attr;
   CUtensorMap tq, tk, tv, to;
@@ -652,8 +669,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
   }();
   const long long works = (long long)((S + kTile - 1) / kTile) * H * B;
   const int grid = (int)(works < sms ? works : sms);
-  flash_fwd_bf16<HD><<<grid, kFlashThreads, Layout<HD>::kSmem, stream>>>(
-      tq, tk, tv, to, B, S, H, KV, scale, causal);
+  flash_fwd_bf16<HD, LSE><<<grid, kFlashThreads, Layout<HD>::kSmem, stream>>>(
+      tq, tk, tv, to, B, S, H, KV, scale, causal, lse);
   return cudaGetLastError();
 }
 
@@ -685,7 +702,7 @@ template <int HD>
 __global__ void __launch_bounds__(kF32Threads)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o, int S, int H,
-                  int KV, float scale, int causal) {
+                  int KV, float scale, int causal, float* __restrict__ lse) {
   constexpr int LD = HD + 1;
   constexpr int LDP = kF32Rows + 1;
   extern __shared__ float smf[];
@@ -765,6 +782,8 @@ __global__ void __launch_bounds__(kF32Threads)
   }
   l += __shfl_xor_sync(kFull, l, 1);
   const float den = fmaxf(l, 1e-30f);
+  if (lse != nullptr && par == 0 && q0 + r < S)
+    lse[((long long)b * H + h) * S + q0 + r] = m + logf(l);
   if (q0 + r < S) {
     float* orow = ob + (long long)(q0 + r) * q_stride + par;
 #pragma unroll
@@ -773,8 +792,8 @@ __global__ void __launch_bounds__(kF32Threads)
 }
 
 template <int HD>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-                       int S, int H, int KV, float scale, int causal,
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
+                       int B, int S, int H, int KV, float scale, int causal,
                        cudaStream_t stream) {
   constexpr size_t smem =
       ((size_t)3 * kF32Rows * (HD + 1) + (size_t)kF32Rows * (kF32Rows + 1)) *
@@ -785,34 +804,37 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
   const dim3 grid((S + kF32Rows - 1) / kF32Rows, H, B);
   flash_fwd_f32<HD><<<grid, kF32Threads, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, S, H, KV, scale,
-      causal);
+      causal, lse);
   return cudaGetLastError();
 }
 
 template <int HD>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B,
-                     int S, int H, int KV, float scale, int causal, int is_bf16,
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
+                     int B, int S, int H, int KV, float scale, int causal, int is_bf16,
                      cudaStream_t stream) {
-  if (is_bf16) return launch_bf16<HD>(q, k, v, o, B, S, H, KV, scale, causal, stream);
-  return launch_f32<HD>(q, k, v, o, B, S, H, KV, scale, causal, stream);
+  if (!is_bf16) return launch_f32<HD>(q, k, v, o, lse, B, S, H, KV, scale, causal, stream);
+  if (lse != nullptr)
+    return launch_bf16<HD, true>(q, k, v, o, lse, B, S, H, KV, scale, causal, stream);
+  return launch_bf16<HD, false>(q, k, v, o, nullptr, B, S, H, KV, scale, causal, stream);
 }
 
 }  // namespace
 
 // q (B, S, H, hd), k and v (B, S, KV, hd), out (B, S, H, hd): contiguous,
 // 16-byte aligned, bf16 (is_bf16) or fp32; hd 64 or 128; H % KV == 0;
-// B, S >= 1. scale is 1/sqrt(hd). Returns cudaGetLastError() (or
-// cudaErrorInvalidValue for an hd without an instance, or when a tensor map
-// cannot be made).
+// B, S >= 1. scale is 1/sqrt(hd). lse: null (serving), or (B, H, S) fp32
+// that receives each row's log-sum-exp of the scaled scores (training).
+// Returns cudaGetLastError() (or cudaErrorInvalidValue for an hd without an
+// instance, or when a tensor map cannot be made).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
-                                     void* out, int B, int S, int H, int KV, int hd,
-                                     float scale, int causal, int is_bf16,
+                                     void* out, float* lse, int B, int S, int H, int KV,
+                                     int hd, float scale, int causal, int is_bf16,
                                      void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (hd == 64)
-    return (int)dispatch<64>(q, k, v, out, B, S, H, KV, scale, causal, is_bf16, s);
+    return (int)dispatch<64>(q, k, v, out, lse, B, S, H, KV, scale, causal, is_bf16, s);
   if (hd == 128)
-    return (int)dispatch<128>(q, k, v, out, B, S, H, KV, scale, causal, is_bf16, s);
+    return (int)dispatch<128>(q, k, v, out, lse, B, S, H, KV, scale, causal, is_bf16, s);
   return (int)cudaErrorInvalidValue;
 }
 

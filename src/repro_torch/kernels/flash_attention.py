@@ -1,4 +1,5 @@
-"""GQA flash attention forward: the wrapper of ``csrc/flash_attention.cu``.
+"""GQA flash attention: the wrappers of ``csrc/flash_attention.cu`` (the
+forward) and ``csrc/flash_attention_bwd.cu`` (its gradient).
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention`` (the Pallas
 ``_flash_kernel``): every prefill's self-attention on the serving path
@@ -11,6 +12,13 @@ consumer warpgroups run ``wgmma`` products (q k^T from shared memory, p v
 with p from registers). fp32 (tests only) runs FMA loops over 64-row
 tiles. The kernel is bound by operations at the serving shape. No atomics:
 the same inputs give the same bits on every run. See the source's note.
+
+Training: the TPU kernel has no gradient (the reference trains through
+autodiff of its einsum attention). :func:`flash_attention_lse` is the
+forward's training instance, which also writes each row's log-sum-exp;
+:func:`flash_attention_bwd` is the hand-written gradient from it (a
+``D = rowsum(dO o)`` pass, then dK/dV and dQ passes with ``mma.sync``,
+deterministic); :class:`FlashAttentionFn` joins the two under autograd.
 """
 from __future__ import annotations
 
@@ -36,39 +44,145 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     64 or 128 (``TypeError`` otherwise), contiguous 16-byte-aligned tensors,
     and any S >= 1.
     """
-    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    b, s, h, hd = q.shape
-    if (k.shape[0], k.shape[1], k.shape[3]) != (b, s, hd) or h % k.shape[2]:
-        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit q "
-                         f"{tuple(q.shape)} (self-attention, H % KV == 0)")
+    _check_shapes("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal)
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError(f"flash_attention: unsupported devices {q.device}, "
-                         f"{k.device}, {v.device}")
-    if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention takes bf16 or fp32 q, k, v of one "
-                        f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if hd not in KERNEL_HEAD_DIMS:
-        raise TypeError(f"flash_attention has kernels for head dims "
-                        f"{KERNEL_HEAD_DIMS}, got {hd}")
-    tensors = (q, k, v)
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
-        raise ValueError("flash_attention takes contiguous, 16-byte-aligned "
-                         "tensors")
-    from repro_torch.kernels._build import check, library, stream_ptr
-
+    _check_card("flash_attention", q, k, v)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    check("flash_attention", library().repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h,
-        k.shape[2], hd, 1.0 / math.sqrt(hd), int(causal),
-        int(q.dtype == torch.bfloat16), stream_ptr(q)))
+    _forward(out, None, q, k, v, causal)
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The training forward: :func:`flash_attention`'s output (the same bits
+    as the serving entry's) and each row's log-sum-exp of the scaled,
+    masked scores, fp32 (B, H, S). A CPU tensor takes the plain version
+    (:func:`ref.attention_lse_ref`); a CUDA tensor launches the kernel's
+    LSE-writing instance (counted in ``flash_attention_lse.launches``) or
+    raises, on the inputs :func:`flash_attention` takes."""
+    _check_shapes("flash_attention_lse", q, k, v)
+    if q.device.type == "cpu":
+        return ref.attention_lse_ref(q, k, v, causal=causal)
+    _check_card("flash_attention_lse", q, k, v)
+    b, s, h, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    _forward(out, lse, q, k, v, causal)
+    flash_attention_lse.launches += 1
+    return out, lse
+
+
+flash_attention_lse.launches = 0
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv), the gradient of :func:`flash_attention`'s function for
+    the output gradient ``dout`` (B, S, H, hd), from the training forward's
+    ``out`` and ``lse``; dk and dv sum over each KV head's query heads. A
+    CPU tensor takes the plain version (:func:`ref.attention_bwd_ref`,
+    autograd through ``attention_ref``). A CUDA tensor launches the kernels
+    (three launches, counted once in ``flash_attention_bwd.launches``) or
+    raises, on the inputs :func:`flash_attention` takes, with ``out`` and
+    ``dout`` shaped and typed as q and ``lse`` (B, H, S) fp32."""
+    _check_shapes("flash_attention_bwd", q, k, v)
+    b, s, h, hd = q.shape
+    if out.shape != q.shape or dout.shape != q.shape or \
+            lse.shape != (b, h, s):
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)}, dout "
+                         f"{tuple(dout.shape)}, lse {tuple(lse.shape)} do not "
+                         f"fit q {tuple(q.shape)}")
+    if q.device.type == "cpu":
+        return ref.attention_bwd_ref(q, k, v, dout, causal=causal)
+    _check_card("flash_attention_bwd", q, k, v, out, dout)
+    if lse.dtype != torch.float32 or lse.device != q.device or \
+            not lse.is_contiguous():
+        raise TypeError("flash_attention_bwd takes a contiguous fp32 lse on "
+                        "q's device")
+    from repro_torch.kernels._build import check, library, stream_ptr
+
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    check("flash_attention_bwd", library().repro_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, s, h, k.shape[2], hd,
+        1.0 / math.sqrt(hd), int(causal), int(q.dtype == torch.bfloat16),
+        stream_ptr(q)))
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Self-attention with a gradient: :func:`flash_attention_lse` forward,
+    :func:`flash_attention_bwd` backward. ``apply(q, k, v, causal)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        out, lse = flash_attention_lse(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.contiguous(), causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def _check_shapes(name: str, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> None:
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    b, s, h, hd = q.shape
+    if (k.shape[0], k.shape[1], k.shape[3]) != (b, s, hd) or h % k.shape[2]:
+        raise ValueError(f"{name}: k/v {tuple(k.shape)} do not fit q "
+                         f"{tuple(q.shape)} (self-attention, H % KV == 0)")
+
+
+def _check_card(name: str, q: torch.Tensor, *others: torch.Tensor) -> None:
+    """What the kernels take: one CUDA device, bf16 or fp32 of one dtype,
+    head dim 64 or 128, contiguous 16-byte-aligned tensors."""
+    if q.device.type != "cuda" or any(t.device != q.device for t in others):
+        raise ValueError(f"{name}: unsupported devices "
+                         f"{[str(t.device) for t in (q, *others)]}")
+    if q.dtype not in KERNEL_DTYPES or any(t.dtype != q.dtype for t in others):
+        raise TypeError(f"{name} takes bf16 or fp32 tensors of one dtype, got "
+                        f"{[t.dtype for t in (q, *others)]}")
+    if q.shape[3] not in KERNEL_HEAD_DIMS:
+        raise TypeError(f"{name} has kernels for head dims {KERNEL_HEAD_DIMS}, "
+                        f"got {q.shape[3]}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in (q, *others)):
+        raise ValueError(f"{name} takes contiguous, 16-byte-aligned tensors")
+
+
+def _forward(out, lse, q, k, v, causal: bool) -> None:
+    from repro_torch.kernels._build import check, library, stream_ptr
+
+    b, s, h, hd = q.shape
+    check("flash_attention", library().repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, s, h, k.shape[2], hd,
+        1.0 / math.sqrt(hd), int(causal), int(q.dtype == torch.bfloat16),
+        stream_ptr(q)))

@@ -231,9 +231,20 @@ def bitonic_sort_permutation(keys: torch.Tensor,
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True) -> torch.Tensor:
-    """Self-attention (S == T) for the models' prefill: the flash kernel,
-    or its plain version under :func:`oracle_scope` on whatever device the
-    tensors are. q (B, S, H, hd); k, v (B, S, KV, hd)."""
+    """Self-attention (S == T) for the models' prefill and training: the
+    flash kernel, or its plain version under :func:`oracle_scope` on
+    whatever device the tensors are. q (B, S, H, hd); k, v (B, S, KV, hd).
+
+    When autograd records through an input (training), a CUDA tensor goes
+    through :class:`~repro_torch.kernels.flash_attention.FlashAttentionFn`
+    (the LSE-writing forward, the hand-written backward); the plain version
+    and a CPU tensor go through ``attention_ref``, differentiated by
+    autograd. Otherwise (serving) the serving forward."""
     if oracle_only():
         return ref.attention_ref(q, k, v, causal=causal)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if q.device.type == "cpu":
+            return ref.attention_ref(q, k, v, causal=causal)
+        return flash_attention.FlashAttentionFn.apply(q, k, v, causal)
     return flash_attention.flash_attention(q, k, v, causal=causal)

@@ -274,3 +274,32 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkh->bskgh", probs, v.float())
     return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`attention_ref`'s output and each row's log-sum-exp of the
+    scaled, masked scores, (B, H, S) in fp32 (fp64 for fp64 inputs): the
+    training forward's function."""
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    dt = torch.promote_types(q.dtype, torch.float32)
+    scores = torch.einsum("bskgh,btkh->bkgst", q.reshape(b, s, kv, h // kv, hd)
+                          .to(dt), k.to(dt)) / math.sqrt(hd)
+    if causal:
+        mask = (torch.arange(t, device=q.device)[None, :]
+                <= torch.arange(s, device=q.device)[:, None])
+        scores = scores.masked_fill(~mask, float("-inf"))
+    lse = torch.logsumexp(scores, dim=-1).reshape(b, h, s)
+    return attention_ref(q, k, v, causal=causal), lse
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      dout: torch.Tensor, *, causal: bool = True
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv): autograd through :func:`attention_ref` (fp32 inside)
+    for the output gradient ``dout``, in the inputs' dtypes."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        out = attention_ref(*leaves, causal=causal)
+        return torch.autograd.grad(out, leaves, dout)

@@ -1,0 +1,73 @@
+"""Training launcher of the port: ``python -m repro_torch.launch.train
+--arch <id> [...]`` (``repro/launch/train.py``).
+
+Runs the end-to-end loop, the relational token pipeline feeding the train
+step, on one device: ``cuda`` unless ``--device`` asks for another (and
+``cuda`` without a card raises).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
+        --tiny --steps 3 --batch 8 --seq 64 --device cpu
+
+The multi-device flags (``--devices``, ``--model-axis``, ``--pod-axis``,
+``--compress-pod``) need the port's mesh, which ROADMAP.md keeps queued:
+asking for more than one device raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from repro_torch.configs import get_config, get_tiny
+from repro_torch.data.pipeline import PipelineConfig, RelationalTokenPipeline
+from repro_torch.models.factory import build_model
+from repro_torch.train.loop import LoopConfig, run
+from repro_torch.train.optimizer import OptConfig
+from repro_torch.utils import resolve_device
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--tiny", action="store_true",
+                    help="reduced config (CPU-scale)")
+    ap.add_argument("--devices", type=int, default=0)
+    ap.add_argument("--model-axis", type=int, default=1)
+    ap.add_argument("--pod-axis", type=int, default=1)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--compress-pod", action="store_true")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    if args.devices > 1 or args.model_axis != 1 or args.pod_axis != 1 or \
+            args.compress_pod:
+        raise NotImplementedError(
+            "--devices, --model-axis, --pod-axis and --compress-pod need the "
+            "port's mesh; ROADMAP.md queue 1 item 12.7 keeps them queued")
+    cfg = get_tiny(args.arch) if args.tiny else get_config(args.arch)
+    dev = resolve_device(args.device)
+    model = build_model(cfg, dev, generator=torch.Generator(device=dev)
+                        .manual_seed(args.seed))
+    pipe = RelationalTokenPipeline(PipelineConfig(
+        seq_len=args.seq, global_batch=args.batch,
+        vocab_size=cfg.vocab_size, seed=args.seed), device=dev)
+    ocfg = OptConfig(lr=args.lr, warmup_steps=min(100, args.steps // 10 + 1),
+                     total_steps=args.steps)
+    lcfg = LoopConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
+                      ckpt_every=args.ckpt_every, log_every=10,
+                      microbatches=args.microbatches,
+                      compress_pod=args.compress_pod, seed=args.seed)
+    _, history = run(model, pipe, ocfg, lcfg)
+    if history:
+        print(f"final loss: {history[-1]['loss']:.4f}")
+
+
+if __name__ == "__main__":
+    main()

@@ -4,10 +4,11 @@ One dataclass covers every architecture family of the JAX package; the
 port builds only the dense GQA family so far, but keeps every field so a
 config copies over value for value. The mesh and sharding helpers of the
 reference (``ShardingRules``, partition specs, ``fsdp_extend``, ``cast``)
-are multi-device machinery and are not carried over: the port serves on
-one card. The compile knobs (``scan_layers``, ``remat``, ``fsdp``,
-``layout``, the shuffle and seq-shard flags, ``time_unroll``) are kept as
-fields and ignored: PyTorch runs eagerly, layer by layer.
+are multi-device machinery and are not carried over: the port runs on
+one card. ``remat`` applies in training (``models/transformer.py``); the
+other compile knobs (``scan_layers``, ``fsdp``, ``layout``, the shuffle and
+seq-shard flags, ``time_unroll``) are kept as fields and ignored: PyTorch
+runs eagerly, layer by layer.
 """
 from __future__ import annotations
 
@@ -67,7 +68,7 @@ class ModelConfig:
     dtype: Any = torch.bfloat16         # activation/compute dtype
     param_dtype: Any = torch.bfloat16   # parameter dtype
 
-    # --- the reference's compile/sharding knobs (kept, ignored here) -------------
+    # --- the reference's compile/sharding knobs (kept; only remat is read) ------
     scan_layers: bool = True
     remat: str = "full"
     fsdp: bool = False

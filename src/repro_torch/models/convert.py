@@ -6,6 +6,12 @@ L dim) and returns the state dict of
 :class:`~repro_torch.models.transformer.Transformer`, unstacked per layer,
 in ``cfg.param_dtype``. Loaded with ``load_state_dict``, the port computes
 the same function as the reference on the same weights.
+
+``train_state_from_jax`` carries the reference's whole ``TrainState``
+(numpy leaves) across the same way: the parameters, the optimizer's fp32
+masters and moments unstacked per layer, ``count`` and ``step``, as a
+:class:`~repro_torch.train.steps.TrainState` of CPU tensors that
+``train.steps.bind_state(model, state)`` puts on the model.
 """
 from __future__ import annotations
 
@@ -16,11 +22,10 @@ from repro_torch.models.common import ModelConfig
 
 
 def _tensor(a, dtype) -> torch.Tensor:
-    a = np.asarray(a)
+    a = np.array(a, order="C")  # a copy; (ascontiguousarray makes 0-d 1-d)
     if a.dtype.name == "bfloat16":  # ml_dtypes' bf16: same bits as torch's
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
-        return t.view(torch.bfloat16).to(dtype)
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(dtype)
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(dtype)
+    return torch.from_numpy(a).to(dtype)
 
 
 def params_from_jax(tree, cfg: ModelConfig) -> dict[str, torch.Tensor]:
@@ -37,3 +42,22 @@ def params_from_jax(tree, cfg: ModelConfig) -> dict[str, torch.Tensor]:
             for name, leaf in layers[group].items():
                 sd[f"layers.{i}.{group}.{name}"] = _tensor(leaf[i], dt)
     return sd
+
+
+def train_state_from_jax(tree, cfg: ModelConfig):
+    """The reference's ``TrainState`` with numpy leaves
+    (``jax.tree.map(np.asarray, state)``) -> the port's, CPU tensors keyed by
+    the module's parameter names. Pod compression's ``ef`` is not carried
+    (the port has no pod mesh)."""
+    from repro_torch.train.optimizer import OptState
+    from repro_torch.train.steps import TrainState
+
+    if tree.ef is not None:
+        raise NotImplementedError("a TrainState with pod-compression residuals")
+    f32 = cfg.replace(param_dtype=torch.float32)
+    opt = OptState(master=params_from_jax(tree.opt.master, f32),
+                   m=params_from_jax(tree.opt.m, f32),
+                   v=params_from_jax(tree.opt.v, f32),
+                   count=_tensor(tree.opt.count, torch.int32))
+    return TrainState(params=params_from_jax(tree.params, cfg), opt=opt,
+                      step=_tensor(tree.step, torch.int32), ef=None)

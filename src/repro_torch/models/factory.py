@@ -2,10 +2,10 @@
 
 ``build_model(cfg, device)`` returns a :class:`Model`: an ``nn.Module``
 holding a :class:`~repro_torch.models.transformer.Transformer` drawn from
-a ``torch.Generator``, with ``forward``, ``init_cache`` and
+a ``torch.Generator``, with ``loss_fn``, ``forward``, ``init_cache`` and
 ``decode_step``. The parameters live in the module, so the step functions
 take none (the reference passes its parameter tree to every call). Left for
-later: ``loss_fn`` (the training slice) and the other families.
+later: the other families (and with MoE, the loss's aux term).
 """
 from __future__ import annotations
 
@@ -26,6 +26,35 @@ class Model(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.lm.embed.device
+
+    def loss_fn(self, batch: dict[str, torch.Tensor]):
+        """(loss, metrics): next-token cross-entropy over the padded vocab,
+        weighted by the pipeline's per-sample ``weight``
+        (``repro/models/factory.py:43-79``, dense family).
+
+        Label 0 is padding: ``mask = (labels != 0) * weight``; the loss is
+        ``sum((lse - logit[label]) * mask) / max(sum(mask), 1)``, in fp32.
+        The reference contracts a one-hot (a sharding device); a gather of
+        the label's logit is the same function. Metrics: ``loss``,
+        ``tokens`` (the sum of the mask) and the forward's aux (zero for
+        the dense family), as the reference's."""
+        if batch.get("embeds") is not None:
+            raise NotImplementedError("loss with embeds (vlm) is not ported")
+        tokens = batch["tokens"]
+        logits, _, aux = self.forward(tokens=tokens, mode="causal")
+        lg = logits[:, :-1].float()
+        labels = tokens[:, 1:].long()
+        mask = (labels != 0).float()
+        if "weight" in batch:
+            mask = mask * batch["weight"][:, None].float()
+        lse = torch.logsumexp(lg, dim=-1)
+        ll = torch.gather(lg, -1, labels[..., None])[..., 0]
+        tokens_n = mask.sum()
+        loss = ((lse - ll) * mask).sum() / torch.clamp(tokens_n, min=1.0)
+        metrics = {"loss": loss, "tokens": tokens_n, **{
+            k: torch.full((), v, dtype=torch.float32, device=loss.device)
+            for k, v in aux.items()}}
+        return loss, metrics
 
     def forward(self, *, tokens: torch.Tensor, mode: str = "causal",
                 cache=None, pos: int | None = None):

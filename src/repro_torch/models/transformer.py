@@ -7,24 +7,42 @@ The reference scans stacked layer parameters under ``jit``; here
 ``Transformer.forward`` (the reference's ``lm_forward``) is a Python loop
 over ``Block`` modules, each holding its own layer's tensors. The cache
 stays stacked on L, as the reference's, and each block writes its slice in
-place. Left for later: MoE, MLA, the vision front.
+place. While autograd records (training), ``cfg.remat`` applies as the
+reference's ``_remat``: ``"full"`` runs each block under
+``torch.utils.checkpoint`` (its input saved, its forward run again in the
+backward), ``"none"`` plainly. Left for later: MoE, MLA, the vision front,
+and the ``"dots"`` policy (matmul outputs saved).
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as NN
 from repro_torch.models.common import ModelConfig
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
-    # serving only: no autograd graph is built through the weights
+    # no autograd graph is built through the weights unless a train step
+    # (train/steps.py) makes them trainable for its backward
     return nn.Parameter(t, requires_grad=False)
 
 
 def _frozen_dict(d: dict[str, torch.Tensor]) -> nn.ParameterDict:
     return nn.ParameterDict({k: _frozen(v) for k, v in d.items()})
+
+
+def _remat_contexts():
+    """``checkpoint``'s (forward, recompute) contexts. The recompute runs
+    inside the backward, for CUDA tensors on autograd's device thread,
+    where the caller's thread-local ``oracle_scope()`` is not set: it is
+    carried over, so the recompute takes the forward's attention path."""
+    again = kops.oracle_scope() if kops.oracle_only() else contextlib.nullcontext()
+    return contextlib.nullcontext(), again
 
 
 class Block(nn.Module):
@@ -85,10 +103,20 @@ class Transformer(nn.Module):
         start = pos if mode == "decode" else 0
         positions = torch.arange(s, device=x.device) + start
         rope = NN.rope_tables(positions, cfg.hd, cfg.rope_theta)
+        remat = cache is None and torch.is_grad_enabled() and x.requires_grad
+        if remat and cfg.remat not in ("none", "full"):
+            raise NotImplementedError(f"remat={cfg.remat!r}: the port has "
+                                      "'full' and 'none'")
         for i, block in enumerate(self.layers):
             layer_cache = None if cache is None else \
                 {"k": cache["k"][i], "v": cache["v"][i]}
-            x, _ = block(x, rope=rope, mode=mode, cache=layer_cache, pos=pos)
+            if remat and cfg.remat == "full":
+                x, _ = checkpoint(block, x, rope=rope, mode=mode,
+                                  use_reentrant=False,
+                                  context_fn=_remat_contexts)
+            else:
+                x, _ = block(x, rope=rope, mode=mode, cache=layer_cache,
+                             pos=pos)
         x = NN.rms_norm(x, self.final_norm, cfg.norm_eps)
         head = self.embed if cfg.tie_embeddings else self.lm_head
         logits = NN.unembed_fwd(head, x, cfg)

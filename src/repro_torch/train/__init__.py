@@ -1,1 +1,2 @@
-"""Serving steps (prefill, decode) of the port; training comes later."""
+"""Training (optimizer, train step, loop, checkpoints) and the serving
+steps (prefill, decode) of the port."""

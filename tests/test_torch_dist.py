@@ -513,7 +513,8 @@ def test_chip_smoke_main_path_launch_counts_rehearse_on_the_cpu(monkeypatch):
     # one 2048-row tile, as at the path's 2**22 rows
     tabs = smoke.make_tables(ctx, 4096, cpu)
     _, _, counts, _ = smoke.phase_main_path(ctx, tabs)
-    assert counts == {**smoke.MAIN_PATH_LAUNCHES, "flash_attention": 0}
+    assert counts == {**smoke.MAIN_PATH_LAUNCHES,
+                      **{name: 0 for name in smoke.LM_KERNELS}}
     assert counts["bucket_histogram"] == 64 and counts["hash32_partition"] == 48
     monkeypatch.setitem(smoke.MAIN_PATH_LAUNCHES, "bucket_histogram", 112)
     with pytest.raises(smoke.CheckFailed, match="bucket_histogram"):
