@@ -63,12 +63,16 @@ Phases (any failed check raises, and the script exits nonzero):
    replaced (``replaced_chain_ms``). The bitonic bounds take the largest of
    bytes, one SM's operations and the network's dependent chain, timed by
    a one-warp probe in this run (``bitonic_bound``). Before them, each
-   instance of the kernels redesigned in the last three rounds
-   (flash_fwd_bf16, seg_fill, seg_pass1, seg_pass2, scan_lookback,
-   hist_regs, hash32_partition_kernel, bitonic_tile, bitonic_perm) as the
-   build's ``-Xptxas -v`` reported it: registers, stack frame, spill bytes,
-   static shared memory (flash's dynamic shared memory from the library),
-   and each source's nvcc seconds.
+   instance of the kernels redesigned in the last rounds (flash_fwd_bf16
+   and the backward's flash_bwd_dkdv_bf16 and flash_bwd_dq_bf16 at every
+   head dim, seg_fill, seg_pass1, seg_pass2, scan_lookback, hist_regs,
+   hash32_partition_kernel, bitonic_tile, bitonic_perm) as the build's
+   ``-Xptxas -v`` reported it: registers, stack frame, spill bytes, static
+   shared memory (flash's dynamic shared memory from the library), and
+   each source's nvcc seconds. The flash entries also at their other head
+   dims (``flash_dims_timing``, named ``<entry>@hd160`` and ``@hd16``):
+   hd 160 at phase 17's prefill layer (B 4, S 1024, H 32, KV 8) and
+   training microbatch (B 1), hd 16 at B 4, S 1024, H 32, KV 8.
 
 11. Statistics and the lazy plan, on the same tables (run after phase 6,
    before they are freed): ``ctx.analyze`` of the four tables (every
@@ -178,22 +182,42 @@ Then, with the serving model freed, the training path:
    losses; at 2 layers of the same width, every gradient leaf and one
    step's loss and grad norm against ``oracle_scope()`` (plain attention
    on the card) within ``TRAIN_GRAD_TOL`` / ``TRAIN_LOSS_TOL`` /
-   ``TRAIN_GNORM_TOL``; at the narrow config (granite-3-2b's TINY with head
-   dim 64) a run that crashes at step 4 with checkpoints every 2 steps,
+   ``TRAIN_GNORM_TOL``; at the narrow config (granite-3-2b's TINY, head
+   dim 16) a run that crashes at step 4 with checkpoints every 2 steps,
    resumed, bitwise equal to 6 uninterrupted steps (deterministic
    algorithms on for it), and 60 steps on one batch lowering the loss by
    more than 1.0.
+17. stablelm-12b (40 layers, d 5120, 32/8 heads of 160, d_ff 13824,
+   untied vocab 100352; 12.14 B parameters), with phase 8's model freed:
+   served at full width and depth as phases 8-10 serve llama3-8b (flash
+   once a layer in the prefill, 40, none a decode step; logits within
+   ``LM_TOL`` of the plain run and of one causal forward; times, peak,
+   one traced prefill and 8 decode steps); then trained at
+   ``BIG_TRAIN_LAYERS`` (4) of its 40 layers, full width (2.14 B
+   parameters; 40 layers need ~240 GB of training state), 8 x 1024 tokens
+   a step in the reference's 8 microbatches: 2 layers against
+   ``oracle_scope()`` with phase 16's tolerances, a warm-up step and 2
+   steps of 64 LSE forwards and 32 backwards each, finite losses, one
+   profiled step.
+18. The reference's ``--tiny`` commands on the card, in process through
+   the launchers' ``main``: ``launch.serve --arch {llama3-8b,
+   stablelm-12b} --tiny`` and ``launch.train --arch {granite-3-2b,
+   stablelm-12b} --tiny --steps 3`` (head dim 16), each against the same
+   command with ``--device cpu``: flash launched (counted), the prefill's
+   logits within ``LM_TOL``, every step's loss within ``TINY_LOSS_TOL``.
 Phase 2 also holds flash_attention against its plain version (S 1 to
 4096, around the 64-row fp32 and 128-row bf16 tiles, causal or not, group
-size 1 and 4, hd 64 and 128, fp32 and bf16, scores up to +-1e4), and the
-training entries (``check_flash_train``): flash_attention_lse's out equal
-to the serving entry's and its lse against a float64 logsumexp;
+size 1 and 4, head dims 16, 64, 128 and 160, fp32 and bf16, scores up to
++-1e4; every entry raises ``TypeError`` at hd 96), and the training
+entries (``check_flash_train``): flash_attention_lse's out equal to the
+serving entry's and its lse against a float64 logsumexp;
 flash_attention_bwd against autograd through ``attention_ref`` at the
-training path's shape and llama3-8b's (hd 128), at S 1, 127, 1000, 1025,
-causal or not, bf16 and fp32, group size 1, each of dq, dk, dv in every
-64-row tile within ``FLASH_BWD_TOL`` of the tile's plain norm (a planted
-fault, the lse off by ln 2 past the first four tiles, must fail), the same bits
-on two runs. Phase 7 times
+training path's shape, llama3-8b's (hd 128), a stablelm-12b microbatch's
+(hd 160) and hd 16's, at S 1, 127, 1000, 1025 for every head dim, causal
+or not, bf16 and fp32, group size 1, each of dq, dk, dv in every 64-row
+tile within ``FLASH_BWD_TOL`` of the tile's plain norm (a planted fault,
+the lse off by ln 2 past the first four tiles, must fail at hd 64, 160
+and 16), the same bits on two runs. Phase 7 times
 flash_attention at the serving path's shape beside
 ``F.scaled_dot_product_attention`` (``library_ms``), and the training
 entries at one microbatch of the training path (B 2, S 1024, H 32, KV 8,
@@ -204,7 +228,10 @@ the log-sum-exp, and its ``_backward`` on that call's out and lse).
 It prints one JSON line with the serving path's numbers, one with the main
 path's, one with phase 11's (``{"plan": ...}``), one with phases 12-13's
 (``{"serving": ...}``), one with phases 14-15's (``{"pipeline": ...}``),
-one with phase 16's (``{"train": ...}``), one with every kernel's,
+one with phase 16's (``{"train": ...}``), one with phase 17's
+(``{"stablelm": ...}``), one with phase 18's (``{"tiny": ...}``), one
+with every kernel's (the flash entries' other head dims as
+``<entry>@hd160`` and ``@hd16``),
 then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line. Without a card it exits
 2 and prints no result.
@@ -244,7 +271,7 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.bitonic import (bitonic_sort_permutation,  # noqa: E402
                                          bitonic_sort_tiles, latency_probe)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_bwd, flash_attention_lse)
+    KERNEL_HEAD_DIMS, flash_attention, flash_attention_bwd, flash_attention_lse)
 from repro_torch.kernels.hash64 import hash32, hash32_partition  # noqa: E402
 from repro_torch.kernels.histogram import bucket_histogram  # noqa: E402
 from repro_torch.kernels.segment_reduce import segment_reduce_tiles  # noqa: E402
@@ -288,8 +315,34 @@ TRAIN_PLAIN_LAYERS = 2
 # 2.8e-6 and 1.1e-5 on an H100, PERF.md).
 TRAIN_GRAD_TOL, TRAIN_LOSS_TOL, TRAIN_GNORM_TOL = 5e-2, 1e-4, 1e-3
 # the narrow config of phase 16's crash-resume and overfit checks: the
-# kernels need head dim 64 or 128, and the TINY configs have 16
+# reference's TINY config of the training arch (head dim 16)
 NARROW_SEQ, NARROW_BATCH = 128, 8
+# phase 17: stablelm-12b (32/8 heads of 160: the kernels' hd-160 instances)
+# served at full width and depth as phase 8 serves llama3-8b (LM_BATCH x
+# LM_PROMPT prompts, LM_GEN greedy tokens, checked as phases 8-9 check it:
+# its logits have std ~sqrt(d_model / padded_vocab) = 0.23 against llama's
+# 0.18, so LM_TOL's argument holds), then trained at full width and
+# BIG_TRAIN_LAYERS of its 40 layers (~20 B a parameter of training state:
+# 40 layers need ~240 GB, 4 take ~45 GB of the card's 80), TRAIN_SEQ x
+# TRAIN_BATCH tokens a step in the reference's 8 microbatches, a warm-up
+# step and BIG_TRAIN_STEPS steps; its kernel-against-plain check runs at
+# TRAIN_PLAIN_LAYERS with phase 16's tolerances
+BIG_ARCH, BIG_TRAIN_LAYERS, BIG_TRAIN_STEPS = "stablelm-12b", 4, 2
+# phase 18: the reference's --tiny launcher commands, in process on the card
+# and with --device cpu (one model from one seed on both: the launchers draw
+# on the host), at their default sizes: serving (batch 4, prompt 32, 16
+# tokens) and 3 training steps (batch 16, seq 256)
+TINY_SERVE_ARCHS = ("llama3-8b", "stablelm-12b")
+TINY_TRAIN_ARCHS = ("granite-3-2b", "stablelm-12b")
+TINY_TRAIN_STEPS = 3
+# Each step's loss of the card's tiny run against the CPU's, absolute. The
+# card rounds P to bf16 in the kernel (the CPU's plain attention keeps fp32)
+# and sums its bf16 GEMMs in another order. On the CPU, the kernel's
+# rounding moves the three losses (~6.25-6.30, near ln 512) by at most
+# 9.4e-5, and a wrong mask (bidirectional) by 3.5e-3 (granite) and 6.4e-3
+# (stablelm): 1e-3 is ten times the one, a third to a sixth of the other
+# (tests/test_torch_stablelm.py holds both sides of it).
+TINY_LOSS_TOL = 1e-3
 # Logits of two runs of the serving path that differ only in how prefill
 # attention rounds (the kernel rounds its probabilities to bf16 for the
 # tensor-core p v, the plain version keeps fp32, the decode einsums round
@@ -440,12 +493,16 @@ def nvidia_smi() -> str:
 
 
 # the kernels whose build report phase 7 prints (those redesigned in the
-# last three rounds), and the op codes of the segment kernels
+# last rounds, and flash's fp32 instances, which phase 2 checks), and the
+# op codes of the segment kernels
 REPORTED_KERNELS = ("flash_fwd_bf16", "flash_bwd_dkdv_bf16",
-                    "flash_bwd_dq_bf16", "seg_fill", "seg_pass1", "seg_pass2",
+                    "flash_bwd_dq_bf16", "flash_fwd_f32", "flash_bwd_dkdv_f32",
+                    "flash_bwd_dq_f32", "seg_fill", "seg_pass1", "seg_pass2",
                     "scan_lookback", "hist_regs", "hash32_partition_kernel",
                     "bitonic_tile", "bitonic_perm")
 _OPS = {"0": "sum", "1": "min", "2": "max"}
+# flash_bwd_dkdv's PARTS: both gradients, or (past hd 128) one a launch
+_DKDV_PARTS = {"1": "dV", "2": "dK", "3": "dK+dV"}
 
 
 def ptxas_report() -> list[dict]:
@@ -461,12 +518,15 @@ def ptxas_report() -> list[dict]:
                 m = pat.search(line)
                 cur = None
                 if m:  # template arguments: Li128 (hd), fLi0 (float, sum),
-                    # Lb1 (flash's LSE-writing training instance)
+                    # Lb1 (flash's LSE-writing training instance), Li160ELi1
+                    # (hd, the dK/dV launch's gradients)
                     args = m.group(2) or ""
                     t = {"f": "float", "i": "int"}.get(args[:1])
                     n = re.findall(r"Li(\d+)", args)
                     label = ("" if not n else f"<{n[0]}>" if t is None else
                              f"<{t}, {_OPS.get(n[0], n[0])}>")
+                    if t is None and len(n) > 1:
+                        label = f"<{n[0]}, {_DKDV_PARTS[n[1]]}>"
                     lse = re.findall(r"Lb(\d)", args)
                     if lse:
                         label = label[:-1] + (", lse>" if lse[0] == "1"
@@ -644,7 +704,7 @@ def phase_kernels(dev) -> None:
         f"(tolerance {SCAN_F32_TOL:g}); the same bits on 5 runs of each")
     check_flash(dev, rng)
     worst = check_flash_train(dev, rng)
-    bf, f32, bad = worst["bf16"], worst["f32"], worst["planted"]
+    bf, f32 = worst["bf16"], worst["f32"]
     zero_rms = max(bf["zero_rms"], f32["zero_rms"])
     say(f"[2] flash training entries: the LSE instance's out equal to the "
         f"serving one's, lse within {FLASH_LSE_TOL:g} of float64; the "
@@ -654,11 +714,12 @@ def phase_kernels(dev) -> None:
         f"{FLASH_BWD_TOL[torch.float32]:g}), RMS {zero_rms:.3g} where the "
         f"plain gradient is 0 (floor {FLASH_BWD_ATOL:g}); at most "
         f"{max(bf['excess'], f32['excess']):.3g} of a limit over "
-        f"{len(flash_train_cases())} cases, the same bits on two runs; the "
-        f"lse off by ln 2 past the first four tiles fails at dq "
-        f"{bad['dq']:.3g}, dk {bad['dk']:.3g}, dv {bad['dv']:.3g} times the "
-        f"limit (its largest |diff| {bad['max_over_max']:.3g} of the "
-        f"largest |plain|)")
+        f"{len(flash_train_cases())} cases, the same bits on two runs")
+    for hd, bad in worst["planted"].items():
+        say(f"[2] flash backward, hd {hd}: the lse off by ln 2 past the first "
+            f"four tiles fails at dq {bad['dq']:.3g}, dk {bad['dk']:.3g}, dv "
+            f"{bad['dv']:.3g} times the limit (its largest |diff| "
+            f"{bad['max_over_max']:.3g} of the largest |plain|)")
     torch.cuda.synchronize()
 
 
@@ -971,12 +1032,14 @@ def check_segment_scan_edges(dev, rng) -> dict[str, float]:
 def check_flash(dev, rng) -> None:
     """flash_attention against attention_ref on the card: S at and around
     the fp32 kernel's 64-row tiles and the bf16 kernel's 128-row tiles, and
-    long (1, 63, 64, 65, 127, 128, 129, 255, 1023, 1024, 4096), causal or not,
-    group size 1 and 4, hd 64 and 128, B up to 4, fp32 within 2e-5 and
+    long (1, 63, 64, 65, 127, 128, 129, 255, 1023, 1024, and 4096 at hd 64
+    and 128, 1025 at hd 16 and 160), causal or not, group size 1 and 4,
+    every head dim of ``KERNEL_HEAD_DIMS``, B up to 4, fp32 within 2e-5 and
     bf16 within 2e-2 (``tests/test_kernels.py``'s tolerances: the softmax
     sums run in another order, and bf16 outputs of ~[2, 4) round one ulp,
     2^-6, apart); one case with scores scaled to +-1e4 (the online
-    softmax's rescaling); the same bits on a second run."""
+    softmax's rescaling); the same bits on a second run. Every entry raises
+    ``TypeError`` at a head dim without an instance (96, MLA's)."""
     def qkv(b, s, h, kv, hd, dtype, scale=1.0):
         def x(*shape, sc=1.0):
             a = rng.standard_normal(shape).astype(np.float32) * sc
@@ -984,10 +1047,10 @@ def check_flash(dev, rng) -> None:
         return x(b, s, h, hd, sc=scale), x(b, s, kv, hd), x(b, s, kv, hd)
 
     cases = [(b, s, h, kv, hd, causal, 1.0)
-             for hd in (64, 128) for causal in (True, False)
+             for hd in KERNEL_HEAD_DIMS for causal in (True, False)
              for s, b in ((1, 4), (63, 3), (64, 2), (65, 4), (127, 3),
                           (128, 2), (129, 4), (255, 2), (1023, 2), (1024, 2),
-                          (4096, 1))
+                          (4096, 1) if hd in (64, 128) else (1025, 1))
              for h, kv in ((8, 8), (8, 2))]
     # q ~ N(0, 1e8), k ~ N(0, 1): scores q.k / sqrt(hd) ~ N(0, 1e8)
     cases.append((1, 130, 8, 2, 128, True, 1e4))
@@ -1005,6 +1068,17 @@ def check_flash(dev, rng) -> None:
     # the scores of the last case reach past +-1e4
     top = torch.einsum("bsd,btd->bst", q[:, :, 0].float(), k[:, :, 0].float())
     check(float(top.abs().max()) / math.sqrt(128) > 1e4, "flash: scores < 1e4")
+    q, k, v = qkv(1, 4, 2, 2, 96, torch.bfloat16)
+    for name, call in (
+            ("flash_attention", lambda: flash_attention(q, k, v)),
+            ("flash_attention_lse", lambda: flash_attention_lse(q, k, v)),
+            ("flash_attention_bwd", lambda: flash_attention_bwd(
+                q, k, v, q, torch.zeros(1, 2, 4, device=dev), q))):
+        try:
+            call()
+            check(False, f"{name} ran at head dim 96, which has no instance")
+        except TypeError as e:
+            check("head dims" in str(e), f"{name} at hd 96: {e}")
 
 
 # The flash backward against autograd through attention_ref (fp32 inside)
@@ -1038,15 +1112,22 @@ FLASH_LSE_TOL = 1e-4
 LIBRARY_SAME_FN = 5e-2
 
 
+# the head dims whose first case in flash_train_cases plants the lse fault
+FLASH_PLANTED_DIMS = (64, 160, 16)
+
+
 def flash_train_cases():
     """(B, S, H, KV, hd, causal, dtype) of phase 2's training checks: the
-    path's shape (granite-3-2b's heads, B 2, S 1024, bf16, causal) and
-    llama3-8b's (hd 128); S 1, 127, 1000, 1025 (around the 64-row tiles)
-    for both head dims, causal or not, bf16 and fp32; group size 1."""
+    path's shape (granite-3-2b's heads, B 2, S 1024, bf16, causal),
+    llama3-8b's (hd 128), one microbatch of phase 17's stablelm-12b (hd
+    160, B 1) and hd 16 at B 2; S 1, 127, 1000, 1025 (around the 64-row
+    tiles) for every head dim, causal or not, bf16 and fp32; group size 1
+    and 4."""
     bf, f32 = torch.bfloat16, torch.float32
-    cases = [(2, 1024, 32, 8, 64, True, bf), (2, 1024, 32, 8, 128, True, bf)]
+    cases = [(2, 1024, 32, 8, 64, True, bf), (2, 1024, 32, 8, 128, True, bf),
+             (1, 1024, 32, 8, 160, True, bf), (2, 1024, 32, 8, 16, True, bf)]
     cases += [(2 if s < 1025 else 1, s, 8, 2, hd, causal, dt)
-              for dt in (bf, f32) for hd in (64, 128)
+              for dt in (bf, f32) for hd in KERNEL_HEAD_DIMS
               for causal in (True, False) for s in (1, 127, 1000, 1025)]
     cases += [(2, s, 4, 4, 64, True, bf) for s in (127, 1025)]
     return cases
@@ -1086,14 +1167,15 @@ def check_flash_train(dev, rng) -> dict:
     flash_attention_lse's out bit-equal to the serving entry's and its lse
     within ``FLASH_LSE_TOL`` of a float64 logsumexp; flash_attention_bwd
     against autograd through ``attention_ref`` per gradient and tile
-    (``bwd_errors``), the same bits on a second run. At the path's shape a
-    planted fault, the lse off by ln 2 past the first four tiles, must fail
-    each of dq, dk, dv. Returns the worst readings by dtype and the planted
-    fault's excess, beside its largest |diff| over the largest |plain|
-    (``max_over_max``, the measure this check replaced)."""
+    (``bwd_errors``), the same bits on a second run. At the path's shape
+    and at the first case of each other ``FLASH_PLANTED_DIMS`` a planted
+    fault, the lse off by ln 2 past the first four tiles, must fail each of
+    dq, dk, dv. Returns the worst readings by dtype and, by head dim, the
+    planted fault's excess, beside its largest |diff| over the largest
+    |plain| (``max_over_max``, the measure this check replaced)."""
     worst = {key: {"rel": 0.0, "zero_rms": 0.0, "excess": 0.0}
              for key in ("bf16", "f32")}
-    planted = None
+    planted = {}
     for b, s, h, kv, hd, causal, dtype in flash_train_cases():
         def x(*shape):
             a = rng.standard_normal(shape).astype(np.float32)
@@ -1123,20 +1205,23 @@ def check_flash_train(dev, rng) -> dict:
         again = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
         check(all(torch.equal(a, c) for a, c in zip(got, again)),
               f"{name}: bits differ between two runs")
-        if planted is None:  # the first case: the path's shape
+        if hd in FLASH_PLANTED_DIMS and hd not in planted:
             shifted = lse.clone()
             shifted[:, :, 4 * FLASH_BWD_TILE:] += math.log(2)
             bad = flash_attention_bwd(q, k, v, out, shifted, dout,
                                       causal=causal)
-            planted = {g: e["excess"]
-                       for g, e in bwd_errors(bad, want, dtype).items()}
-            check(all(x > 1.0 for x in planted.values()),
+            fault = {g: e["excess"]
+                     for g, e in bwd_errors(bad, want, dtype).items()}
+            check(all(x > 1.0 for x in fault.values()),
                   f"{name}: the lse off by ln 2 past the first four tiles "
-                  f"passes the backward's check ({planted} times the limit)")
-            planted["max_over_max"] = max(
+                  f"passes the backward's check ({fault} times the limit)")
+            fault["max_over_max"] = max(
                 float((a.float() - w.float()).abs().max()) for a, w in
                 zip(bad, want)) / max(float(w.float().abs().max())
                                       for w in want)
+            planted[hd] = fault
+    check(sorted(planted) == sorted(FLASH_PLANTED_DIMS),
+          f"the lse fault was planted at head dims {sorted(planted)}")
     return {**worst, "planted": planted}
 
 
@@ -2444,9 +2529,53 @@ def phase_timing(dev, rows: int) -> dict[str, dict]:
         max_abs_err=float(err), cumsum_ms=cumsum_ms, n=n)
 
     # flash_attention: one layer of the serving path's prefill, llama3-8b's
-    # heads over 4 x 1024 tokens, bf16, causal
+    # heads over 4 x 1024 tokens, bf16, causal; the training entries at one
+    # microbatch of phase 16's path
     cfg = get_config(LM_ARCH)
-    b, s, h, kv, hd = LM_BATCH, LM_PROMPT, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    out["flash_attention"] = flash_fwd_timing(
+        dev, timer, LM_BATCH, LM_PROMPT, cfg.num_heads, cfg.num_kv_heads, cfg.hd)
+    cfg = get_config(TRAIN_ARCH)
+    out.update(flash_train_timing(
+        dev, timer, TRAIN_BATCH // train_microbatches(TRAIN_ARCH), TRAIN_SEQ,
+        cfg.num_heads, cfg.num_kv_heads, cfg.hd))
+    out.update(flash_dims_timing(dev, timer))
+    return out
+
+
+def flash_dims_timing(dev, timer) -> dict[str, dict]:
+    """The other head dims' instances, named ``<entry>@hd<dim>``: hd 160
+    at a prefill layer of phase 17's stablelm-12b (B 4, S 1024, H 32, KV 8)
+    and its training entries at one microbatch of its training path (B 1);
+    hd 16 (the TINY configs', phase 18) at B 4, S 1024, H 32, KV 8, every
+    entry. Bounds and library calls as for hd 64 and 128."""
+    out = {}
+    cfg = get_config(BIG_ARCH)
+    out["flash_attention@hd160"] = flash_fwd_timing(
+        dev, timer, LM_BATCH, LM_PROMPT, cfg.num_heads, cfg.num_kv_heads, cfg.hd)
+    train = flash_train_timing(
+        dev, timer, TRAIN_BATCH // train_microbatches(BIG_ARCH), TRAIN_SEQ,
+        cfg.num_heads, cfg.num_kv_heads, cfg.hd)
+    out.update({f"{k}@hd160": v for k, v in train.items()})
+    b, s, h, kv, hd = LM_BATCH, LM_PROMPT, 32, 8, 16
+    out["flash_attention@hd16"] = flash_fwd_timing(dev, timer, b, s, h, kv, hd)
+    train = flash_train_timing(dev, timer, b, s, h, kv, hd)
+    out.update({f"{k}@hd16": v for k, v in train.items()})
+    return out
+
+
+def library_call(fn):
+    """(fn's result, None), or (None, the library's error) where it refuses
+    the inputs (a head dim its kernels lack)."""
+    try:
+        return fn(), None
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0][:200]
+
+
+def flash_fwd_timing(dev, timer, b, s, h, kv, hd) -> dict:
+    """The serving entry at (B, S, H, KV, hd), bf16, causal, beside its
+    plain version and ``F.scaled_dot_product_attention`` (``library_ms``;
+    ``None`` and ``library_error`` where it refuses the head dim)."""
     g = torch.Generator(device=dev).manual_seed(12)
     q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
                for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
@@ -2454,42 +2583,48 @@ def phase_timing(dev, rows: int) -> dict[str, dict]:
     plain = timer(lambda: ref.attention_ref(q, k, v))
     # the port never calls SDPA: it is timed here as the yardstick
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    lib = timer(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
     # q, k, v read once and out written once; the products of the
     # s (s + 1) / 2 unmasked (query, key) pairs: 2 hd for q k and 2 hd for
     # p v each, on the bf16 tensor cores
     bms, by = bound_ms(2 * (2 * q.numel() + k.numel() + v.numel()),
                        4 * b * h * hd * s * (s + 1) / 2, TENSOR_BF16_OPS_PER_S)
     want = ref.attention_ref(q, k, v)
-    lib_out = F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
-    out["flash_attention"] = dict(
-        ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+    lib_out, lib_error = library_call(lib_fwd)
+    res = dict(
+        ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+        library_ms=None if lib_out is None else timer(lib_fwd),
         max_abs_err=float((flash_attention(q, k, v) - want).float().abs().max()),
-        library_max_abs_err=float((lib_out - want).float().abs().max()))
-    out.update(flash_train_timing(dev, timer))
-    return out
+        library_max_abs_err=None if lib_out is None else float(
+            (lib_out.transpose(1, 2) - want).float().abs().max()),
+        shape=dict(B=b, S=s, H=h, KV=kv, hd=hd))
+    if lib_error is not None:
+        res["library_error"] = lib_error
+    return res
 
 
-def flash_train_timing(dev, timer) -> dict[str, dict]:
-    """The training entries at the training path's shape: one layer of one
-    microbatch of granite-3-2b (B 2, S 1024, H 32, KV 8, hd 64, bf16,
-    causal), each beside its plain version and beside the call SDPA's flash
-    backend makes for the same function on the same (transposed, GQA)
-    inputs: ``aten._scaled_dot_product_flash_attention``, which returns the
-    output and the log-sum-exp, and ``_backward`` on that call's output and
-    log-sum-exp, each one call timed directly. The library's results must
-    agree with the plain versions (``LIBRARY_SAME_FN``). Bounds: each input
-    read and output written once; the forward's s(s+1)/2 products, and 2.5
-    times them for the backward, at 989 TFLOP/s."""
-    cfg = get_config(TRAIN_ARCH)
-    b, s, h, kv, hd = TRAIN_BATCH // train_microbatches(TRAIN_ARCH), \
-        TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+def flash_train_timing(dev, timer, b, s, h, kv, hd) -> dict[str, dict]:
+    """The training entries at (B, S, H, KV, hd), bf16, causal (for hd 64:
+    one layer of one microbatch of granite-3-2b, B 2), each beside its
+    plain version and beside the call SDPA's flash backend makes for the
+    same function on the same (transposed, GQA) inputs:
+    ``aten._scaled_dot_product_flash_attention``, which returns the output
+    and the log-sum-exp, and ``_backward`` on that call's output and
+    log-sum-exp, each one call timed directly (``None`` and
+    ``library_error`` where the library refuses the head dim). The
+    library's results must agree with the plain versions
+    (``LIBRARY_SAME_FN``). Bounds: each input read and output written
+    once; the forward's s(s+1)/2 products, and 2.5 times them for the
+    backward, at 989 TFLOP/s."""
     g = torch.Generator(device=dev).manual_seed(13)
     q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
                    for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd),
                                  (b, s, h, hd)))
+    shape = dict(B=b, S=s, H=h, KV=kv, hd=hd)
     fwd_ops = 4 * b * h * hd * s * (s + 1) / 2
     io = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v in, out
     lse_bytes = 4 * b * h * s
@@ -2505,20 +2640,25 @@ def flash_train_timing(dev, timer) -> dict[str, dict]:
     def lib_fwd():
         return aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, True)
 
-    lib = timer(lib_fwd)
     bms, by = bound_ms(io + lse_bytes, fwd_ops, TENSOR_BF16_OPS_PER_S)
     want_out, want_lse = ref.attention_lse_ref(q, k, v)
-    fwd = lib_fwd()
-    lib_err = max(float((fwd[0].transpose(1, 2) - want_out).float().abs().max()),
-                  float((fwd[1][..., :s] - want_lse).abs().max()))
-    check(lib_err <= LIBRARY_SAME_FN,
-          f"the library's flash forward differs from the plain version by "
-          f"{lib_err}")
+    fwd, lib_error = library_call(lib_fwd)
+    lib = lib_err = None
+    if fwd is not None:
+        lib = timer(lib_fwd)
+        lib_err = max(
+            float((fwd[0].transpose(1, 2) - want_out).float().abs().max()),
+            float((fwd[1][..., :s] - want_lse).abs().max()))
+        check(lib_err <= LIBRARY_SAME_FN,
+              f"the library's flash forward differs from the plain version "
+              f"by {lib_err} at {shape}")
     res = {"flash_attention_lse": dict(
         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
         max_abs_err=max(float((out - want_out).float().abs().max()),
                         float((lse - want_lse).abs().max())),
-        serving_entry_ms=serving, library_max_abs_err=lib_err)}
+        serving_entry_ms=serving, library_max_abs_err=lib_err, shape=shape)}
+    if lib_error is not None:
+        res["flash_attention_lse"]["library_error"] = lib_error
 
     def lib_bwd():
         return aten._scaled_dot_product_flash_attention_backward(
@@ -2527,17 +2667,21 @@ def flash_train_timing(dev, timer) -> dict[str, dict]:
 
     bwd = timer(lambda: flash_attention_bwd(q, k, v, out, lse, do))
     plain = timer(lambda: ref.attention_bwd_ref(q, k, v, do))
-    lib = timer(lib_bwd)
     # dq, dk, dv written; q, k, v, o, dO read (and lse, a row each)
     bms, by = bound_ms(2 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel())
                        + lse_bytes, 2.5 * fwd_ops, TENSOR_BF16_OPS_PER_S)
     got = flash_attention_bwd(q, k, v, out, lse, do)
     want = ref.attention_bwd_ref(q, k, v, do)
-    lib_rel = max(e["rel"] for e in bwd_errors(
-        [x.transpose(1, 2) for x in lib_bwd()], want, q.dtype).values())
-    check(lib_rel <= LIBRARY_SAME_FN,
-          f"the library's flash backward differs from the plain version by "
-          f"{lib_rel} of a tile's norm")
+    lib = lib_rel = None
+    if fwd is not None:
+        grads, lib_error = library_call(lib_bwd)
+    if fwd is not None and grads is not None:
+        lib = timer(lib_bwd)
+        lib_rel = max(e["rel"] for e in bwd_errors(
+            [x.transpose(1, 2) for x in grads], want, q.dtype).values())
+        check(lib_rel <= LIBRARY_SAME_FN,
+              f"the library's flash backward differs from the plain version "
+              f"by {lib_rel} of a tile's norm at {shape}")
     res["flash_attention_bwd"] = dict(
         ms=bwd, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
         max_abs_err=max(float((a.float() - w.float()).abs().max())
@@ -2545,7 +2689,9 @@ def flash_train_timing(dev, timer) -> dict[str, dict]:
         tile_rel_err=max(e["rel"] for e in bwd_errors(got, want,
                                                       q.dtype).values()),
         library_tile_rel_err=lib_rel,
-        tflops=2.5 * fwd_ops / (bwd * 1e-3) / 1e12)
+        tflops=2.5 * fwd_ops / (bwd * 1e-3) / 1e12, shape=shape)
+    if lib_error is not None:
+        res["flash_attention_bwd"]["library_error"] = lib_error
     return res
 
 
@@ -2558,11 +2704,12 @@ def logit_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def phase_serve(dev):
-    """Phase 8: the model at full width and depth, and one ``generate``
-    through the kernel, the counts zeroed just before and read just after;
-    then one more decode step, which must launch nothing."""
-    cfg = get_config(LM_ARCH)
+def phase_serve(dev, arch: str = LM_ARCH):
+    """Phase 8 (and 17 for ``BIG_ARCH``): the model at full width and depth,
+    and one ``generate`` through the kernel, the counts zeroed just before
+    and read just after; then one more decode step, which must launch
+    nothing."""
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     model = build_model(cfg, dev,
                         generator=torch.Generator(device=dev).manual_seed(0))
@@ -2737,15 +2884,15 @@ def train_batches(dev, cfg, n: int) -> tuple[list[dict], list[float]]:
     return batches, walls
 
 
-def phase_train_plain(dev, batch) -> dict:
-    """Phase 16's check against plain attention at full width and
-    ``TRAIN_PLAIN_LAYERS`` layers: the gradients of every leaf through the
-    kernels and under ``oracle_scope()`` (plain attention on the card),
+def phase_train_plain(dev, batch, arch: str = TRAIN_ARCH) -> dict:
+    """Phase 16's (and 17's) check against plain attention at full width
+    and ``TRAIN_PLAIN_LAYERS`` layers: the gradients of every leaf through
+    the kernels and under ``oracle_scope()`` (plain attention on the card),
     then one train step of each from the same weights: loss and grad norm.
     The kernel run's launches must be ``train_launches``' (the plain run's
     none)."""
-    cfg = get_config(TRAIN_ARCH).replace(num_layers=TRAIN_PLAIN_LAYERS)
-    k = train_microbatches(TRAIN_ARCH)
+    cfg = get_config(arch).replace(num_layers=TRAIN_PLAIN_LAYERS)
+    k = train_microbatches(arch)
     model = build_model(cfg, dev,
                         generator=torch.Generator(device=dev).manual_seed(0))
     state = TS.bind_state(model)
@@ -2768,6 +2915,7 @@ def phase_train_plain(dev, batch) -> dict:
     set_launches(0)
     _, mk = step(state, batch)
     mk = {n: float(v) for n, v in mk.items()}
+    del state  # its masters and moments, before the plain run draws its own
     set_launches(0)
     with kops.oracle_scope():
         _, mp = step(TS.init_train_state(model, 0), batch)
@@ -2787,16 +2935,20 @@ def phase_train_plain(dev, batch) -> dict:
             "worst_grad_rel_err": errs[worst]}
 
 
-def phase_train(dev, batches, profile=None) -> dict:
-    """Phase 16: granite-3-2b at full width and depth, random bf16 weights
-    from a ``torch.Generator`` seeded 0 on the card, trained by
-    ``make_train_step`` (4 interleaved microbatches of 2 x 1024, AdamW on
-    fp32 masters) on the pipeline's batches: one warm-up step, then
-    ``TRAIN_STEPS`` steps with the counts zeroed just before and read just
-    after (each step's launches must be ``train_launches``'), then one
-    profiled step. Every loss and grad norm finite."""
-    cfg = get_config(TRAIN_ARCH)
-    k = train_microbatches(TRAIN_ARCH)
+def phase_train(dev, batches, profile=None, arch: str = TRAIN_ARCH,
+                layers: int | None = None, steps: int = TRAIN_STEPS) -> dict:
+    """Phase 16: granite-3-2b at full width and depth (phase 17: ``arch`` at
+    ``layers`` layers), random bf16 weights from a ``torch.Generator``
+    seeded 0 on the card, trained by ``make_train_step`` (the reference's
+    interleaved microbatches of the arch, here 4 of 2 x 1024; AdamW on fp32
+    masters) on the pipeline's batches: one warm-up step, then ``steps``
+    steps with the counts zeroed just before and read just after (each
+    step's launches must be ``train_launches``'), then one profiled step.
+    Every loss and grad norm finite."""
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    k = train_microbatches(arch)
     t0 = time.perf_counter()
     model = build_model(cfg, dev,
                         generator=torch.Generator(device=dev).manual_seed(0))
@@ -2813,7 +2965,7 @@ def phase_train(dev, batches, profile=None) -> dict:
     warm_ms = (time.perf_counter() - t0) * 1e3
     walls, per_step = [], []
     set_launches(0)
-    for i in range(1, TRAIN_STEPS + 1):
+    for i in range(1, steps + 1):
         before = launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2827,27 +2979,30 @@ def phase_train(dev, batches, profile=None) -> dict:
         check(n == want, f"train step {i + 1} launched {n}, want {want}")
     check(all(math.isfinite(x["loss"]) and math.isfinite(x["grad_norm"])
               for x in metrics), f"non-finite training metrics: {metrics}")
-    check(int(state.step) == TRAIN_STEPS + 1, "the state's step count")
+    check(int(state.step) == steps + 1, "the state's step count")
     prof = None
     if profile is not None:
         held = {}
 
         def one_step():
-            held["state"], _ = step(held.pop("state"), batches[TRAIN_STEPS + 1])
+            held["state"], _ = step(held.pop("state"), batches[steps + 1])
         held["state"] = state
         prof = profile("train step", one_step)
         state = held["state"]
+    # model FLOPs a token: 6N over the matrices (a tied embedding counted
+    # once, as the unembedding's product; an untied input embedding, a
+    # gather, not at all) plus the causal attention's products, forward and
+    # backward: 3 x 2 products x 2 hd FLOPs over (S + 1) / 2 keys a head a
+    # layer; the remat recompute is not counted
+    n_matmul = n_params - (0 if cfg.tie_embeddings else model.lm.embed.numel())
     del state, step, model
     med = statistics.median(walls)
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    # model FLOPs a token: 6N (the tied embedding counted once: the
-    # unembedding's product) plus the causal attention's products, forward
-    # and backward: 3 x 2 products x 2 hd FLOPs over (S + 1) / 2 keys a head
-    # a layer; the remat recompute is not counted
-    flops_tok = 6 * n_params + 6 * cfg.num_layers * cfg.num_heads * cfg.hd * \
+    flops_tok = 6 * n_matmul + 6 * cfg.num_layers * cfg.num_heads * cfg.hd * \
         (TRAIN_SEQ + 1)
     tok_s = tokens / (med / 1e3)
-    return {"arch": TRAIN_ARCH, "parameters": n_params, "microbatches": k,
+    return {"arch": arch, "layers": cfg.num_layers, "parameters": n_params,
+            "microbatches": k,
             "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
             "init_s": init_s, "warmup_step_ms": warm_ms, "step_ms": walls,
             "median_step_ms": med, "tokens_per_s": tok_s,
@@ -2860,9 +3015,9 @@ def phase_train(dev, batches, profile=None) -> dict:
 
 
 def phase_train_narrow(dev) -> dict:
-    """Phase 16 at the narrow config (granite-3-2b's TINY with head dim 64,
-    the kernels' smallest): a run with ``ckpt_every=2`` that fails at step
-    4, resumed, ends bitwise equal to an uninterrupted 6-step run (the
+    """Phase 16 at the narrow config (granite-3-2b's TINY, head dim 16): a
+    run with ``ckpt_every=2`` that fails at step 4, resumed, ends bitwise
+    equal to an uninterrupted 6-step run (the
     parameters, masters and moments; in a temporary directory, removed
     after), with ``torch.use_deterministic_algorithms`` on for it (the
     embedding lookup's backward, ``index_put_`` with accumulate, adds with
@@ -2870,7 +3025,7 @@ def phase_train_narrow(dev) -> dict:
     by more than 1.0 (``tests/test_train.py``'s overfit check)."""
     from repro_torch.data.pipeline import PipelineConfig, RelationalTokenPipeline
 
-    cfg = get_tiny(TRAIN_ARCH).replace(head_dim=64)
+    cfg = get_tiny(TRAIN_ARCH)
     model = build_model(cfg, dev,
                         generator=torch.Generator(device=dev).manual_seed(0))
 
@@ -2921,9 +3076,130 @@ def phase_train_narrow(dev) -> dict:
         losses.append(float(m["loss"]))
     check(losses[-1] < losses[0] - 1.0,
           f"60 steps on one batch: loss {losses[0]} -> {losses[-1]}")
-    return {"config": f"{TRAIN_ARCH} TINY, head_dim 64", "resumed_bitwise":
+    return {"config": f"{TRAIN_ARCH} TINY (head_dim {cfg.hd})", "resumed_bitwise":
             len(want), "overfit_first_loss": losses[0],
             "overfit_last_loss": losses[-1]}
+
+
+# ---------------------------------------------------------------------------
+# phase 17: stablelm-12b (head dim 160) served at full width and depth, and
+# trained at BIG_TRAIN_LAYERS of its layers
+# ---------------------------------------------------------------------------
+
+
+def phase_big_serve(dev, profile: bool = False) -> dict:
+    """Phase 17's serving half: ``BIG_ARCH`` through phases 8-10's checks,
+    times and (with ``profile``) traces (``phase_serve``,
+    ``phase_serve_plain``, ``phase_serve_times``, ``phase_serve_profile``):
+    one flash launch a layer in the prefill and none in a decode step,
+    finite logits, the prefill's and every decode step's logits within
+    ``LM_TOL`` of the plain-attention run and of one causal forward. The
+    tolerance's premise, logits several times larger than it (a wrong mask
+    or head moves them by their own scale), is checked on the prefill's."""
+    model, tokens, gen, counts, peak, init_s, n_params = phase_serve(dev,
+                                                                    BIG_ARCH)
+    cfg = model.cfg
+    std = float(gen.logits[0][:, :cfg.vocab_size].float().std())
+    check(std >= 3 * LM_TOL, f"{BIG_ARCH} prefill logits have std {std}, too "
+          f"small for the tolerance {LM_TOL} to tell a wrong attention")
+    first = {"prefill_ms": gen.prefill_s * 1e3,
+             "decode_ms_per_token": gen.decode_s / (LM_GEN - 1) * 1e3}
+    agree = phase_serve_plain(model, tokens, gen)
+    del gen
+    times = phase_serve_times(model, tokens)
+    prof = phase_serve_profile(model, tokens) if profile else None
+    del model, tokens
+    torch.cuda.empty_cache()
+    return {"arch": BIG_ARCH, "parameters": n_params, "init_s": init_s,
+            "batch": LM_BATCH, "prompt_len": LM_PROMPT, "gen": LM_GEN,
+            "peak_bytes": peak, "launches": counts, "prefill_logit_std": std,
+            "first_run": first, **times, **agree, "profile": prof}
+
+
+def phase_big_train(dev, profile=None) -> dict:
+    """Phase 17's training half: ``BIG_ARCH`` at full width, kernels against
+    plain attention at ``TRAIN_PLAIN_LAYERS`` layers (phase 16's
+    tolerances), then ``BIG_TRAIN_LAYERS`` layers trained on the pipeline's
+    batches (``phase_train``: a warm-up step, ``BIG_TRAIN_STEPS`` steps of
+    ``train_launches``' launches each, finite losses, one profiled step)."""
+    cfg = get_config(BIG_ARCH)
+    batches, pipe_ms = train_batches(dev, cfg, BIG_TRAIN_STEPS + 2)
+    plain = phase_train_plain(dev, batches[0], BIG_ARCH)
+    torch.cuda.empty_cache()
+    train = phase_train(dev, batches, profile, BIG_ARCH, BIG_TRAIN_LAYERS,
+                        BIG_TRAIN_STEPS)
+    del batches
+    torch.cuda.empty_cache()
+    return {**train, "pipeline_ms": pipe_ms, "plain": plain}
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the reference's --tiny launcher commands on the card
+# ---------------------------------------------------------------------------
+
+
+def phase_tiny(dev) -> dict:
+    """The launchers' ``main`` in process, as ``python -m
+    repro_torch.launch.serve --arch <a> --tiny`` and ``python -m
+    repro_torch.launch.train --arch <a> --tiny --steps 3`` run them: on the
+    card (their default device), the counts zeroed just before and read
+    just after, then the same command with ``--device cpu`` (the launchers
+    draw the weights on the host, so both runs hold one model). Serving:
+    flash once a layer, no other LM kernel, finite logits, the prefill's
+    logits within ``LM_TOL`` of the CPU run's. Training: every step logged
+    (``--log-every 1``), ``train_launches``' LSE forwards and backwards a
+    step, each step's loss finite and within ``TINY_LOSS_TOL`` of the CPU
+    run's."""
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+
+    out = {"serve": {}, "train": {}}
+    for arch in TINY_SERVE_ARCHS:
+        cfg = get_tiny(arch)
+        argv = ["--arch", arch, "--tiny"]
+        set_launches(0)
+        card = serve_cli.main(argv)
+        counts = launches()
+        check(counts["flash_attention"] == cfg.num_layers and
+              all(counts[k] == 0 for k in LM_KERNELS[1:]),
+              f"serve --tiny {arch} on the card launched {counts}, want flash "
+              f"once a layer ({cfg.num_layers})")
+        check(card.logits[0].device.type == dev.type and
+              all(bool(torch.isfinite(x).all()) for x in card.logits),
+              f"serve --tiny {arch}: non-finite logits, or not on {dev}")
+        cpu = serve_cli.main(argv + ["--device", "cpu"])
+        err = logit_err(card.logits[0].cpu(), cpu.logits[0])
+        check(err <= LM_TOL, f"serve --tiny {arch}: prefill logits differ from "
+              f"the --device cpu run's by {err}")
+        out["serve"][arch] = {
+            "hd": cfg.hd, "launches": counts, "prefill_max_abs_err": err,
+            "prefill_logit_std": float(cpu.logits[0].float().std()),
+            "same_tokens": int((card.tokens.cpu() == cpu.tokens).sum()),
+            "tokens": card.tokens.numel()}
+    for arch in TINY_TRAIN_ARCHS:
+        cfg = get_tiny(arch)
+        argv = ["--arch", arch, "--tiny", "--steps", str(TINY_TRAIN_STEPS),
+                "--log-every", "1"]
+        want = train_launches(cfg, 1)
+        set_launches(0)
+        card = train_cli.main(argv)
+        counts = launches()
+        check(all(counts[k] == TINY_TRAIN_STEPS * want[k] for k in LM_KERNELS),
+              f"train --tiny {arch} on the card launched {counts}, want "
+              f"{TINY_TRAIN_STEPS} x {want} of the LM kernels")
+        cpu = train_cli.main(argv + ["--device", "cpu"])
+        diffs = [abs(a["loss"] - b["loss"]) for a, b in zip(card, cpu)]
+        check(len(card) == len(cpu) == TINY_TRAIN_STEPS and
+              all(math.isfinite(x["loss"]) for x in card) and
+              max(diffs) <= TINY_LOSS_TOL,
+              f"train --tiny {arch}: losses {[x['loss'] for x in card]} on the "
+              f"card, {[x['loss'] for x in cpu]} on the CPU (tolerance "
+              f"{TINY_LOSS_TOL})")
+        out["train"][arch] = {
+            "hd": cfg.hd, "launches": counts,
+            "loss": [x["loss"] for x in card],
+            "cpu_loss": [x["loss"] for x in cpu], "max_loss_diff": max(diffs)}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3063,7 +3339,10 @@ def main() -> None:
         say(f"[7] nvcc {src}: {secs:.1f} s (all sources compiled together)")
     lib = _build.library()
     for r in ptxas_report():
-        hd = re.search(r"<(\d+)", r["kernel"]) if "flash" in r["kernel"] else None
+        # flash's bf16 kernels' dynamic shared memory, from the library
+        hd = (re.search(r"<(\d+)", r["kernel"])
+              if r["kernel"].startswith("flash") and "bf16" in r["kernel"]
+              else None)
         smem = (lib.repro_flash_attention_bwd_smem if "bwd" in r["kernel"]
                 else lib.repro_flash_attention_smem)
         dyn = f", {smem(int(hd.group(1)))} B dynamic" if hd else ""
@@ -3080,8 +3359,12 @@ def main() -> None:
     say(f"[7] Timer floor (a one-element add): {t['floor_ms']:.4f} ms; a copy "
         f"of bucket_histogram's {4 * rows >> 20} MiB column: {t['copy_ms']:.4f} "
         f"ms on {card}")
-    say(f"[7] flash_attention: SDPA's output differs from the plain version's "
-        f"by {times['flash_attention']['library_max_abs_err']:.4g}")
+    for key in ("flash_attention", "flash_attention@hd160", "flash_attention@hd16"):
+        t = times[key]
+        say(f"[7] {key} at {t['shape']}: " + (
+            f"SDPA's output differs from the plain version's by "
+            f"{t['library_max_abs_err']:.4g}" if "library_error" not in t else
+            f"SDPA refused: {t['library_error']}"))
     t = times["bitonic_sort_tiles"]
     pr = t["probe"]
     say(f"[7] bitonic latency probe ({pr['steps']} dependent steps, one warp): "
@@ -3185,31 +3468,131 @@ def main() -> None:
     for kname, ms in pr["top"]:
         say(f"      {ms:8.2f} ms  {kname[:110]}")
     say(f"[16] training phase {time.perf_counter() - t0:.1f} s")
-    for name in ("flash_attention_lse", "flash_attention_bwd"):
-        t = times[name]
-        extra = (f"serving entry {t['serving_entry_ms']:.4f} ms, library "
-                 f"within {t['library_max_abs_err']:.3g} of the plain version"
-                 if name == "flash_attention_lse"
-                 else f"{t['tflops']:.1f} TFLOP/s, worst tile within "
-                 f"{t['tile_rel_err']:.3g} of its plain norm (library "
-                 f"{t['library_tile_rel_err']:.3g})")
-        say(f"[7] {name} at B 2, S {TRAIN_SEQ}, H {train_cfg.num_heads}, KV "
-            f"{train_cfg.num_kv_heads}, hd {train_cfg.hd}: {extra}, on {card}")
 
+    t0 = time.perf_counter()
+    big_cfg = get_config(BIG_ARCH)
+    big = phase_big_serve(dev, profile=True)
+    say(f"[17] {BIG_ARCH} (hd {big_cfg.hd}): {big['parameters']} parameters "
+        f"drawn in {big['init_s']:.1f} s; {LM_BATCH} x {LM_PROMPT}-token "
+        f"prompts, {LM_GEN} greedy tokens; launches {big['launches']}; a decode "
+        f"step launches none; peak {big['peak_bytes'] / 2**30:.2f} GiB")
+    say(f"[17] plain run, teacher-forced: logits within "
+        f"{big['plain_max_abs_err']:.4g} (tolerance {LM_TOL}; prefill logits' "
+        f"std {big['prefill_logit_std']:.4f}); greedy tokens equal on all "
+        f"{big['tokens_checked']} with a top-2 margin > {LM_TOL}, on "
+        f"{big['plain_same_greedy_tokens']} of {LM_BATCH * LM_GEN} in all; one "
+        f"causal forward within {big['causal_max_abs_err']:.4g}")
+    say(f"[17] prefill median {big['prefill_ms']:.2f} ms, decode "
+        f"{big['decode_ms_per_token']:.3f} ms a token, "
+        f"{big['decode_tokens_per_s']:.1f} tokens/s decoding, "
+        f"{big['end_to_end_tokens_per_s']:.1f} tokens/s end to end on {card} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    for name, pr in big["profile"].items():
+        say(f"[17] {name}: profiled wall {pr['wall_ms']:.1f} ms, GPU kernels "
+            f"{pr['device_ms']:.2f} ms, busy share {pr['busy_share']:.2f}, "
+            f"flash {pr['ported_kernels_ms']:.3f} ms, {pr['host_ops']} torch "
+            f"ops dispatched by the host, on {card}")
+        for kname, ms in pr["top"]:
+            say(f"      {ms:8.3f} ms  {kname[:110]}")
+    t1 = time.perf_counter()
+    big_train = phase_big_train(dev, profiled)
+    bp = big_train["plain"]
+    say(f"[17] {TRAIN_PLAIN_LAYERS} layers of {BIG_ARCH}'s width, kernels vs "
+        f"plain attention: every gradient leaf within "
+        f"{bp['worst_grad_rel_err']:.4g} of its largest (worst "
+        f"{bp['worst_grad_leaf']}, tolerance {TRAIN_GRAD_TOL:g}); one step's "
+        f"loss {bp['loss']:.6f} vs {bp['plain_loss']:.6f}, grad norm "
+        f"{bp['grad_norm']:.5f} vs {bp['plain_grad_norm']:.5f}")
+    say(f"[17] {BIG_ARCH} at {big_train['layers']} of {big_cfg.num_layers} "
+        f"layers: {big_train['parameters']} parameters; {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens a step in {big_train['microbatches']} "
+        f"microbatches; warm-up {big_train['warmup_step_ms']:.1f} ms, then "
+        f"{[round(x, 1) for x in big_train['step_ms']]} ms, "
+        f"{big_train['tokens_per_s']:.0f} tokens/s, "
+        f"{100 * big_train['bf16_peak_share']:.1f}% of the dense bf16 peak, "
+        f"peak {big_train['peak_bytes'] / 2**30:.2f} GiB on {card}")
+    say(f"[17] loss {[round(x, 4) for x in big_train['loss']]}, grad norm "
+        f"{[round(x, 4) for x in big_train['grad_norm']]}; launches a step "
+        f"{big_train['launches_per_step']['flash_attention_lse']} LSE forwards "
+        f"+ {big_train['launches_per_step']['flash_attention_bwd']} backwards, "
+        f"in all {big_train['launches']}")
+    pr = big_train["profile"]
+    say(f"[17] one profiled step: wall {pr['wall_ms']:.1f} ms, GPU kernels "
+        f"{pr['device_ms']:.1f} ms, busy share {pr['busy_share']:.2f}, flash "
+        f"{pr['ported_kernels_ms']:.2f} ms, {pr['host_ops']} torch ops")
+    for kname, ms in pr["top"]:
+        say(f"      {ms:8.2f} ms  {kname[:110]}")
+    big_train["profile"] = {k: pr[k] for k in (
+        "wall_ms", "device_ms", "busy_share", "ported_kernels_ms", "host_ops",
+        "top")}
+    say(f"[17] training {time.perf_counter() - t1:.1f} s; phase 17 "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    tiny = phase_tiny(dev)
+    for arch, r in tiny["serve"].items():
+        say(f"[18] serve --tiny --arch {arch} (hd {r['hd']}) on the card: flash "
+            f"{r['launches']['flash_attention']} launches; prefill logits within "
+            f"{r['prefill_max_abs_err']:.4g} of --device cpu (tolerance "
+            f"{LM_TOL}, std {r['prefill_logit_std']:.3f}); {r['same_tokens']} of "
+            f"{r['tokens']} greedy tokens equal")
+    for arch, r in tiny["train"].items():
+        say(f"[18] train --tiny --arch {arch} --steps {TINY_TRAIN_STEPS} (hd "
+            f"{r['hd']}) on the card: {r['launches']['flash_attention_lse']} LSE "
+            f"forwards, {r['launches']['flash_attention_bwd']} backwards; losses "
+            f"{[round(x, 5) for x in r['loss']]} vs --device cpu "
+            f"{[round(x, 5) for x in r['cpu_loss']]} (largest difference "
+            f"{r['max_loss_diff']:.3g}, tolerance {TINY_LOSS_TOL:g})")
+    say(f"[18] the --tiny commands {time.perf_counter() - t0:.1f} s")
+
+    for name in ("flash_attention_lse", "flash_attention_bwd"):
+        for suffix in ("", "@hd160", "@hd16"):
+            t = times[name + suffix]
+            sh = t["shape"]
+            if "library_error" in t:
+                lib_txt = f"library error: {t['library_error']}"
+            elif name == "flash_attention_lse":
+                lib_txt = (f"library within {t['library_max_abs_err']:.3g} of "
+                           f"the plain version")
+            else:
+                lib_txt = f"library {t['library_tile_rel_err']:.3g}"
+            extra = (f"serving entry {t['serving_entry_ms']:.4f} ms, {lib_txt}"
+                     if name == "flash_attention_lse" else
+                     f"{t['tflops']:.1f} TFLOP/s, worst tile within "
+                     f"{t['tile_rel_err']:.3g} of its plain norm ({lib_txt})")
+            say(f"[7] {name}{suffix} at B {sh['B']}, S {sh['S']}, H {sh['H']}, "
+                f"KV {sh['KV']}, hd {sh['hd']}: {extra}, on {card}")
+
+    # the LM kernels' launches on their paths: hd 128 serving (phase 8), hd
+    # 64 training (16), hd 160 serving and training (17), hd 16 (18)
+    lm_launches = {
+        "flash_attention": lm_counts["flash_attention"],
+        "flash_attention_lse": train["launches"]["flash_attention_lse"],
+        "flash_attention_bwd": train["launches"]["flash_attention_bwd"],
+        "flash_attention@hd160": big["launches"]["flash_attention"],
+        **{f"{n}@hd160": big_train["launches"][n] for n in LM_KERNELS[1:]},
+        "flash_attention@hd16": sum(r["launches"]["flash_attention"]
+                                    for r in tiny["serve"].values()),
+        **{f"{n}@hd16": sum(r["launches"][n] for r in tiny["train"].values())
+           for n in LM_KERNELS[1:]}}
     kernels = []
-    for name, (fn, source, replaces) in KERNELS.items():
-        t = times[name]
-        say(f"[7] {name}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, library "
-            f"{t['library_ms'] if t['library_ms'] is None else round(t['library_ms'], 4)}"
-            f", bound {t['bound_ms']:.5f} by {t['bound_by']}) on {card}")
-        n = (lm_counts[name] if name == "flash_attention" else
-             train["launches"][name] if name in LM_KERNELS else counts[name])
-        kernels.append({"name": name, "route": "cuda", "source": source,
+    entries = [(name, name) for name in KERNELS] + [
+        (f"{name}{suffix}", name) for suffix in ("@hd160", "@hd16")
+        for name in LM_KERNELS]
+    for key, name in entries:
+        _, source, replaces = KERNELS[name]
+        t = times[key]
+        lib = t["library_ms"]
+        say(f"[7] {key}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, library "
+            f"{lib if lib is None else round(lib, 4)}, bound "
+            f"{t['bound_ms']:.5f} by {t['bound_by']}) on {card}")
+        n = lm_launches[key] if key in lm_launches else counts[name]
+        kernels.append({"name": key, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": t["max_abs_err"],
                         "ms": t["ms"], "plain_ms": t["plain_ms"],
                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                        "library_ms": t["library_ms"]})
+                        "library_ms": lib})
         if "replaced_chain_ms" in t:
             kernels[-1]["replaced_chain_ms"] = t["replaced_chain_ms"]
     say(json.dumps({"serve": {
@@ -3252,6 +3635,9 @@ def main() -> None:
     say(json.dumps({"train": {**train, "pipeline_ms": pipe_ms,
                               "plain": train_plain, "narrow": narrow,
                               "card": card}}))
+    say(json.dumps({"stablelm": {"serve": big, "train": big_train,
+                                 "card": card}}))
+    say(json.dumps({"tiny": {**tiny, "card": card}}))
     say(json.dumps({"kernels": kernels}))
     say(nvidia_smi())
     say(json.dumps({"ok": True, "device": {

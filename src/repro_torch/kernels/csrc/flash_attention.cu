@@ -23,7 +23,7 @@
 // causal rows start first.
 //   - Producer warpgroup (setmaxnreg down to 24 registers): one thread
 //     issues TMA copies, each work tile's Q, then its 128-row K and V tiles
-//     into a ring of two stages, each with its own `full` mbarrier (K and V
+//     into a ring of stages, each with its own `full` mbarrier (K and V
 //     apart, so q k^T starts before V lands) and `empty` mbarrier (K and V
 //     apart, so K is refilled as soon as its q k^T is done). The ring runs
 //     on across work tiles, and Q has a full/empty pair of its own, so the
@@ -50,8 +50,34 @@
 //     row sums, into a staging tile in the swizzled layout and one thread
 //     hands it to a TMA store (rows past S are not written), which drains
 //     while the next work tile runs.
+// Head dims 16, 64, 128 and 160 (every reference config's but MLA's).
+// Tiles sit in shared memory as whole 64-column boxes, so a head dim that
+// is not a multiple of 64 is padded there: hd 16 to 64 columns, hd 160 to
+// 192. The box past hd reads past the tensor map's first dimension, and
+// TMA fills those columns with zeros. q k^T stops at hd (one 16-deep step
+// at hd 16, ten at hd 160), so the padding costs nothing there; p v runs
+// over the padded width (n64 at hd 16, n128 + n64 at hd 160), whose extra
+// output columns are zeros that the output map clips on store. That is
+// idle tensor work: p v does 20% more products at hd 160 (10% of the
+// kernel's), and the kernel 2.5x the products at hd 16, which only the
+// reduced (TINY) configs run. The other way,
+// boxes of 32 or 16 columns with a 64- or 32-byte swizzle, needs its own
+// descriptor mode for both products and leaves the hd 64/128 code alone no
+// more than this does; the padding keeps one layout for every dim.
 // Shared memory: Q 32 KiB + 2 stages x (K + V) 128 KiB + output staging 32
-// KiB at hd 128 (96 KiB in all at hd 64). No atomics: every sum's order is fixed by the layout
+// KiB at hd 128 (96 KiB in all at hd 16 and 64). At hd 160 a padded tile is
+// 48 KiB, and two stages would take 288 KiB of the 227 KB a block may use:
+// that dim runs ONE stage (Q 48 + K 48 + V 48 + staging 48 = 192 KiB).
+// K and V keep separate barriers, so tile n's K still loads while tile
+// n - 1's p v reads V, and the producer issues K of tile n + 1 ahead of V
+// of tile n (K0 V0 K1 K2 V1 K3 V2 ..): K's slot frees when q k^T of tile n
+// is done, V's only when p v of tile n - 1 is. What one stage costs is that
+// a K load overlaps only the softmax and the p v in flight, and a V load
+// only the next q k^T, where two stages keep a whole tile ahead. The
+// consumers' registers at hd 160: 96
+// accumulators, the 64-float score tile and the 32-register P operand, all
+// live while the products run, under the 240 of setmaxnreg. No atomics:
+// every sum's order is fixed by the layout
 // (wgmma's fixed reduction order, the quad shuffles), and a work tile is
 // computed by one CTA whatever the grid, so a run gives the same bits
 // every time.
@@ -80,16 +106,22 @@ constexpr unsigned kFull = 0xffffffffu;
 // ---------------------------------------------------------------------------
 
 constexpr int kTile = 128;                 // query rows a work tile, K/V rows a tile
-constexpr int kStages = 2;                 // K/V ring depth
 constexpr int kWg = 128;                   // threads a warpgroup
 constexpr int kFlashThreads = 3 * kWg;     // producer + two consumers
 constexpr int kBoxCols = 64;               // bf16 columns in a 128-byte span
 constexpr int kBoxBytes = kTile * 128;     // one 128 x 64 box, 16 KiB
 constexpr int kConsumerThreads = 2 * kWg;
+constexpr int kMaxSmem = 232448;           // what one block may use
 
+// The shared-memory plan at head dim HD: tiles of whole 64-column boxes
+// (HD padded up to kCols), a K/V ring of kStages
 template <int HD>
 struct Layout {  // byte offsets from a 1024-byte aligned shared base
-  static constexpr int kBoxes = HD / kBoxCols;
+  static_assert(HD % 16 == 0 && HD >= 16 && HD <= 3 * kBoxCols,
+                "head dims of 16-deep steps, padded to at most three boxes");
+  static constexpr int kBoxes = (HD + kBoxCols - 1) / kBoxCols;
+  static constexpr int kCols = kBoxes * kBoxCols;  // p v's width
+  static constexpr int kStages = kBoxes > 2 ? 1 : 2;  // K/V ring depth
   static constexpr int kTileBytes = kBoxes * kBoxBytes;
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kTileBytes;
@@ -99,6 +131,7 @@ struct Layout {  // byte offsets from a 1024-byte aligned shared base
   // mbarriers: Q full, Q empty; per stage K full, V full, K empty, V empty
   static constexpr int kBytes = kBar + 8 * (2 + 4 * kStages);
   static constexpr int kSmem = kBytes + 1024;  // slack to align the base
+  static_assert(kSmem <= kMaxSmem, "the plan exceeds a block's shared memory");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -295,13 +328,24 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&d)[HD / 2], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (HD == 64)
-    wgmma_rs_n64(d, a, db);
-  else
-    wgmma_rs_n128(d, a, db);
+// o (64 x C, fp32) += p v for one 16-deep step: V's 16 kv rows from shared
+// address `v` on, C its padded width (whole boxes, LBO one box): n64 or
+// n128, and at 192 columns n128 over the first two boxes beside n64 over
+// the third, one A operand for both
+template <int C>
+__device__ __forceinline__ void wgmma_pv(float (&d)[C / 2], const uint32_t (&a)[4],
+                                         uint32_t v) {
+  if constexpr (C == 64) {
+    wgmma_rs_n64(d, a, gmma_desc(v, kBoxBytes, 1024));
+  } else if constexpr (C == 128) {
+    wgmma_rs_n128(d, a, gmma_desc(v, kBoxBytes, 1024));
+  } else {
+    static_assert(C == 192, "p v over one, two or three boxes");
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[0]), a,
+                  gmma_desc(v, kBoxBytes, 1024));
+    wgmma_rs_n64(*reinterpret_cast<float(*)[32]>(&d[64]), a,
+                 gmma_desc(v + 2 * kBoxBytes, kBoxBytes, 1024));
+  }
 }
 
 // 2^x (the MUFU unit; flushes denormal results to zero)
@@ -393,14 +437,16 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
   const uint32_t sO = base + L::kO;
   // mbarriers: Q full, Q empty; per stage K full, V full, K empty, V empty
   const uint32_t bar_q = base + L::kBar, bar_q_empty = bar_q + 8;
-  auto bar = [&](int kind, int s) { return bar_q + 8u * (2 + kind * kStages + s); };
+  auto bar = [&](int kind, int s) {
+    return bar_q + 8u * (2 + kind * L::kStages + s);
+  };
   enum { K_FULL = 0, V_FULL = 1, K_EMPTY = 2, V_EMPTY = 3 };
   const int works = ((S + kTile - 1) / kTile) * H * B;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
     mbar_init(bar_q_empty, kConsumerThreads);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < L::kStages; ++s) {
       mbar_init(bar(K_FULL, s), 1);
       mbar_init(bar(V_FULL, s), 1);
       mbar_init(bar(K_EMPTY, s), kConsumerThreads);
@@ -425,20 +471,36 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
         mbar_expect_tx(bar_q, L::kTileBytes);
         for (int x = 0; x < L::kBoxes; ++x)
           tma_load_4d(sQ + x * kBoxBytes, &tq, x * kBoxCols, t.h, t.q0, t.b, bar_q);
-        for (int n = 0; n < t.nk; ++n, ++it) {
-          const int s = it % kStages;
-          const uint32_t free_parity = ((it / kStages) & 1) ^ 1;
-          mbar_wait(bar(K_EMPTY, s), free_parity);
-          mbar_expect_tx(bar(K_FULL, s), L::kTileBytes);
+        // kv tile n of this work tile into ring position it + n: K (v 0) or
+        // V (v 1), once the consumers have freed its slot
+        auto load = [&](int v, int n) {
+          const int pos = it + n, s = pos % L::kStages;
+          mbar_wait(bar(v ? V_EMPTY : K_EMPTY, s), ((pos / L::kStages) & 1) ^ 1);
+          mbar_expect_tx(bar(v ? V_FULL : K_FULL, s), L::kTileBytes);
+          const uint32_t dst = (v ? sV : sK) + s * L::kTileBytes;
           for (int x = 0; x < L::kBoxes; ++x)
-            tma_load_4d(sK + s * L::kTileBytes + x * kBoxBytes, &tk, x * kBoxCols,
-                        kvh, n * kTile, t.b, bar(K_FULL, s));
-          mbar_wait(bar(V_EMPTY, s), free_parity);
-          mbar_expect_tx(bar(V_FULL, s), L::kTileBytes);
-          for (int x = 0; x < L::kBoxes; ++x)
-            tma_load_4d(sV + s * L::kTileBytes + x * kBoxBytes, &tv, x * kBoxCols,
-                        kvh, n * kTile, t.b, bar(V_FULL, s));
+            tma_load_4d(dst + x * kBoxBytes, v ? &tv : &tk, x * kBoxCols, kvh,
+                        n * kTile, t.b, bar(v ? V_FULL : K_FULL, s));
+        };
+        if constexpr (L::kStages == 1) {
+          // one stage: K of tile n + 1 goes ahead of V of tile n. Its slot
+          // frees when q k^T of tile n is done, V's only when p v of tile
+          // n - 1 is (issued a step later), so K loads while the softmax
+          // and that p v run: K0 V0 K1 K2 V1 K3 V2 .. V(nk-1)
+          load(0, 0);
+          load(1, 0);
+          for (int n = 1; n < t.nk; ++n) {
+            load(0, n);
+            if (n >= 2) load(1, n - 1);
+          }
+          if (t.nk >= 2) load(1, t.nk - 1);
+        } else {
+          for (int n = 0; n < t.nk; ++n) {
+            load(0, n);
+            load(1, n);
+          }
         }
+        it += t.nk;
       }
     }
     return;
@@ -453,15 +515,16 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
   const int c2 = 2 * (lane % 4);                  // columns c2, c2 + 1 of each 8
   const float sl2 = scale * 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
 
-  float acc[HD / 2];
+  float acc[L::kCols / 2];
   float sc[64];
   uint32_t pa[8][4];
   int it = 0;  // K/V ring position, as the producer counts it
 
   // S = q k^T of ring slot `slot` into sc: 64 x 128, hd / 16 steps of depth
-  // 16 (32 bytes of a 128-byte row; the second box holds columns 64..127)
+  // 16 (32 bytes of a 128-byte row; box x holds columns 64 x .. 64 x + 63),
+  // none over the padding past hd
   auto issue_qk = [&](int slot) {
-    const uint32_t kt = sK + (slot % kStages) * L::kTileBytes;
+    const uint32_t kt = sK + (slot % L::kStages) * L::kTileBytes;
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
       const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
@@ -469,12 +532,13 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
                     gmma_desc(kt + off, 16, 1024), kk > 0);
     }
   };
-  // o += p v of ring slot `slot`: 8 steps of 16 kv rows (2 KiB of V each)
+  // o += p v of ring slot `slot`: 8 steps of 16 kv rows (2 KiB of V a box
+  // each), over the padded width
   auto issue_pv = [&](int slot) {
-    const uint32_t vt = sV + (slot % kStages) * L::kTileBytes;
+    const uint32_t vt = sV + (slot % L::kStages) * L::kTileBytes;
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk)
-      wgmma_pv<HD>(acc, pa[kk], gmma_desc(vt + kk * 16 * 128, kBoxBytes, 1024));
+      wgmma_pv<L::kCols>(acc, pa[kk], vt + kk * 16 * 128);
   };
   auto fence_sc = [&] {
 #pragma unroll
@@ -482,32 +546,32 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
   };
   auto fence_acc = [&] {
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) reg_fence(acc[i]);
+    for (int i = 0; i < L::kCols / 2; ++i) reg_fence(acc[i]);
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk)
 #pragma unroll
       for (int e = 0; e < 4; ++e) reg_fence(pa[kk][e]);
   };
-  auto parity = [](int slot) { return (uint32_t)((slot / kStages) & 1); };
+  auto parity = [](int slot) { return (uint32_t)((slot / L::kStages) & 1); };
 
   int j = 0;
   for (int w = blockIdx.x; w < works; w += gridDim.x, ++j) {
     const Work t = work_tile(w, S, H, B, causal);
     const int nk = t.nk, row0 = t.q0 + r0, first = it;
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < L::kCols / 2; ++i) acc[i] = 0.f;
     float m[2] = {kNegInf, kNegInf}, l[2], corr[2], rs[2];
 
     // kv tile 0: q k^T, then its softmax
     mbar_wait(bar_q, j & 1);
-    mbar_wait(bar(K_FULL, first % kStages), parity(first));
+    mbar_wait(bar(K_FULL, first % L::kStages), parity(first));
     fence_sc();
     wgmma_fence();
     issue_qk(first);
     wgmma_commit();
     wgmma_wait<0>();
     fence_sc();
-    mbar_arrive(bar(K_EMPTY, first % kStages));
+    mbar_arrive(bar(K_EMPTY, first % L::kStages));
     if (nk == 1) mbar_arrive(bar_q_empty);  // Q's last use in this tile
     softmax_tile(sc, m, corr, rs, sl2, nk == 1, row0, c2, S, causal);
     l[0] = rs[0];
@@ -518,26 +582,26 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
     // while that p v finishes
     for (int n = 1; n < nk; ++n) {
       const int cur = first + n, prev = cur - 1;
-      mbar_wait(bar(K_FULL, cur % kStages), parity(cur));
+      mbar_wait(bar(K_FULL, cur % L::kStages), parity(cur));
       fence_sc();
       fence_acc();
       wgmma_fence();
       issue_qk(cur);
       wgmma_commit();
-      mbar_wait(bar(V_FULL, prev % kStages), parity(prev));
+      mbar_wait(bar(V_FULL, prev % L::kStages), parity(prev));
       issue_pv(prev);
       wgmma_commit();
       wgmma_wait<1>();  // q k^T of tile n has landed
       fence_sc();
-      mbar_arrive(bar(K_EMPTY, cur % kStages));
+      mbar_arrive(bar(K_EMPTY, cur % L::kStages));
       if (n == nk - 1) mbar_arrive(bar_q_empty);
       softmax_tile(sc, m, corr, rs, sl2, n == nk - 1, row0, n * kTile + c2, S,
                    causal);
       wgmma_wait<0>();  // p v of tile n - 1 has landed
       fence_acc();
-      mbar_arrive(bar(V_EMPTY, prev % kStages));
+      mbar_arrive(bar(V_EMPTY, prev % L::kStages));
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+      for (int i = 0; i < L::kCols / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
       // l is this thread's share of the row sum; the quad adds at the end
       l[0] = l[0] * corr[0] + rs[0];
       l[1] = l[1] * corr[1] + rs[1];
@@ -545,14 +609,14 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
     }
     // the last kv tile's p v
     const int last = first + nk - 1;
-    mbar_wait(bar(V_FULL, last % kStages), parity(last));
+    mbar_wait(bar(V_FULL, last % L::kStages), parity(last));
     fence_acc();
     wgmma_fence();
     issue_pv(last);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc();
-    mbar_arrive(bar(V_EMPTY, last % kStages));
+    mbar_arrive(bar(V_EMPTY, last % L::kStages));
     it += nk;
 
 #pragma unroll
@@ -821,25 +885,38 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float
 }  // namespace
 
 // q (B, S, H, hd), k and v (B, S, KV, hd), out (B, S, H, hd): contiguous,
-// 16-byte aligned, bf16 (is_bf16) or fp32; hd 64 or 128; H % KV == 0;
-// B, S >= 1. scale is 1/sqrt(hd). lse: null (serving), or (B, H, S) fp32
-// that receives each row's log-sum-exp of the scaled scores (training).
-// Returns cudaGetLastError() (or cudaErrorInvalidValue for an hd without an
-// instance, or when a tensor map cannot be made).
+// 16-byte aligned, bf16 (is_bf16) or fp32; hd 16, 64, 128 or 160; H % KV
+// == 0; B, S >= 1. scale is 1/sqrt(hd). lse: null (serving), or (B, H, S)
+// fp32 that receives each row's log-sum-exp of the scaled scores
+// (training). Returns cudaGetLastError() (or cudaErrorInvalidValue for an
+// hd without an instance, or when a tensor map cannot be made).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
                                      void* out, float* lse, int B, int S, int H, int KV,
                                      int hd, float scale, int causal, int is_bf16,
                                      void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (hd == 64)
-    return (int)dispatch<64>(q, k, v, out, lse, B, S, H, KV, scale, causal, is_bf16, s);
-  if (hd == 128)
-    return (int)dispatch<128>(q, k, v, out, lse, B, S, H, KV, scale, causal, is_bf16, s);
-  return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 16:
+      return (int)dispatch<16>(q, k, v, out, lse, B, S, H, KV, scale, causal, is_bf16, s);
+    case 64:
+      return (int)dispatch<64>(q, k, v, out, lse, B, S, H, KV, scale, causal, is_bf16, s);
+    case 128:
+      return (int)dispatch<128>(q, k, v, out, lse, B, S, H, KV, scale, causal, is_bf16, s);
+    case 160:
+      return (int)dispatch<160>(q, k, v, out, lse, B, S, H, KV, scale, causal, is_bf16, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Dynamic shared memory a CTA of the bf16 kernel asks for at head dim hd
 // (0 for an hd without an instance).
 extern "C" int repro_flash_attention_smem(int hd) {
-  return hd == 64 ? Layout<64>::kSmem : (hd == 128 ? Layout<128>::kSmem : 0);
+  switch (hd) {
+    case 16: return Layout<16>::kSmem;
+    case 64: return Layout<64>::kSmem;
+    case 128: return Layout<128>::kSmem;
+    case 160: return Layout<160>::kSmem;
+    default: return 0;
+  }
 }

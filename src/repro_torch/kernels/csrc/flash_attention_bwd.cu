@@ -27,7 +27,7 @@
 // training path's shape (B 2, S 1024, H 32, KV 8, hd 64, causal) that is
 // 21.5 GFLOP on the bf16 tensor cores against 42 MB of q, k, v, o, dO
 // read and dq, dk, dv written. This design recomputes q k^T and dO v^T in
-// the dQ pass as well (seven products in all).
+// the dQ pass as well (seven products in all; eight past hd 128, below).
 //
 // Design, bf16 (the training path): four warps a CTA, each owning 16 rows
 // of the 64-row tile, with mma.sync m16n8k16 (bf16 in, fp32 accumulate).
@@ -39,8 +39,18 @@
 // the accumulators' layout straight into the A operand of the next product,
 // rounded to bf16 (as the reference's einsum attention rounds its
 // probabilities). Later work: wgmma with TMA-fed rings, as the forward.
+// Head dims 16, 64, 128 and 160. At hd 16 each product over hd is one
+// 16-deep step and the ldmatrix.trans operands one 16-column pair. At hd
+// 160 one dK/dV CTA would hold 2 x 80 fp32 accumulators a thread beside the
+// P and dS fragments (hd 128's 2 x 64 already take 253 registers), so past
+// hd 128 flash_bwd_dkdv runs as two launches over the same grid: the first
+// accumulates dV alone (P^T dO), the second dK alone (dS^T, which needs P
+// again). That recomputes K Q^T once more (8 products in all, not 7) and
+// reads Q and dO twice; it keeps one CTA the only writer of each output
+// element, the fixed order of every sum, and exact zeros where masked.
 // Design, fp32 (tests only): FMA loops over the same tiles, two threads a
-// row, as the forward's fp32 path.
+// row, as the forward's fp32 path; past hd 128 it splits dK and dV the
+// same way.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -50,6 +60,14 @@ namespace {
 
 constexpr int kRows = 64;      // rows of a query or key tile
 constexpr int kThreads = 128;  // four warps
+// what one flash_bwd_dkdv launch accumulates, a bit each: both gradients
+// up to hd 128, dV and then dK in two launches past it
+constexpr int kDv = 1, kDk = 2, kDkDv = kDv | kDk;
+template <int HD>
+constexpr bool split_dkdv() {
+  static_assert(HD % 16 == 0 && HD >= 16 && HD <= 160, "head dims of 16-deep steps");
+  return HD > 128;
+}
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -211,7 +229,7 @@ struct BwdSmem {
   static constexpr int kBytes = 4 * kTile * 2 + 2 * kRows * 4;
 };
 
-template <int HD>
+template <int HD, int PARTS>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -220,6 +238,7 @@ __global__ void __launch_bounds__(kThreads)
                         int KV, float scale, int causal) {
   using L = BwdSmem<HD>;
   constexpr int LD = L::LD;
+  constexpr bool kWantV = PARTS & kDv, kWantK = PARTS & kDk;
   extern __shared__ __align__(16) unsigned char smem_dkdv[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_dkdv);
   bf16* Vs = Ks + L::kTile;
@@ -239,9 +258,9 @@ __global__ void __launch_bounds__(kThreads)
   const long long kv_off = ((long long)b * S * KV + kvh) * HD;
 
   load_rows<HD, LD>(Ks, k + kv_off, kv_stride, k0, S);
-  load_rows<HD, LD>(Vs, v + kv_off, kv_stride, k0, S);
+  if constexpr (kWantK) load_rows<HD, LD>(Vs, v + kv_off, kv_stride, k0, S);
 
-  float acc_k[HD / 8][4], acc_v[HD / 8][4];
+  float acc_k[HD / 8][4], acc_v[HD / 8][4];  // the one not wanted is dead
 #pragma unroll
   for (int nt = 0; nt < HD / 8; ++nt)
 #pragma unroll
@@ -277,20 +296,24 @@ __global__ void __launch_bounds__(kThreads)
           const bool live = q0 + qc < S && (!causal || kvr <= q0 + qc);
           p[nt][e] = live ? exp2f(fmaf(p[nt][e], sl2, -Ls[qc])) : 0.f;
         }
-      to_a(fa, p);
-      acc_across_rows<HD, LD>(acc_v, fa, dOs, lane);   // dV += P^T dO
-      rows_by_rows<HD, LD>(ds, Vs, wrow, dOs, g, c2);  // dP^T = V dO^T
+      if constexpr (kWantV) {
+        to_a(fa, p);
+        acc_across_rows<HD, LD>(acc_v, fa, dOs, lane);  // dV += P^T dO
+      }
+      if constexpr (kWantK) {
+        rows_by_rows<HD, LD>(ds, Vs, wrow, dOs, g, c2);  // dP^T = V dO^T
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+        for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          ds[nt][e] = p[nt][e] * (ds[nt][e] - Ds[nt * 8 + c2 + (e & 1)]);
-      to_a(fa, ds);
-      acc_across_rows<HD, LD>(acc_k, fa, Qs, lane);  // dK += dS^T Q
+          for (int e = 0; e < 4; ++e)
+            ds[nt][e] = p[nt][e] * (ds[nt][e] - Ds[nt * 8 + c2 + (e & 1)]);
+        to_a(fa, ds);
+        acc_across_rows<HD, LD>(acc_k, fa, Qs, lane);  // dK += dS^T Q
+      }
     }
   }
-  store_acc<HD>(dk + kv_off, kv_stride, kv_a, S, acc_k, scale, c2);
-  store_acc<HD>(dv + kv_off, kv_stride, kv_a, S, acc_v, 1.f, c2);
+  if constexpr (kWantK) store_acc<HD>(dk + kv_off, kv_stride, kv_a, S, acc_k, scale, c2);
+  if constexpr (kWantV) store_acc<HD>(dv + kv_off, kv_stride, kv_a, S, acc_v, 1.f, c2);
 }
 
 template <int HD>
@@ -384,7 +407,7 @@ constexpr size_t f32_smem() {
 
 // thread pair r (threads 2r, 2r + 1) owns key row r of the tile; `par`
 // picks its columns 2i + par
-template <int HD>
+template <int HD, int PARTS>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, const float* __restrict__ dout,
@@ -392,6 +415,7 @@ __global__ void __launch_bounds__(kThreads)
                        float* __restrict__ dk, float* __restrict__ dv, int S, int H, int KV,
                        float scale, int causal) {
   constexpr int LD = HD + 1, LDP = kRows + 1;
+  constexpr bool kWantV = PARTS & kDv, kWantK = PARTS & kDk;
   extern __shared__ float smem_dkdv_f32[];
   float* Ks = smem_dkdv_f32;
   float* Vs = Ks + kRows * LD;
@@ -408,9 +432,9 @@ __global__ void __launch_bounds__(kThreads)
   const long long q_stride = (long long)H * HD, kv_stride = (long long)KV * HD;
   const long long kv_off = ((long long)b * S * KV + kvh) * HD;
   load_rows_f32<LD>(Ks, k + kv_off, kv_stride, k0, S, HD);
-  load_rows_f32<LD>(Vs, v + kv_off, kv_stride, k0, S, HD);
+  if constexpr (kWantK) load_rows_f32<LD>(Vs, v + kv_off, kv_stride, k0, S, HD);
 
-  float ak[HD / 2], av[HD / 2];
+  float ak[HD / 2], av[HD / 2];  // the one not wanted is dead
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) ak[i] = av[i] = 0.f;
   const int nq = (S + kRows - 1) / kRows;
@@ -436,7 +460,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll 8
         for (int d = 0; d < HD; ++d) {
           s = fmaf(Ks[r * LD + d], Qs[c * LD + d], s);
-          dp = fmaf(Vs[r * LD + d], dOs[c * LD + d], dp);
+          if constexpr (kWantK) dp = fmaf(Vs[r * LD + d], dOs[c * LD + d], dp);
         }
         const bool live = q0 + c < S && (!causal || k0 + r <= q0 + c);
         const float p = live ? expf(s * scale - Ls[c]) : 0.f;
@@ -448,8 +472,8 @@ __global__ void __launch_bounds__(kThreads)
         const float p = Pt[r * LDP + c], ds = dSt[r * LDP + c];
 #pragma unroll
         for (int i = 0; i < HD / 2; ++i) {
-          av[i] = fmaf(p, dOs[c * LD + 2 * i + par], av[i]);
-          ak[i] = fmaf(ds, Qs[c * LD + 2 * i + par], ak[i]);
+          if constexpr (kWantV) av[i] = fmaf(p, dOs[c * LD + 2 * i + par], av[i]);
+          if constexpr (kWantK) ak[i] = fmaf(ds, Qs[c * LD + 2 * i + par], ak[i]);
         }
       }
     }
@@ -459,8 +483,8 @@ __global__ void __launch_bounds__(kThreads)
     float* dvr = dv + kv_off + (long long)(k0 + r) * kv_stride + par;
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) {
-      dkr[2 * i] = ak[i] * scale;
-      dvr[2 * i] = av[i];
+      if constexpr (kWantK) dkr[2 * i] = ak[i] * scale;
+      if constexpr (kWantV) dvr[2 * i] = av[i];
     }
   }
 }
@@ -534,33 +558,48 @@ __global__ void __launch_bounds__(kThreads)
 // host
 // ---------------------------------------------------------------------------
 
+// one launch of the dK/dV kernel for the gradients PARTS; the shared-memory
+// opt-in above the 48 KB default is set once an instance
+template <typename T, int HD, int PARTS>
+cudaError_t launch_dkdv(const T* q, const T* k, const T* v, const T* dout,
+                        const float* lse, const float* delta, T* dk, T* dv, int B, int S,
+                        int H, int KV, float scale, int causal, cudaStream_t stream) {
+  const dim3 grid((S + kRows - 1) / kRows, KV, B);
+  if constexpr (sizeof(T) == 2) {
+    constexpr int smem = BwdSmem<HD>::kBytes;
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        flash_bwd_dkdv_bf16<HD, PARTS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (attr != cudaSuccess) return attr;
+    flash_bwd_dkdv_bf16<HD, PARTS><<<grid, kThreads, smem, stream>>>(
+        q, k, v, dout, lse, delta, dk, dv, S, H, KV, scale, causal);
+  } else {
+    constexpr int smem = (int)f32_smem<HD>();
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        flash_bwd_dkdv_f32<HD, PARTS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (attr != cudaSuccess) return attr;
+    flash_bwd_dkdv_f32<HD, PARTS><<<grid, kThreads, smem, stream>>>(
+        q, k, v, dout, lse, delta, dk, dv, S, H, KV, scale, causal);
+  }
+  return cudaGetLastError();
+}
+
 template <typename T, int HD>
 cudaError_t launch_bwd(const T* q, const T* k, const T* v, const T* o, const T* dout,
                        const float* lse, float* delta, T* dq, T* dk, T* dv, int B, int S,
                        int H, int KV, float scale, int causal, cudaStream_t stream) {
   constexpr bool kBf16 = sizeof(T) == 2;
   // the shared-memory opt-in above the 48 KB default, once an instance
-  constexpr int smem = kBf16 ? BwdSmem<HD>::kBytes : (int)f32_smem<HD>();
   constexpr int smem_dq =
       kBf16 ? BwdSmem<HD>::kBytes
             : (int)(((size_t)4 * kRows * (HD + 1) + (size_t)kRows * (kRows + 1)) *
                     sizeof(float));
   static const cudaError_t attr = [] {
-    cudaError_t e;
-    if constexpr (kBf16) {
-      e = cudaFuncSetAttribute(flash_bwd_dkdv_bf16<HD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (e == cudaSuccess)
-        e = cudaFuncSetAttribute(flash_bwd_dq_bf16<HD>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
-    } else {
-      e = cudaFuncSetAttribute(flash_bwd_dkdv_f32<HD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (e == cudaSuccess)
-        e = cudaFuncSetAttribute(flash_bwd_dq_f32<HD>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
-    }
-    return e;
+    if constexpr (kBf16)
+      return cudaFuncSetAttribute(flash_bwd_dq_bf16<HD>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
+    else
+      return cudaFuncSetAttribute(flash_bwd_dq_f32<HD>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
   }();
   if (attr != cudaSuccess) return attr;
 
@@ -569,15 +608,18 @@ cudaError_t launch_bwd(const T* q, const T* k, const T* v, const T* o, const T* 
                                                                      HD, rows);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const dim3 grid_kv((S + kRows - 1) / kRows, KV, B), grid_q((S + kRows - 1) / kRows, H, B);
-  if constexpr (kBf16)
-    flash_bwd_dkdv_bf16<HD><<<grid_kv, kThreads, smem, stream>>>(
-        q, k, v, dout, lse, delta, dk, dv, S, H, KV, scale, causal);
-  else
-    flash_bwd_dkdv_f32<HD><<<grid_kv, kThreads, smem, stream>>>(
-        q, k, v, dout, lse, delta, dk, dv, S, H, KV, scale, causal);
-  e = cudaGetLastError();
+  if constexpr (split_dkdv<HD>()) {
+    e = launch_dkdv<T, HD, kDv>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale,
+                                causal, stream);
+    if (e != cudaSuccess) return e;
+    e = launch_dkdv<T, HD, kDk>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale,
+                                causal, stream);
+  } else {
+    e = launch_dkdv<T, HD, kDkDv>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale,
+                                  causal, stream);
+  }
   if (e != cudaSuccess) return e;
+  const dim3 grid_q((S + kRows - 1) / kRows, H, B);
   if constexpr (kBf16)
     flash_bwd_dq_bf16<HD><<<grid_q, kThreads, smem_dq, stream>>>(
         q, k, v, dout, lse, delta, dq, S, H, KV, scale, causal);
@@ -606,27 +648,42 @@ cudaError_t dispatch_bwd(const void* q, const void* k, const void* v, const void
 // The gradient of the forward's out = softmax(q k^T * scale) v: q, dq (B, S,
 // H, hd); k, v, dk, dv (B, S, KV, hd); o, dout (B, S, H, hd); lse (B, H, S)
 // fp32 from the training forward; delta (B, H, S) fp32 scratch. Contiguous,
-// 16-byte aligned, all bf16 (is_bf16) or all fp32; hd 64 or 128; H % KV ==
-// 0; B, S >= 1. Three launches on `stream`; returns cudaGetLastError() after
-// the first that fails (cudaErrorInvalidValue for an hd without an
-// instance).
+// 16-byte aligned, all bf16 (is_bf16) or all fp32; hd 16, 64, 128 or 160;
+// H % KV == 0; B, S >= 1. Three launches on `stream` (four at hd 160);
+// returns cudaGetLastError() after the first that fails
+// (cudaErrorInvalidValue for an hd without an instance).
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* o, const void* dout, const float* lse,
                                          float* delta, void* dq, void* dk, void* dv, int B,
                                          int S, int H, int KV, int hd, float scale,
                                          int causal, int is_bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (hd == 64)
-    return (int)dispatch_bwd<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV,
-                                 scale, causal, is_bf16, s);
-  if (hd == 128)
-    return (int)dispatch_bwd<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV,
-                                  scale, causal, is_bf16, s);
-  return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 16:
+      return (int)dispatch_bwd<16>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H,
+                                   KV, scale, causal, is_bf16, s);
+    case 64:
+      return (int)dispatch_bwd<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H,
+                                   KV, scale, causal, is_bf16, s);
+    case 128:
+      return (int)dispatch_bwd<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H,
+                                    KV, scale, causal, is_bf16, s);
+    case 160:
+      return (int)dispatch_bwd<160>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H,
+                                    KV, scale, causal, is_bf16, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Dynamic shared memory a CTA of the bf16 dK/dV or dQ kernel asks for at
 // head dim hd (0 for an hd without an instance).
 extern "C" int repro_flash_attention_bwd_smem(int hd) {
-  return hd == 64 ? BwdSmem<64>::kBytes : (hd == 128 ? BwdSmem<128>::kBytes : 0);
+  switch (hd) {
+    case 16: return BwdSmem<16>::kBytes;
+    case 64: return BwdSmem<64>::kBytes;
+    case 128: return BwdSmem<128>::kBytes;
+    case 160: return BwdSmem<160>::kBytes;
+    default: return 0;
+  }
 }

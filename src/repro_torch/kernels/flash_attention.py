@@ -11,7 +11,10 @@ warpgroup streams K/V tiles in with TMA through an mbarrier ring, two
 consumer warpgroups run ``wgmma`` products (q k^T from shared memory, p v
 with p from registers). fp32 (tests only) runs FMA loops over 64-row
 tiles. The kernel is bound by operations at the serving shape. No atomics:
-the same inputs give the same bits on every run. See the source's note.
+the same inputs give the same bits on every run. Head dims 16, 64, 128 and
+160, every reference config's but MLA's (16 and 160 padded to whole
+64-column boxes in shared memory; 160 with a one-stage K/V ring). See the
+source's note.
 
 Training: the TPU kernel has no gradient (the reference trains through
 autodiff of its einsum attention). :func:`flash_attention_lse` is the
@@ -29,7 +32,9 @@ import torch
 from repro_torch.kernels import ref
 
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-KERNEL_HEAD_DIMS = (64, 128)
+# the head dims with a kernel instance (16: the reduced configs; 64:
+# granite-3-2b; 128: llama3-8b; 160: stablelm-12b); any other raises
+KERNEL_HEAD_DIMS = (16, 64, 128, 160)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -40,9 +45,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     A CPU tensor takes the plain version (:func:`ref.attention_ref`, any
     head dim). A CUDA tensor launches the kernel (counted in
-    ``flash_attention.launches``) or raises: it takes bf16 or fp32, head dim
-    64 or 128 (``TypeError`` otherwise), contiguous 16-byte-aligned tensors,
-    and any S >= 1.
+    ``flash_attention.launches``) or raises: it takes bf16 or fp32, a head
+    dim of ``KERNEL_HEAD_DIMS`` (``TypeError`` otherwise, with no fallback to
+    the plain version), contiguous 16-byte-aligned tensors, and any S >= 1.
     """
     _check_shapes("flash_attention", q, k, v)
     if q.device.type == "cpu":
@@ -94,7 +99,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``out`` and ``lse``; dk and dv sum over each KV head's query heads. A
     CPU tensor takes the plain version (:func:`ref.attention_bwd_ref`,
     autograd through ``attention_ref``). A CUDA tensor launches the kernels
-    (three launches, counted once in ``flash_attention_bwd.launches``) or
+    (three launches, four at hd 160, counted once in
+    ``flash_attention_bwd.launches``) or
     raises, on the inputs :func:`flash_attention` takes, with ``out`` and
     ``dout`` shaped and typed as q and ``lse`` (B, H, S) fp32."""
     _check_shapes("flash_attention_bwd", q, k, v)
@@ -162,7 +168,8 @@ def _check_shapes(name: str, q: torch.Tensor, k: torch.Tensor,
 
 def _check_card(name: str, q: torch.Tensor, *others: torch.Tensor) -> None:
     """What the kernels take: one CUDA device, bf16 or fp32 of one dtype,
-    head dim 64 or 128, contiguous 16-byte-aligned tensors."""
+    a head dim of ``KERNEL_HEAD_DIMS``, contiguous 16-byte-aligned
+    tensors."""
     if q.device.type != "cuda" or any(t.device != q.device for t in others):
         raise ValueError(f"{name}: unsupported devices "
                          f"{[str(t.device) for t in (q, *others)]}")

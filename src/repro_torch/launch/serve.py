@@ -5,7 +5,9 @@ cache (``repro/launch/serve.py``).
 --prompt-len 32 --gen 16 --device cpu`` runs a batch of synthetic prompts
 through prefill, then decode steps, and prints the reference's two lines.
 Without ``--device`` it runs on ``cuda`` (and raises without a card). The
-loop is :func:`generate`, which the tests and ``chip_smoke.py`` call too.
+weights are drawn on the host from ``--seed`` and moved to the device, so
+one command serves the same model on every device. The loop is
+:func:`generate`, which the tests and ``chip_smoke.py`` call too.
 """
 from __future__ import annotations
 
@@ -82,7 +84,9 @@ def prompts(cfg, batch: int, prompt_len: int, seed: int, device) -> torch.Tensor
     return torch.from_numpy(ids.astype(np.int32)).to(device)
 
 
-def main(argv=None):
+def main(argv=None) -> Generation:
+    """The CLI; returns the :class:`Generation` (its logits kept) to a
+    caller in the same process."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--tiny", action="store_true")
@@ -95,15 +99,16 @@ def main(argv=None):
 
     cfg = get_tiny(args.arch) if args.tiny else get_config(args.arch)
     dev = resolve_device(args.device)
-    model = build_model(cfg, dev, generator=torch.Generator(device=dev)
-                        .manual_seed(args.seed))
+    model = build_model(cfg, dev,
+                        generator=torch.Generator().manual_seed(args.seed))
     tokens = prompts(cfg, args.batch, args.prompt_len, args.seed, dev)
-    res = generate(model, tokens, args.gen)
+    res = generate(model, tokens, args.gen, keep_logits=True)
     steps = max(args.gen - 1, 1)
     print(f"prefill: {res.prefill_s:.3f}s  decode: "
           f"{res.decode_s / steps * 1e3:.1f} ms/tok  throughput: "
           f"{args.batch * (args.gen - 1) / max(res.decode_s, 1e-9):.1f} tok/s")
     print("generated token ids (first row):", res.tokens[0][:16].cpu().numpy())
+    return res
 
 
 if __name__ == "__main__":

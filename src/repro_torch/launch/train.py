@@ -3,7 +3,10 @@
 
 Runs the end-to-end loop, the relational token pipeline feeding the train
 step, on one device: ``cuda`` unless ``--device`` asks for another (and
-``cuda`` without a card raises).
+``cuda`` without a card raises). The weights are drawn on the host from
+``--seed`` and moved to the device, so one command trains the same model
+on every device; ``--log-every`` (10, as the reference's loop) sets which
+steps are logged and returned.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
         --tiny --steps 3 --batch 8 --seq 64 --device cpu
@@ -23,10 +26,13 @@ from repro_torch.data.pipeline import PipelineConfig, RelationalTokenPipeline
 from repro_torch.models.factory import build_model
 from repro_torch.train.loop import LoopConfig, run
 from repro_torch.train.optimizer import OptConfig
+from repro_torch.train.steps import bind_state
 from repro_torch.utils import resolve_device
 
 
-def main(argv=None):
+def main(argv=None) -> list[dict]:
+    """The CLI; returns the logged steps' metrics to a caller in the same
+    process."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--tiny", action="store_true",
@@ -44,6 +50,7 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--log-every", type=int, default=10)
     args = ap.parse_args(argv)
 
     if args.devices > 1 or args.model_axis != 1 or args.pod_axis != 1 or \
@@ -53,20 +60,21 @@ def main(argv=None):
             "port's mesh; ROADMAP.md queue 1 item 12.7 keeps them queued")
     cfg = get_tiny(args.arch) if args.tiny else get_config(args.arch)
     dev = resolve_device(args.device)
-    model = build_model(cfg, dev, generator=torch.Generator(device=dev)
-                        .manual_seed(args.seed))
+    model = build_model(cfg, dev,
+                        generator=torch.Generator().manual_seed(args.seed))
     pipe = RelationalTokenPipeline(PipelineConfig(
         seq_len=args.seq, global_batch=args.batch,
         vocab_size=cfg.vocab_size, seed=args.seed), device=dev)
     ocfg = OptConfig(lr=args.lr, warmup_steps=min(100, args.steps // 10 + 1),
                      total_steps=args.steps)
     lcfg = LoopConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
-                      ckpt_every=args.ckpt_every, log_every=10,
+                      ckpt_every=args.ckpt_every, log_every=args.log_every,
                       microbatches=args.microbatches,
                       compress_pod=args.compress_pod, seed=args.seed)
-    _, history = run(model, pipe, ocfg, lcfg)
+    _, history = run(model, pipe, ocfg, lcfg, state=bind_state(model))
     if history:
         print(f"final loss: {history[-1]['loss']:.4f}")
+    return history
 
 
 if __name__ == "__main__":

@@ -75,13 +75,15 @@ def build_model(cfg: ModelConfig, device: str | torch.device = "cuda", *,
                 generator: torch.Generator | None = None) -> Model:
     """A model of ``cfg`` with random weights on ``device`` (``cuda`` unless
     the caller asks for another; ``cuda`` without a card raises), drawn from
-    ``generator`` (one on ``device``; by default a new one seeded 0)."""
+    ``generator``: one on ``device`` (by default a new one seeded 0), or one
+    on the host, whose weights are then moved to ``device``, so that a seed
+    gives the same model on every device (as the reference's key does)."""
     dev = resolve_device(device)
     if cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.arch}: family {cfg.family!r} is not ported (dense only)")
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    elif generator.device.type != dev.type:
+    elif generator.device.type not in (dev.type, "cpu"):
         raise ValueError(f"generator on {generator.device}, model on {dev}")
-    return Model(cfg, generator)
+    return Model(cfg, generator).to(dev)

@@ -31,7 +31,8 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.bitonic import (bitonic_sort_permutation,  # noqa: E402
                                          bitonic_sort_tiles)
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    KERNEL_HEAD_DIMS, flash_attention)
 from repro_torch.kernels.hash64 import hash32, hash32_partition  # noqa: E402
 from repro_torch.kernels.histogram import bucket_histogram  # noqa: E402
 from repro_torch.kernels.segment_reduce import segment_reduce_tiles  # noqa: E402
@@ -402,6 +403,10 @@ def _qkv(b, s, h, kv, hd, seed, scale=1.0):
     # S around the CUDA kernel's 128-row tiles (one block of S rows here)
     (1, 127, 4, 2, 64, 128, 128),
     (1, 129, 4, 1, 128, 512, 512),
+    # the other head dims the CUDA kernels take: the TINY configs' 16 and
+    # stablelm-12b's 160, at S a multiple of the Pallas kernel's blocks
+    (2, 128, 4, 2, 16, 128, 128),
+    (1, 256, 4, 1, 160, 128, 128),
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_plain_matches_pallas_and_ref(shape, causal):
@@ -701,7 +706,7 @@ def test_cuda_segment_scan_float_sums_same_bits(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", KERNEL_HEAD_DIMS)
 def test_cuda_flash_attention_matches_plain(cuda, dtype, tol, hd):
     # S at and around the bf16 kernel's 128-row tiles and the fp32 one's
     # 64-row tiles, group sizes 1 and 4, causal or not

@@ -41,7 +41,7 @@ from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.models.factory import build_model  # noqa: E402
 from repro_torch.train.steps import make_decode_step, make_prefill_step  # noqa: E402
 
-ARCHS = ["llama3-8b", "granite-3-2b"]
+ARCHS = ["llama3-8b", "granite-3-2b", "stablelm-12b"]
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"f32": 1e-5, "bf16": 3e-2}
@@ -100,6 +100,17 @@ def test_config_copies_the_reference_value_for_value(arch, which):
     assert (t.hd, t.padded_vocab) == (j.hd, j.padded_vocab)
     assert [f.name for f in dataclasses.fields(ModelConfig)] == \
         [f.name for f in dataclasses.fields(JModelConfig)]
+
+
+def test_every_ported_config_has_flash_kernel_instances():
+    """The card's attention has an instance for the head dim of every
+    ported arch, full size and TINY: a dim without one raises there."""
+    from repro_torch.kernels.flash_attention import KERNEL_HEAD_DIMS
+
+    assert sorted(tconfigs.PORTED) == sorted(ARCHS)
+    for arch in tconfigs.PORTED:
+        for cfg in (tconfigs.get_config(arch), tconfigs.get_tiny(arch)):
+            assert cfg.hd in KERNEL_HEAD_DIMS, (arch, cfg.hd)
 
 
 def test_unported_arch_raises_naming_the_roadmap():

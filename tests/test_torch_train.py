@@ -325,7 +325,7 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", fa.KERNEL_HEAD_DIMS)
 def test_cuda_flash_backward_matches_autograd_through_plain(cuda, dtype, hd):
     # chip_smoke.py's check: each gradient, every 64-row tile against its
     # own plain norm (FLASH_BWD_TOL, FLASH_BWD_ATOL)
