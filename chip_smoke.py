@@ -64,8 +64,8 @@ Phases (any failed check raises, and the script exits nonzero):
    bytes, one SM's operations and the network's dependent chain, timed by
    a one-warp probe in this run (``bitonic_bound``). Before them, each
    instance of the kernels redesigned in the last rounds (flash_fwd_bf16
-   and the backward's flash_bwd_dkdv_bf16 and flash_bwd_dq_bf16 at every
-   head dim, seg_fill, seg_pass1, seg_pass2, scan_lookback, hist_regs,
+   and the backward's flash_bwd_prep, flash_bwd_dkdv_bf16, flash_bwd_sum
+   and flash_bwd_dq_bf16 at every head dim, seg_fill, seg_pass1, seg_pass2, scan_lookback, hist_regs,
    hash32_partition_kernel, bitonic_tile, bitonic_perm) as the build's
    ``-Xptxas -v`` reported it: registers, stack frame, spill bytes, static
    shared memory (flash's dynamic shared memory from the library), and
@@ -213,8 +213,10 @@ entries (``check_flash_train``): flash_attention_lse's out equal to the
 serving entry's and its lse against a float64 logsumexp;
 flash_attention_bwd against autograd through ``attention_ref`` at the
 training path's shape, llama3-8b's (hd 128), a stablelm-12b microbatch's
-(hd 160) and hd 16's, at S 1, 127, 1000, 1025 for every head dim, causal
-or not, bf16 and fp32, group size 1, each of dq, dk, dv in every 64-row
+(hd 160) and hd 16's, at S 1, 63, 64, 65, 127, 128, 129, 1000, 1025 (every
+tile edge of the backward) for every head dim, causal or not, bf16 and
+fp32, group sizes 1, 2, 4 and 8 (every split of the bf16 dK/dV launch),
+each of dq, dk, dv in every 64-row
 tile within ``FLASH_BWD_TOL`` of the tile's plain norm (a planted fault,
 the lse off by ln 2 past the first four tiles, must fail at hd 64, 160
 and 16), the same bits on two runs. Phase 7 times
@@ -452,7 +454,8 @@ PORTED_KERNELS = ("hash32_kernel", "hash32_partition_kernel", "hist_regs",
                   "hist_global", "hist_shared", "bitonic_tile", "bitonic_perm",
                   "seg_fill", "seg_pass1", "seg_pass2",
                   "scan_lookback", "flash_fwd_bf16", "flash_fwd_f32",
-                  "flash_bwd_dot", "flash_bwd_dkdv", "flash_bwd_dq")
+                  "flash_bwd_prep", "flash_bwd_dot", "flash_bwd_dkdv",
+                  "flash_bwd_sum", "flash_bwd_dq")
 
 
 class CheckFailed(RuntimeError):
@@ -495,13 +498,15 @@ def nvidia_smi() -> str:
 # the kernels whose build report phase 7 prints (those redesigned in the
 # last rounds, and flash's fp32 instances, which phase 2 checks), and the
 # op codes of the segment kernels
-REPORTED_KERNELS = ("flash_fwd_bf16", "flash_bwd_dkdv_bf16",
-                    "flash_bwd_dq_bf16", "flash_fwd_f32", "flash_bwd_dkdv_f32",
-                    "flash_bwd_dq_f32", "seg_fill", "seg_pass1", "seg_pass2",
+REPORTED_KERNELS = ("flash_fwd_bf16", "flash_bwd_prep", "flash_bwd_dkdv_bf16",
+                    "flash_bwd_sum", "flash_bwd_dq_bf16", "flash_fwd_f32",
+                    "flash_bwd_dkdv_f32", "flash_bwd_dq_f32", "seg_fill",
+                    "seg_pass1", "seg_pass2",
                     "scan_lookback", "hist_regs", "hash32_partition_kernel",
                     "bitonic_tile", "bitonic_perm")
 _OPS = {"0": "sum", "1": "min", "2": "max"}
-# flash_bwd_dkdv's PARTS: both gradients, or (past hd 128) one a launch
+# flash_bwd_dkdv_f32's PARTS: both gradients, or (past hd 128) one a
+# launch; the bf16 instances take hd alone
 _DKDV_PARTS = {"1": "dV", "2": "dK", "3": "dK+dV"}
 
 
@@ -519,7 +524,7 @@ def ptxas_report() -> list[dict]:
                 cur = None
                 if m:  # template arguments: Li128 (hd), fLi0 (float, sum),
                     # Lb1 (flash's LSE-writing training instance), Li160ELi1
-                    # (hd, the dK/dV launch's gradients)
+                    # (hd, the fp32 dK/dV launch's gradients)
                     args = m.group(2) or ""
                     t = {"f": "float", "i": "int"}.get(args[:1])
                     n = re.findall(r"Li(\d+)", args)
@@ -1116,20 +1121,35 @@ LIBRARY_SAME_FN = 5e-2
 FLASH_PLANTED_DIMS = (64, 160, 16)
 
 
+# sequence lengths that straddle every tile edge of the backward: the 64-row
+# key and query tiles of dK/dV and dQ's ring, dQ's 128-row query items and
+# the 128-row padding of the lse and D rows
+FLASH_TRAIN_SEQS = (1, 63, 64, 65, 127, 128, 129, 1000, 1025)
+# group sizes H / KV of the training checks: the bf16 dK/dV launch splits a
+# KV head's G query heads into up to G items where items are few, so 1, 2,
+# 4 and 8 give every split it takes at these shapes (on a 132-SM card: 1
+# at G 1 and on the path's shapes but hd 160's, 2 there, up to G below)
+FLASH_TRAIN_GROUPS = ((4, 4), (4, 2), (8, 2), (16, 2))
+
+
 def flash_train_cases():
     """(B, S, H, KV, hd, causal, dtype) of phase 2's training checks: the
     path's shape (granite-3-2b's heads, B 2, S 1024, bf16, causal),
     llama3-8b's (hd 128), one microbatch of phase 17's stablelm-12b (hd
-    160, B 1) and hd 16 at B 2; S 1, 127, 1000, 1025 (around the 64-row
-    tiles) for every head dim, causal or not, bf16 and fp32; group size 1
-    and 4."""
+    160, B 1) and hd 16 at B 2; every ``FLASH_TRAIN_SEQS`` at group size 4
+    for every head dim, causal or not, bf16 and fp32; and in bf16 every
+    other group of ``FLASH_TRAIN_GROUPS`` at S 129 and 1025, causal or
+    not."""
     bf, f32 = torch.bfloat16, torch.float32
     cases = [(2, 1024, 32, 8, 64, True, bf), (2, 1024, 32, 8, 128, True, bf),
              (1, 1024, 32, 8, 160, True, bf), (2, 1024, 32, 8, 16, True, bf)]
     cases += [(2 if s < 1025 else 1, s, 8, 2, hd, causal, dt)
               for dt in (bf, f32) for hd in KERNEL_HEAD_DIMS
-              for causal in (True, False) for s in (1, 127, 1000, 1025)]
-    cases += [(2, s, 4, 4, 64, True, bf) for s in (127, 1025)]
+              for causal in (True, False) for s in FLASH_TRAIN_SEQS]
+    cases += [(2 if s < 1025 else 1, s, h, kv, hd, causal, bf)
+              for hd in KERNEL_HEAD_DIMS for h, kv in FLASH_TRAIN_GROUPS
+              if (h, kv) != (8, 2) for causal in (True, False)
+              for s in (129, 1025)]
     return cases
 
 
@@ -2682,14 +2702,26 @@ def flash_train_timing(dev, timer, b, s, h, kv, hd) -> dict[str, dict]:
         check(lib_rel <= LIBRARY_SAME_FN,
               f"the library's flash backward differs from the plain version "
               f"by {lib_rel} of a tile's norm at {shape}")
+    # the launches' own device times, a call's mean over 10 (the Timer's
+    # reading also holds the host's work between them)
+    prof = profiled("flash_attention_bwd", lambda: [
+        flash_attention_bwd(q, k, v, out, lse, do) for _ in range(10)])
+    launch_ms = {}
+    for kname, ms in prof["top"]:
+        m = re.search(r"flash_bwd\w*(<[^>]*>)?", kname)
+        if m:
+            launch_ms[m.group(0)] = ms / 10
     res["flash_attention_bwd"] = dict(
         ms=bwd, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+        launch_ms=launch_ms, device_ms=sum(launch_ms.values()),
         max_abs_err=max(float((a.float() - w.float()).abs().max())
                         for a, w in zip(got, want)),
         tile_rel_err=max(e["rel"] for e in bwd_errors(got, want,
                                                       q.dtype).values()),
         library_tile_rel_err=lib_rel,
-        tflops=2.5 * fwd_ops / (bwd * 1e-3) / 1e12, shape=shape)
+        tflops=2.5 * fwd_ops / (bwd * 1e-3) / 1e12, shape=shape,
+        dkdv_splits=_build.library().repro_flash_attention_bwd_splits(
+            b, s, h, kv, 1))
     if lib_error is not None:
         res["flash_attention_bwd"]["library_error"] = lib_error
     return res
@@ -3343,9 +3375,15 @@ def main() -> None:
         hd = (re.search(r"<(\d+)", r["kernel"])
               if r["kernel"].startswith("flash") and "bf16" in r["kernel"]
               else None)
-        smem = (lib.repro_flash_attention_bwd_smem if "bwd" in r["kernel"]
-                else lib.repro_flash_attention_smem)
-        dyn = f", {smem(int(hd.group(1)))} B dynamic" if hd else ""
+        if hd and "bwd" in r["kernel"]:
+            dyn = lib.repro_flash_attention_bwd_smem(
+                int(hd.group(1)), int("_dq_" in r["kernel"]))
+        elif hd:
+            dyn = lib.repro_flash_attention_smem(int(hd.group(1)))
+        dyn = f", {dyn} B dynamic" if hd else ""
+        # flash's bf16 instances hold their tiles in registers by design
+        check(not hd or (r.get("spill_store_bytes"), r.get("spill_load_bytes"))
+              == (0, 0), f"ptxas: {r['kernel']} spills registers")
         say(f"[7] ptxas {r['kernel']}: {r.get('registers')} registers, stack "
             f"frame {r.get('stack_frame_bytes')} B, spills "
             f"{r.get('spill_store_bytes')} B stored / {r.get('spill_load_bytes')}"
@@ -3559,7 +3597,10 @@ def main() -> None:
             extra = (f"serving entry {t['serving_entry_ms']:.4f} ms, {lib_txt}"
                      if name == "flash_attention_lse" else
                      f"{t['tflops']:.1f} TFLOP/s, worst tile within "
-                     f"{t['tile_rel_err']:.3g} of its plain norm ({lib_txt})")
+                     f"{t['tile_rel_err']:.3g} of its plain norm ({lib_txt}); "
+                     f"dK/dV split {t['dkdv_splits']}; launches' device time "
+                     f"{t['device_ms']:.4f} ms (" + ", ".join(
+                         f"{k} {v:.4f}" for k, v in t["launch_ms"].items()) + ")")
             say(f"[7] {name}{suffix} at B {sh['B']}, S {sh['S']}, H {sh['H']}, "
                 f"KV {sh['KV']}, hd {sh['hd']}: {extra}, on {card}")
 

@@ -3,8 +3,9 @@ interface, bound with ``ctypes``.
 
 At first use every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all
 started together, for ``sm_90a``; the objects are linked into one ``.so``
-under ``<repo>/build/repro_torch_kernels/``, named by a hash of the sources
-and flags so that an edited source rebuilds. Nothing is compiled when the
+under ``<repo>/build/repro_torch_kernels/``, named by a hash of the sources,
+the headers they include (``csrc/*.cuh``) and the flags, so that an edited
+source or header rebuilds. Nothing is compiled when the
 module is imported: the CPU tests import every module and have no ``nvcc``.
 """
 from __future__ import annotations
@@ -49,9 +50,13 @@ SIGNATURES = {
     "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                               _I, _P],
     "repro_flash_attention_bwd": [_P] * 10 + [_I] * 5 + [_F, _I, _I, _P],
+    "repro_flash_attention_bwd_workspace": [_I] * 7,
+    "repro_flash_attention_bwd_splits": [_I] * 5,
     "repro_flash_attention_smem": [_I],
-    "repro_flash_attention_bwd_smem": [_I],
+    "repro_flash_attention_bwd_smem": [_I, _I],
 }
+# the entry points that return something else than int
+RESTYPES = {"repro_flash_attention_bwd_workspace": _LL}
 # per source of the last build in this process: (nvcc seconds, nvcc output)
 LOGS: dict[str, tuple[float, str]] = {}
 
@@ -68,12 +73,17 @@ def _nvcc() -> str:
 
 
 def sources() -> list[Path]:
+    """The translation units nvcc compiles, one process each."""
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"
@@ -126,7 +136,7 @@ def library() -> ctypes.CDLL:
     for name, args in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = args
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

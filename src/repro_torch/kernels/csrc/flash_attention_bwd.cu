@@ -1,66 +1,799 @@
 // Causal or bidirectional GQA flash attention, backward, for Hopper (sm_90a).
 //
-// The TPU kernel repro/kernels/flash_attention.py::flash_attention has no
-// gradient; the reference trains through autodiff of its einsum attention
-// (repro/models/layers.py::_sdpa). This is the gradient of the forward's
-// function, out = softmax(q k^T * scale [+ causal mask]) v, from the
-// forward's out and its row log-sum-exp lse (the training instance of
-// csrc/flash_attention.cu), in three launches:
-//   1. flash_bwd_dot: D = rowsum(dO o) in fp32, (B, H, S); one warp a row.
-//   2. flash_bwd_dkdv: one CTA per (64-row key tile, KV head, batch). It
-//      holds its K and V tiles in shared memory and loops over the G query
-//      heads of its KV head and, for each, over the query tiles that reach
-//      it (under causal, from its own tile on). Per query tile it recomputes
-//      P^T = exp(scale K Q^T - lse) (exactly 0 where masked: past S or
-//      above the diagonal), dP^T = V dO^T, dS^T = P^T (dP^T - D), and adds
-//      P^T dO into dV and dS^T Q into dK, in fp32 registers. dK and dV of a
-//      KV head sum over its G query heads inside one CTA: no atomics.
-//   3. flash_bwd_dq: one CTA per (64-row query tile, head, batch), looping
-//      over the key tiles that reach it: P, dP and dS again, dQ += dS K.
-// dQ and dK are scaled by `scale` once, at the end. Every sum's order is
-// fixed by the loops and the tile layout, and every output element is
-// written by one CTA, so a run gives the same bits every time. Any S >= 1:
-// rows past S read as zeros and are not written.
+// Replaces no TPU kernel: repro/kernels/flash_attention.py::flash_attention
+// has no gradient, and the reference trains through autodiff of its einsum
+// attention (repro/models/layers.py::_sdpa). This is the gradient of the
+// forward's function, out = softmax(q k^T * scale [+ causal mask]) v, from
+// the forward's out and its row log-sum-exp lse (the training instance of
+// csrc/flash_attention.cu). q, dq, o, dout (B, S, H, hd); k, v, dk, dv (B,
+// S, KV, hd), contiguous; query head h reads KV head h / (H / KV).
 //
 // Bound: operations. The five products of the gradient (q k^T recomputed,
-// dO v^T, p^T dO, dS^T q, dS k) are 2.5 times the forward's two; at the
-// training path's shape (B 2, S 1024, H 32, KV 8, hd 64, causal) that is
-// 21.5 GFLOP on the bf16 tensor cores against 42 MB of q, k, v, o, dO
-// read and dq, dk, dv written. This design recomputes q k^T and dO v^T in
-// the dQ pass as well (seven products in all; eight past hd 128, below).
+// dO v^T, p^T dO, dS^T q, dS k) are 2.5 times the forward's two: at the
+// training path's shape (B 2, S 1024, H 32, KV 8, hd 64, causal) 21.5
+// GFLOP on the bf16 tensor cores (0.0217 ms at 989 TFLOP/s) against 42 MB
+// of q, k, v, o, dO read and dq, dk, dv written (0.0104 ms at 3.35 TB/s).
+// The dQ pass recomputes q k^T and dO v^T: seven products in all.
 //
-// Design, bf16 (the training path): four warps a CTA, each owning 16 rows
-// of the 64-row tile, with mma.sync m16n8k16 (bf16 in, fp32 accumulate).
-// Tiles are staged synchronously into padded shared rows (hd + 8 bf16: the
-// 8 rows a fragment load touches fall on distinct banks). Operands whose
-// contraction runs along a shared row (K Q^T, V dO^T, Q K^T, dO V^T) are
-// read as 32-bit pairs; those contracted across rows (dO and Q under
-// P^T dO and dS^T Q, K under dS K) through ldmatrix.trans. P and dS go from
-// the accumulators' layout straight into the A operand of the next product,
-// rounded to bf16 (as the reference's einsum attention rounds its
-// probabilities). Later work: wgmma with TMA-fed rings, as the forward.
-// Head dims 16, 64, 128 and 160. At hd 16 each product over hd is one
-// 16-deep step and the ldmatrix.trans operands one 16-column pair. At hd
-// 160 one dK/dV CTA would hold 2 x 80 fp32 accumulators a thread beside the
-// P and dS fragments (hd 128's 2 x 64 already take 253 registers), so past
-// hd 128 flash_bwd_dkdv runs as two launches over the same grid: the first
-// accumulates dV alone (P^T dO), the second dK alone (dS^T, which needs P
-// again). That recomputes K Q^T once more (8 products in all, not 7) and
-// reads Q and dO twice; it keeps one CTA the only writer of each output
-// element, the fixed order of every sum, and exact zeros where masked.
-// Design, fp32 (tests only): FMA loops over the same tiles, two threads a
-// row, as the forward's fp32 path; past hd 128 it splits dK and dV the
-// same way.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// Design, bf16 (the training path): the forward's machinery (sm90.cuh:
+// TMA, mbarrier rings, wgmma, setmaxnreg), three launches (four where dK/dV
+// is split).
+//   1. flash_bwd_prep: D = rowsum(dO o) and lse log2 e, fp32, (B, H, Sp),
+//      Sp = S rounded up to 64, plus 64: D 0 and lse +inf past S, so a query
+//      row past S gets P exactly 0 with no mask. Two lanes a row of o and
+//      dO, so a warp's loads cover whole sectors.
+//   2. flash_bwd_dkdv_bf16, persistent, warp specialised, three warpgroups.
+//      A work item is (64-row key tile, KV head, batch, group of query
+//      heads). The producer warpgroup (setmaxnreg down to 40) has one thread
+//      load the item's K and V once by TMA, then stream its query tiles,
+//      N rows of Q and dO with their N lse and D values (a bulk copy),
+//      through a ring of three stages with full/empty mbarriers that runs
+//      on across items. N is 128 at hd <= 64 and 64 above (registers and
+//      shared memory). The two consumer warpgroups (setmaxnreg up to 232)
+//      split each query tile's four products by role, over all 64 keys:
+//        consumer 0: S^T = K Q^T (wgmma m64nN, both operands K-major in
+//          shared memory), P^T = exp2(S^T scale log2 e - lse) in registers
+//          (scores above the diagonal set to -inf first, so P^T is exactly
+//          0 there), P^T handed to consumer 1, then dV += P^T dO (P^T from
+//          registers as bf16, dO the MN-major B operand: the forward's p v);
+//        consumer 1: dP^T = V dO^T (m64nN, K-major), dS^T = P^T (dP^T - D)
+//          in registers, then dK += dS^T Q (register A, Q MN-major: the tile
+//          that S^T reads K-major).
+//      P^T crosses in fp32, as each thread holds it (thread t of one
+//      warpgroup holds the elements thread t of the other needs): 64 x N a
+//      step, two buffers between named barriers, 16-byte stores and loads
+//      with no bank conflicts, so dS uses the fp32 P as the reference does.
+//      Inside a consumer, step n's first product is issued beside step n -
+//      1's accumulation, and step n's exponentials or dS run while that
+//      accumulation finishes. A consumer holds one gradient, 64 x hd padded
+//      to whole 64-column boxes (96 fp32 a thread at hd 160), beside N / 2
+//      for S^T or dP^T and N / 4 for the bf16 operand, so one launch takes
+//      every head dim with no spills (ptxas: 168 registers at the launch
+//      bound). Shared memory: 180 KiB at hd <= 64, 163 at 128, 227 at 160
+//      (K 24 + V 24, 3 x (Q 24 + dO 24), P^T 2 x 16).
+//   3. Balance. Under causal, key tile jt meets (S - 64 jt) / N query
+//      tiles a query head, so items differ up to S / 64 times. Items are
+//      ordered longest first and dealt to the persistent CTAs in a snake
+//      (CTA i takes item i, then item 2 grid - 1 - i, ...), which evens the
+//      sums: at the path's shape 256 items on 132 SMs, the longest CTA 36
+//      steps against an average of 34.9. Where the items are fewer than the
+//      SMs (B 1, S 1024, KV 8: 128 items, the longest 64 steps against an
+//      average of 33 at hd 160), each KV head's G query heads split into ns
+//      groups (ns a power of two dividing G, the least that gives as many
+//      items as SMs; under no mask, only where twice as many still fit in
+//      one round); each item then writes fp32 partials of dK and dV, and
+//      flash_bwd_sum adds the ns partials in a fixed order (2 ns B S KV hd x
+//      4 bytes of workspace: 21 MB at hd 160, B 1, ns 2, 256 items, the
+//      longest CTA 34 steps against 33). At ns 1 the consumers write dK
+//      scale and dV in bf16 from registers. Rows past S are not written.
+//   4. flash_bwd_dq_bf16, the same machinery: an item is (128-row query
+//      tile, head, batch), 64 rows a consumer, the longest causal rows
+//      first, snake-dealt; the producer loads its Q and dO once and streams
+//      N-row K and V tiles through a ring (three
+//      stages, two at hd 160). A step: S = Q K^T and dP = dO V^T (m64nN,
+//      K-major), dS = P (dP - D) in registers (keys past S and above the
+//      diagonal masked, only on the tiles that hold them), dQ += dS K
+//      (register A, K MN-major). dQ is written times scale, in bf16.
+// The consumers release a ring stage with one mbarrier arrival a warp. No
+// atomics: every output element is written by one CTA, and every sum's
+// order is fixed by the item, the loops and wgmma, so a run gives the same
+// bits every time. Any S >= 1: TMA reads rows past S as zeros. Head dims
+// 16, 64, 128 and 160; a tile sits in shared memory as whole 64-column
+// boxes (16 -> 64, 160 -> 192; TMA fills the padding with zeros): the
+// products over hd stop at hd, the accumulations run over the padded width.
+// Design, fp32 (tests only): FMA loops over synchronously staged 64-row
+// tiles, two threads a row; past hd 128 dK and dV take a launch each.
 #include <math.h>
-#include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
+constexpr float kLog2e = 1.4426950408889634f;
+
+using bf16 = __nv_bfloat16;
+
+// ---------------------------------------------------------------------------
+// bf16: TMA + wgmma, warp specialised
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdThreads = 3 * kWg;  // producer + two consumers
+constexpr int kConsumerThreads = 2 * kWg;
+constexpr int kConsumerWarps = kConsumerThreads / 32;
+// named barriers of the P^T handoff: full, then empty, one a buffer (0 is
+// __syncthreads')
+constexpr int kPFullBar = 1, kPEmptyBar = 3;
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // 384 x 168 in all
+constexpr int kBox64 = 64 * 128;    // one 64-row x 64-column box, 8 KiB
+constexpr int kBox128 = 128 * 128;  // one 128-row box, 16 KiB
+constexpr int kKeyRows = 64;        // keys of a dK/dV item
+constexpr int kDqRows = 128;        // queries of a dQ item, 64 a consumer
+
+// S padded for the lse and D rows: past the last 64-row tile one more, so
+// a 128-row ring tile that starts at a multiple of 64 stays inside
+__host__ __device__ __forceinline__ int padded_rows(int S) {
+  return (S + 63) / 64 * 64 + 64;
+}
+
+// a head dim as whole 64-column boxes, and the width N of the tiles the
+// consumers' first products run over (queries of a dK/dV ring tile, keys of
+// a dQ ring tile): 128 where the registers and shared memory allow, so a
+// step's fixed costs (barriers, the P^T handoff) come half as often
+template <int HD>
+struct Tiles {
+  static_assert(HD % 16 == 0 && HD >= 16 && HD <= 3 * kBoxCols,
+                "head dims of 16-deep steps, padded to at most three boxes");
+  static constexpr int kBoxes = (HD + kBoxCols - 1) / kBoxCols;
+  static constexpr int kCols = kBoxes * kBoxCols;  // the accumulations' width
+  static constexpr int kN = HD <= 64 ? 128 : 64;
+};
+
+// dK/dV: byte offsets from a 1024-byte aligned shared base
+template <int HD>
+struct DkdvLayout {
+  static constexpr int kN = Tiles<HD>::kN;
+  static constexpr int kKvBytes = Tiles<HD>::kBoxes * kBox64;        // 64 keys
+  static constexpr int kTileBytes = Tiles<HD>::kBoxes * kN * 128;    // N queries
+  static constexpr int kStages = 3;
+  static constexpr int kK = 0, kV = kKvBytes;
+  static constexpr int kRing = 2 * kKvBytes;
+  static constexpr int kStageBytes = 2 * kTileBytes;  // Q, then dO
+  static constexpr int kPBytes = 64 * kN * 4;         // a P^T tile in fp32
+  static constexpr int kP = kRing + kStages * kStageBytes;
+  static constexpr int kVecBytes = 2 * kN * 4;        // a stage's lse, then D
+  static constexpr int kVec = kP + 2 * kPBytes;
+  static constexpr int kBar = kVec + kStages * kVecBytes;
+  // mbarriers: K/V full, K/V empty; per stage full, empty
+  static constexpr int kBytes = kBar + 8 * (2 + 2 * kStages);
+  static constexpr int kSmem = kBytes + 1024;  // slack to align the base
+  static_assert(kSmem <= kMaxSmem, "the plan exceeds a block's shared memory");
+};
+
+// dQ: byte offsets from a 1024-byte aligned shared base
+template <int HD>
+struct DqLayout {
+  static constexpr int kN = Tiles<HD>::kN;
+  static constexpr int kQBytes = Tiles<HD>::kBoxes * kBox128;     // 128 queries
+  static constexpr int kKvBytes = Tiles<HD>::kBoxes * kN * 128;   // N keys
+  static constexpr int kStages = Tiles<HD>::kBoxes > 2 ? 2 : 3;
+  static constexpr int kQ = 0, kDo = kQBytes;
+  static constexpr int kRing = 2 * kQBytes;  // per stage: K, then V
+  static constexpr int kBar = kRing + kStages * 2 * kKvBytes;
+  // mbarriers: Q full, Q empty; per stage full, empty
+  static constexpr int kBytes = kBar + 8 * (2 + 2 * kStages);
+  static constexpr int kSmem = kBytes + 1024;
+  static_assert(kSmem <= kMaxSmem, "the plan exceeds a block's shared memory");
+};
+
+// one arrival a warp on an mbarrier that counts warps, once every lane of
+// the warp is done with what the arrival releases
+__device__ __forceinline__ void warp_arrive(uint32_t bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
+}
+
+// round r's work item of this CTA: item i, then 2 grid - 1 - i, ... (a
+// snake over items ordered longest first)
+__device__ __forceinline__ int snake(int r) {
+  return r * (int)gridDim.x + ((r & 1) ? (int)gridDim.x - 1 - (int)blockIdx.x
+                                       : (int)blockIdx.x);
+}
+
+// 1. D = rowsum(dO o) and lse log2 e into (B, H, Sp); past S, D 0 and lse
+// +inf. o and dO are read as they lie, (B S H) rows of hd: two lanes a row,
+// so each load of a warp covers whole 32-byte sectors of 16 rows, and a lane
+// has hd / 16 loads of each in flight; a shuffle closes the sums. rows = B S H.
+template <int HD>
+__global__ void __launch_bounds__(256)
+    flash_bwd_prep(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                   const float* __restrict__ lse, float* __restrict__ delta,
+                   float* __restrict__ lse2, int B, int S, int H, long long rows) {
+  constexpr int kChunks = HD / 16;  // 16-byte loads a lane and tensor
+  const int lane = threadIdx.x % 32, half = lane & 1;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long threads = (long long)gridDim.x * blockDim.x;
+  const int Sp = padded_rows(S);
+  for (long long base = tid / 32 * 16; base < rows; base += threads / 32 * 16) {
+    const long long r = base + lane / 2;
+    float acc = 0.f;
+    if (r < rows) {
+      const uint4* a = reinterpret_cast<const uint4*>(o + r * HD) + half;
+      const uint4* g = reinterpret_cast<const uint4*>(dout + r * HD) + half;
+      uint4 x[kChunks], y[kChunks];
+#pragma unroll
+      for (int i = 0; i < kChunks; ++i) {
+        x[i] = a[2 * i];
+        y[i] = g[2 * i];
+      }
+#pragma unroll
+      for (int i = 0; i < kChunks; ++i) {
+        const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x[i]);
+        const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y[i]);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float2 fx = __bfloat1622float2(xp[k]), fy = __bfloat1622float2(yp[k]);
+          acc = fmaf(fx.x, fy.x, fmaf(fx.y, fy.y, acc));
+        }
+      }
+    }
+    acc += __shfl_xor_sync(kFull, acc, 1);
+    if (r < rows && half == 0) {
+      const long long bs = r / H, bh = bs / S * H + r % H;
+      const int s = (int)(bs % S);
+      delta[bh * Sp + s] = acc;
+      lse2[bh * Sp + s] = lse[bh * S + s] * kLog2e;
+    }
+  }
+  const long long pads = (long long)B * H * (Sp - S);
+  for (long long i = tid; i < pads; i += threads) {
+    const long long at = i / (Sp - S) * Sp + S + i % (Sp - S);
+    delta[at] = 0.f;
+    lse2[at] = INFINITY;
+  }
+}
+
+// the bf16 A operand of N / 16 steps of depth 16 from a 64 x N tile in the
+// accumulator's layout (x[4 j + e]: row r0 + 8 (e >> 1), column 8 j + c2 +
+// (e & 1))
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&fa)[N / 16][4], const float (&x)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) fa[kk][e] = pack_f32(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1]);
+}
+
+// d (64 x N) = a b^T over HD: a 64 rows and b N rows of tiles K-major in
+// whole boxes, kBoxA and kBoxB bytes apart: HD / 16 steps, none over the
+// padding
+template <int HD, int N, int kBoxA, int kBoxB>
+__device__ __forceinline__ void issue_rows_by_rows(float (&d)[N / 2], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t in_box = (kk % 4) * 32;  // 16 columns, 32 of a row's 128 bytes
+    const uint64_t da = gmma_desc(a + (kk / 4) * kBoxA + in_box, 16, 1024);
+    const uint64_t db = gmma_desc(b + (kk / 4) * kBoxB + in_box, 16, 1024);
+    if constexpr (N == 128)
+      wgmma_ss_n128(d, da, db, kk > 0);
+    else
+      wgmma_ss_n64(d, da, db, kk > 0);
+  }
+}
+
+// acc (64 x the padded hd) += fa (64 x K of the contraction, registers) b,
+// b K rows of a tile whose boxes are kBox bytes apart (MN-major)
+template <int HD, int K, int kBox>
+__device__ __forceinline__ void issue_accumulate(float (&acc)[Tiles<HD>::kCols / 2],
+                                                 const uint32_t (&fa)[K / 16][4],
+                                                 uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+    wgmma_pv<Tiles<HD>::kCols, kBox>(acc, fa[kk], b + kk * 16 * 128);
+}
+
+template <int N>
+__device__ __forceinline__ void fence_all(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) reg_fence(x[i]);
+}
+template <int K>
+__device__ __forceinline__ void fence_all(uint32_t (&fa)[K][4]) {
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) reg_fence(fa[kk][e]);
+}
+
+// A dK/dV work item: keys k0 .. k0 + 63 of KV head kvh, batch b, against
+// query heads h0 .. h0 + nh - 1, each from query row q_start on
+struct KvItem {
+  int k0, kvh, b, split, h0, nh, q_start;
+};
+
+// item w: key tile first (the longest causal item first), then KV head,
+// batch and head group
+__device__ __forceinline__ KvItem kv_item(int w, int KV, int B, int G, int ns,
+                                          int causal) {
+  const int per = KV * B * ns, jt = w / per, r = w % per;
+  KvItem t;
+  t.k0 = jt * kKeyRows;
+  t.split = r % ns;
+  t.kvh = (r / ns) % KV;
+  t.b = (r / ns) / KV;
+  t.nh = G / ns;
+  t.h0 = t.kvh * G + t.split * t.nh;
+  t.q_start = causal ? t.k0 : 0;  // under causal: from the diagonal on
+  return t;
+}
+
+// 2. dK and dV. Consumer 0 holds dV, consumer 1 dK, each for the item's 64
+// keys; the ring's query tiles (N rows) pass both.
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const float* __restrict__ lse2, const float* __restrict__ delta,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv,
+                        float* __restrict__ part, int B, int S, int H, int KV, int ns,
+                        float scale, int causal) {
+  using L = DkdvLayout<HD>;
+  constexpr int kBoxes = Tiles<HD>::kBoxes, kCols = Tiles<HD>::kCols, N = L::kN;
+  constexpr int kBoxN = N * 128;  // a box of a ring tile
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);  // the same bytes, generic
+  const uint32_t sK = base + L::kK, sV = base + L::kV;
+  auto sQ = [&](int s) { return base + L::kRing + s * L::kStageBytes; };
+  auto sDo = [&](int s) { return sQ(s) + L::kTileBytes; };
+  const uint32_t bar0 = base + L::kBar, kv_full = bar0, kv_empty = bar0 + 8;
+  auto full = [&](int s) { return bar0 + 16 + 8 * s; };
+  auto empty = [&](int s) { return bar0 + 16 + 8 * (L::kStages + s); };
+  const int G = H / KV, Sp = padded_rows(S);
+  const int works = ((S + kKeyRows - 1) / kKeyRows) * KV * B * ns;
+  // query tiles a head of item t
+  auto tiles_of = [&](const KvItem& t) { return (S - t.q_start + N - 1) / N; };
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, kConsumerWarps);
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWg) {
+    // ---- producer: one thread issues every copy. A fresh barrier passes
+    // the wait for parity 1, so the first round of each ring goes straight on.
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int it = 0, j = 0;
+      for (int r = 0; r * (int)gridDim.x < works; ++r) {
+        const int w = snake(r);
+        if (w >= works) continue;
+        const KvItem t = kv_item(w, KV, B, G, ns, causal);
+        mbar_wait(kv_empty, (j & 1) ^ 1);
+        mbar_expect_tx(kv_full, 2 * L::kKvBytes);
+        for (int x = 0; x < kBoxes; ++x) {
+          tma_load_4d(sK + x * kBox64, &tk, x * kBoxCols, t.kvh, t.k0, t.b, kv_full);
+          tma_load_4d(sV + x * kBox64, &tv, x * kBoxCols, t.kvh, t.k0, t.b, kv_full);
+        }
+        ++j;
+        const int nt = tiles_of(t);
+        for (int hh = 0; hh < t.nh; ++hh) {
+          const int h = t.h0 + hh;
+          const long long vec = ((long long)t.b * H + h) * Sp;
+          for (int m = 0; m < nt; ++m, ++it) {
+            const int s = it % L::kStages, q0 = t.q_start + m * N;
+            mbar_wait(empty(s), ((it / L::kStages) & 1) ^ 1);
+            mbar_expect_tx(full(s), L::kStageBytes + L::kVecBytes);
+            for (int x = 0; x < kBoxes; ++x) {
+              tma_load_4d(sQ(s) + x * kBoxN, &tq, x * kBoxCols, h, q0, t.b, full(s));
+              tma_load_4d(sDo(s) + x * kBoxN, &tdo, x * kBoxCols, h, q0, t.b, full(s));
+            }
+            const uint32_t sv = base + L::kVec + s * L::kVecBytes;
+            bulk_load(sv, lse2 + vec + q0, N * 4, full(s));
+            bulk_load(sv + N * 4, delta + vec + q0, N * 4, full(s));
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: 0 runs S^T, P^T and dV; 1 runs dP^T, dS^T and dK ----
+  setmaxnreg_inc<kConsumerRegs>();
+  const int c = threadIdx.x / kWg - 1;
+  const int lt = threadIdx.x % kWg;
+  const int warp = lt / 32, lane = lt % 32;
+  const int r0 = 16 * warp + lane / 4;  // rows r0 and r0 + 8 of the key tile
+  const int c2 = 2 * (lane % 4);        // columns c2, c2 + 1 of each 8
+  const float sl2 = scale * kLog2e;
+
+  float acc[kCols / 2];  // dV (consumer 0) or dK (consumer 1)
+  float x[N / 2];        // S^T then P^T, or dP^T then dS^T
+  uint32_t fa[N / 16][4];  // the bf16 A operand of the accumulation
+  int it = 0, j = 0;     // ring position and item count, as the producer counts
+  int total = 0;         // ring steps of this CTA in all
+  for (int r = 0; r * (int)gridDim.x < works; ++r) {
+    const int w = snake(r);
+    if (w >= works) continue;
+    const KvItem t = kv_item(w, KV, B, G, ns, causal);
+    total += t.nh * tiles_of(t);
+  }
+
+  // the first product of ring slot `slot`: K Q^T or V dO^T
+  auto issue_first = [&](int slot) {
+    const int s = slot % L::kStages;
+    issue_rows_by_rows<HD, N, kBox64, kBoxN>(x, c == 0 ? sK : sV, c == 0 ? sQ(s) : sDo(s));
+  };
+  // the accumulation of ring slot `slot`: dV += P^T dO or dK += dS^T Q
+  auto issue_acc = [&](int slot) {
+    const int s = slot % L::kStages;
+    issue_accumulate<HD, N, kBoxN>(acc, fa, c == 0 ? sDo(s) : sQ(s));
+  };
+  // this thread's N / 4 of a step's lse (consumer 0) or D (consumer 1)
+  // values, by column: v[2 j + e] is column 8 j + c2 + e
+  float v[N / 4];
+  // v of ring slot `slot`, read as its stage lands and before its products
+  // are issued, so that the loads do not queue behind the products'
+  // shared-memory reads
+  auto column_values = [&](int slot) {
+    const float2* src = reinterpret_cast<const float2*>(
+        gbase + L::kVec + (slot % L::kStages) * L::kVecBytes + c * N * 4);
+#pragma unroll
+    for (int jj = 0; jj < N / 8; ++jj) {
+      const float2 p = src[(8 * jj + c2) / 2];
+      v[2 * jj] = p.x;
+      v[2 * jj + 1] = p.y;
+    }
+  };
+  // between the first product and the accumulation of ring slot `slot`:
+  // consumer 0 turns S^T into P^T (diag: the causal diagonal tile) and
+  // hands it over, consumer 1 takes it and turns dP^T into dS^T
+  auto middle = [&](int slot, bool diag) {
+    const int buf = slot & 1;
+    float4* pt = reinterpret_cast<float4*>(gbase + L::kP + buf * L::kPBytes);
+    if (c == 0) {
+      if (diag) {  // scores above the diagonal to -inf, so P^T is exactly 0
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i)
+          if (r0 + 8 * ((i >> 1) & 1) > 8 * (i >> 2) + c2 + (i & 1)) x[i] = -INFINITY;
+      }
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) x[i] = ex2(fmaf(x[i], sl2, -v[2 * (i >> 2) + (i & 1)]));
+      if (slot >= 2) named_sync(kPEmptyBar + buf, kConsumerThreads);
+#pragma unroll
+      for (int i = 0; i < N / 8; ++i)
+        pt[i * kWg + lt] = make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
+      named_arrive(kPFullBar + buf, kConsumerThreads);
+    } else {
+      named_sync(kPFullBar + buf, kConsumerThreads);
+#pragma unroll
+      for (int i = 0; i < N / 8; ++i) {
+        const float4 p = pt[i * kWg + lt];
+        const float pe[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k = 4 * i + e;
+          x[k] = pe[e] * (x[k] - v[2 * (k >> 2) + (k & 1)]);
+        }
+      }
+      // consumer 0 waits for this buffer again only if it has a step two on
+      if (slot + 2 < total) named_arrive(kPEmptyBar + buf, kConsumerThreads);
+    }
+  };
+  auto parity = [](int slot) { return (uint32_t)((slot / L::kStages) & 1); };
+
+  for (int r = 0; r * (int)gridDim.x < works; ++r) {
+    const int w = snake(r);
+    if (w >= works) continue;
+    const KvItem t = kv_item(w, KV, B, G, ns, causal);
+    const int per_head = tiles_of(t), steps = t.nh * per_head, first = it;
+#pragma unroll
+    for (int i = 0; i < kCols / 2; ++i) acc[i] = 0.f;
+    mbar_wait(kv_full, j & 1);
+
+    // query tile 0 of the item: the first product, then the middle
+    mbar_wait(full(first % L::kStages), parity(first));
+    column_values(first);
+    fence_all(x);
+    wgmma_fence();
+    issue_first(first);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_all(x);
+    if (steps == 1) warp_arrive(kv_empty);  // K and V's last use in this item
+    middle(first, causal != 0);
+    pack_a<N>(fa, x);
+
+    // tile n's first product runs beside tile n - 1's accumulation; tile n's
+    // middle runs while that accumulation finishes
+    for (int n = 1; n < steps; ++n) {
+      const int cur = first + n, prev = cur - 1;
+      mbar_wait(full(cur % L::kStages), parity(cur));
+      column_values(cur);
+      fence_all(x);
+      fence_all(acc);
+      fence_all(fa);
+      wgmma_fence();
+      issue_first(cur);
+      wgmma_commit();
+      issue_acc(prev);
+      wgmma_commit();
+      wgmma_wait<1>();  // the first product of tile n has landed
+      fence_all(x);
+      if (n == steps - 1) warp_arrive(kv_empty);
+      middle(cur, causal && n % per_head == 0);
+      wgmma_wait<0>();  // the accumulation of tile n - 1 has landed
+      fence_all(acc);
+      fence_all(fa);
+      warp_arrive(empty(prev % L::kStages));
+      pack_a<N>(fa, x);
+    }
+    const int last = first + steps - 1;
+    fence_all(acc);
+    fence_all(fa);
+    wgmma_fence();
+    issue_acc(last);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_all(acc);
+    warp_arrive(empty(last % L::kStages));
+    it += steps;
+    ++j;
+
+    // epilogue: rows k0 + r0 and k0 + r0 + 8, from registers; rows past S
+    // are not written
+    const int row_a = t.k0 + r0, row_b = row_a + 8;
+    const long long stride = (long long)KV * HD;
+    const long long at = ((long long)t.b * S * KV + t.kvh) * HD;
+    if (ns == 1) {
+      bf16* dst = (c == 0 ? dv : dk) + at;
+      const float mul = c == 0 ? 1.f : scale;
+#pragma unroll
+      for (int jj = 0; jj < HD / 8; ++jj) {
+        const int col = 8 * jj + c2;
+        if (row_a < S)
+          *reinterpret_cast<uint32_t*>(dst + row_a * stride + col) =
+              pack_f32(acc[4 * jj] * mul, acc[4 * jj + 1] * mul);
+        if (row_b < S)
+          *reinterpret_cast<uint32_t*>(dst + row_b * stride + col) =
+              pack_f32(acc[4 * jj + 2] * mul, acc[4 * jj + 3] * mul);
+      }
+    } else {
+      // partials: [dV, dK][split][B][S][KV][HD] fp32
+      float* dst = part + (long long)(c * ns + t.split) * B * S * KV * HD + at;
+#pragma unroll
+      for (int jj = 0; jj < HD / 8; ++jj) {
+        const int col = 8 * jj + c2;
+        if (row_a < S)
+          *reinterpret_cast<float2*>(dst + row_a * stride + col) =
+              make_float2(acc[4 * jj], acc[4 * jj + 1]);
+        if (row_b < S)
+          *reinterpret_cast<float2*>(dst + row_b * stride + col) =
+              make_float2(acc[4 * jj + 2], acc[4 * jj + 3]);
+      }
+    }
+  }
+}
+
+// the ns fp32 partials of dV and dK ([dV, dK][split][n]) added in order
+// into bf16 dv and dk (dk times scale); four elements a thread a step
+__global__ void __launch_bounds__(256)
+    flash_bwd_sum(const float4* __restrict__ part, uint2* __restrict__ dk,
+                  uint2* __restrict__ dv, long long n4, int ns, float scale) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += (long long)gridDim.x * blockDim.x) {
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      float4 a = part[(long long)g * ns * n4 + i];
+      for (int s = 1; s < ns; ++s) {
+        const float4 b = part[((long long)g * ns + s) * n4 + i];
+        a.x += b.x;
+        a.y += b.y;
+        a.z += b.z;
+        a.w += b.w;
+      }
+      const float mul = g == 0 ? 1.f : scale;
+      const uint2 out = make_uint2(pack_f32(a.x * mul, a.y * mul), pack_f32(a.z * mul, a.w * mul));
+      (g == 0 ? dv : dk)[i] = out;
+    }
+  }
+}
+
+// 4. dQ. Consumer c holds dQ of query rows q0 + 64 c .. + 63; the ring's
+// key tiles (N rows) pass both.
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const float* __restrict__ lse2, const float* __restrict__ delta,
+                      bf16* __restrict__ dq, int B, int S, int H, int KV, float scale,
+                      int causal) {
+  using L = DqLayout<HD>;
+  constexpr int kBoxes = Tiles<HD>::kBoxes, kCols = Tiles<HD>::kCols, N = L::kN;
+  constexpr int kBoxN = N * 128;  // a box of a ring tile
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base + L::kQ, sDo = base + L::kDo;
+  auto sK = [&](int s) { return base + L::kRing + s * 2 * L::kKvBytes; };
+  auto sV = [&](int s) { return sK(s) + L::kKvBytes; };
+  const uint32_t bar0 = base + L::kBar, q_full = bar0, q_empty = bar0 + 8;
+  auto full = [&](int s) { return bar0 + 16 + 8 * s; };
+  auto empty = [&](int s) { return bar0 + 16 + 8 * (L::kStages + s); };
+  const int nq = (S + kDqRows - 1) / kDqRows, nk = (S + N - 1) / N;
+  const int works = nq * H * B, Sp = padded_rows(S);
+  // item w: query tiles from the last one down (the longest causal rows
+  // first), then head and batch; its key tiles up to the diagonal
+  auto item = [&](int w, int& q0, int& h, int& b, int& nkt) {
+    const int level = w / (H * B), hb = w % (H * B);
+    h = hb % H;
+    b = hb / H;
+    q0 = (nq - 1 - level) * kDqRows;
+    const int diag = (q0 + kDqRows - 1) / N + 1;
+    nkt = causal && diag < nk ? diag : nk;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, kConsumerWarps);
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWg) {
+    // ---- producer: each item's Q and dO once, then its K/V tiles through
+    // the ring, which runs on across items
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int it = 0, j = 0;
+      for (int r = 0; r * (int)gridDim.x < works; ++r) {
+        const int w = snake(r);
+        if (w >= works) continue;
+        int q0, h, b, nkt;
+        item(w, q0, h, b, nkt);
+        const int kvh = h / (H / KV);
+        mbar_wait(q_empty, (j & 1) ^ 1);
+        mbar_expect_tx(q_full, 2 * L::kQBytes);
+        for (int x = 0; x < kBoxes; ++x) {
+          tma_load_4d(sQ + x * kBox128, &tq, x * kBoxCols, h, q0, b, q_full);
+          tma_load_4d(sDo + x * kBox128, &tdo, x * kBoxCols, h, q0, b, q_full);
+        }
+        ++j;
+        for (int n = 0; n < nkt; ++n, ++it) {
+          const int s = it % L::kStages;
+          mbar_wait(empty(s), ((it / L::kStages) & 1) ^ 1);
+          mbar_expect_tx(full(s), 2 * L::kKvBytes);
+          for (int x = 0; x < kBoxes; ++x) {
+            tma_load_4d(sK(s) + x * kBoxN, &tk, x * kBoxCols, kvh, n * N, b, full(s));
+            tma_load_4d(sV(s) + x * kBoxN, &tv, x * kBoxCols, kvh, n * N, b, full(s));
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  setmaxnreg_inc<kConsumerRegs>();
+  const int c = threadIdx.x / kWg - 1;
+  const int lt = threadIdx.x % kWg;
+  const int warp = lt / 32, lane = lt % 32;
+  const int r0 = 64 * c + 16 * warp + lane / 4;  // rows r0 and r0 + 8 of the item
+  const int c2 = 2 * (lane % 4);
+  const float sl2 = scale * kLog2e;
+
+  float acc[kCols / 2];    // dQ
+  float x[N / 2], y[N / 2];  // S then P then dS; dP
+  uint32_t fa[N / 16][4];  // dS in bf16, the A operand of dQ += dS K
+  int it = 0, j = 0;
+
+  auto issue_first = [&](int slot) {  // S = Q K^T and dP = dO V^T
+    const int s = slot % L::kStages;
+    issue_rows_by_rows<HD, N, kBox128, kBoxN>(x, sQ + c * 64 * 128, sK(s));
+    issue_rows_by_rows<HD, N, kBox128, kBoxN>(y, sDo + c * 64 * 128, sV(s));
+  };
+  auto issue_acc = [&](int slot) {  // dQ += dS K
+    issue_accumulate<HD, N, kBoxN>(acc, fa, sK(slot % L::kStages));
+  };
+  auto parity = [](int slot) { return (uint32_t)((slot / L::kStages) & 1); };
+
+  for (int r = 0; r * (int)gridDim.x < works; ++r) {
+    const int w = snake(r);
+    if (w >= works) continue;
+    int q0, h, b, nkt;
+    item(w, q0, h, b, nkt);
+    const int row0 = q0 + r0;
+    const long long vec = ((long long)b * H + h) * Sp + row0;
+    // rows past S: lse +inf and D 0 (padded), so P is 0
+    const float l2[2] = {lse2[vec], lse2[vec + 8]};
+    const float dd[2] = {delta[vec], delta[vec + 8]};
+#pragma unroll
+    for (int i = 0; i < kCols / 2; ++i) acc[i] = 0.f;
+    mbar_wait(q_full, j & 1);
+
+    // dS of key tile n from S and dP: scores past S and above the diagonal
+    // to -inf first, so P is exactly 0 there
+    auto middle = [&](int n) {
+      const int k0 = n * N;
+      if (k0 + N > S || (causal && k0 + N - 1 > q0 + 64 * c)) {
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i) {
+          const int col = k0 + 8 * (i >> 2) + c2 + (i & 1);
+          if (col >= S || (causal && col > row0 + 8 * ((i >> 1) & 1))) x[i] = -INFINITY;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) {
+        const int hf = (i >> 1) & 1;
+        x[i] = ex2(fmaf(x[i], sl2, -l2[hf])) * (y[i] - dd[hf]);
+      }
+    };
+
+    const int first = it;
+    mbar_wait(full(first % L::kStages), parity(first));
+    fence_all(x);
+    fence_all(y);
+    wgmma_fence();
+    issue_first(first);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_all(x);
+    fence_all(y);
+    if (nkt == 1) warp_arrive(q_empty);  // Q and dO's last use in this item
+    middle(0);
+    pack_a<N>(fa, x);
+
+    for (int n = 1; n < nkt; ++n) {
+      const int cur = first + n, prev = cur - 1;
+      mbar_wait(full(cur % L::kStages), parity(cur));
+      fence_all(x);
+      fence_all(y);
+      fence_all(acc);
+      fence_all(fa);
+      wgmma_fence();
+      issue_first(cur);
+      wgmma_commit();
+      issue_acc(prev);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_all(x);
+      fence_all(y);
+      if (n == nkt - 1) warp_arrive(q_empty);
+      middle(n);
+      wgmma_wait<0>();
+      fence_all(acc);
+      fence_all(fa);
+      warp_arrive(empty(prev % L::kStages));
+      pack_a<N>(fa, x);
+    }
+    const int last = first + nkt - 1;
+    fence_all(acc);
+    fence_all(fa);
+    wgmma_fence();
+    issue_acc(last);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_all(acc);
+    warp_arrive(empty(last % L::kStages));
+    it += nkt;
+    ++j;
+
+    // epilogue: dQ times scale, rows past S not written
+    const long long stride = (long long)H * HD;
+    bf16* dst = dq + ((long long)b * S * H + h) * HD;
+#pragma unroll
+    for (int jj = 0; jj < HD / 8; ++jj) {
+      const int col = 8 * jj + c2;
+      if (row0 < S)
+        *reinterpret_cast<uint32_t*>(dst + row0 * stride + col) =
+            pack_f32(acc[4 * jj] * scale, acc[4 * jj + 1] * scale);
+      if (row0 + 8 < S)
+        *reinterpret_cast<uint32_t*>(dst + (row0 + 8) * stride + col) =
+            pack_f32(acc[4 * jj + 2] * scale, acc[4 * jj + 3] * scale);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32: FMA loops (tests only)
+// ---------------------------------------------------------------------------
+
 constexpr int kRows = 64;      // rows of a query or key tile
 constexpr int kThreads = 128;  // four warps
-// what one flash_bwd_dkdv launch accumulates, a bit each: both gradients
+// what one flash_bwd_dkdv_f32 launch accumulates, a bit each: both gradients
 // up to hd 128, dV and then dK in two launches past it
 constexpr int kDv = 1, kDk = 2, kDkDv = kDv | kDk;
 template <int HD>
@@ -68,30 +801,19 @@ constexpr bool split_dkdv() {
   static_assert(HD % 16 == 0 && HD >= 16 && HD <= 160, "head dims of 16-deep steps");
   return HD > 128;
 }
-constexpr unsigned kFull = 0xffffffffu;
-constexpr float kLog2e = 1.4426950408889634f;
 
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-
-// ---------------------------------------------------------------------------
-// 1. D = rowsum(dO o)
-// ---------------------------------------------------------------------------
-
-// rows = B * S * H in o's (B, S, H) order; 8 warps a block, one a row
-template <typename T>
+// D = rowsum(dO o) in (B, H, S); rows = B * S * H in o's (B, S, H) order;
+// 8 warps a block, one a row
 __global__ void __launch_bounds__(256)
-    flash_bwd_dot(const T* __restrict__ o, const T* __restrict__ dout,
+    flash_bwd_dot(const float* __restrict__ o, const float* __restrict__ dout,
                   float* __restrict__ delta, int S, int H, int hd, long long rows) {
   const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
   if (row >= rows) return;  // whole warps
   const int lane = threadIdx.x % 32;
-  const T* a = o + row * hd;
-  const T* b = dout + row * hd;
+  const float* a = o + row * hd;
+  const float* b = dout + row * hd;
   float acc = 0.f;
-  for (int d = lane; d < hd; d += 32) acc = fmaf(to_f(a[d]), to_f(b[d]), acc);
+  for (int d = lane; d < hd; d += 32) acc = fmaf(a[d], b[d], acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(kFull, acc, off);
   if (lane == 0) {
@@ -100,295 +822,6 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// ---------------------------------------------------------------------------
-// bf16: mma.sync
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// d (16 x 8, fp32) += a (16 x 16, bf16, row) b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8 x 8 b16 matrices, transposed: the B operands of two n8 products
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// 64 rows of a (.., S, heads, HD) tensor from row `row0` on (rows past S as
-// zeros) into shared rows of LD bf16, 16 bytes a thread a step
-template <int HD, int LD>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long stride,
-                                          int row0, int S) {
-  constexpr int kChunks = HD / 8;
-  for (int i = threadIdx.x; i < kRows * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
-
-// s (16 x 64) = A B^T over HD: A the warp's 16 rows of `a` (shared, [row][HD]),
-// B the 64 rows of `b` (shared, [row][HD]); both contracted along a row
-template <int HD, int LD>
-__device__ __forceinline__ void rows_by_rows(float (&s)[8][4], const bf16* a, int arow,
-                                             const bf16* b, int g, int c2) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const int k0 = kk * 16 + c2;
-    uint32_t fa[4];
-    fa[0] = ld_u32(a + (arow + g) * LD + k0);
-    fa[1] = ld_u32(a + (arow + g + 8) * LD + k0);
-    fa[2] = ld_u32(a + (arow + g) * LD + k0 + 8);
-    fa[3] = ld_u32(a + (arow + g + 8) * LD + k0 + 8);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const bf16* brow = b + (nt * 8 + g) * LD + k0;
-      mma16816(s[nt], fa, ld_u32(brow), ld_u32(brow + 8));
-    }
-  }
-}
-
-// the 16 x 64 accumulator tile as bf16 A operands of four 16-deep steps
-__device__ __forceinline__ void to_a(uint32_t (&fa)[4][4], const float (&x)[8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    fa[kk][0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    fa[kk][1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    fa[kk][2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    fa[kk][3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-  }
-}
-
-// acc (16 x HD) += A (16 x 64, registers) B, B the 64 rows of `b` (shared,
-// [row][HD]) contracted across rows, read transposed by ldmatrix
-template <int HD, int LD>
-__device__ __forceinline__ void acc_across_rows(float (&acc)[HD / 8][4],
-                                                const uint32_t (&fa)[4][4],
-                                                const bf16* b, int lane) {
-  const int lrow = (lane & 7) + 8 * ((lane >> 3) & 1), lcol = 8 * (lane >> 4);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int np = 0; np < HD / 16; ++np) {
-      uint32_t fb[4];
-      ldsm_x4_trans(fb, smem_u32(b + (kk * 16 + lrow) * LD + np * 16 + lcol));
-      mma16816(acc[2 * np], fa[kk], fb[0], fb[1]);
-      mma16816(acc[2 * np + 1], fa[kk], fb[2], fb[3]);
-    }
-}
-
-// the warp's 16 x HD accumulator, times `mul`, to rows `row` and `row + 8`
-// of a (.., S, heads, HD) tensor (rows past S are not written)
-template <int HD>
-__device__ __forceinline__ void store_acc(bf16* dst, long long stride, int row, int S,
-                                          const float (&acc)[HD / 8][4], float mul,
-                                          int c2) {
-#pragma unroll
-  for (int nt = 0; nt < HD / 8; ++nt) {
-    const int col = nt * 8 + c2;
-    if (row < S)
-      *reinterpret_cast<uint32_t*>(dst + (long long)row * stride + col) =
-          pack_bf16(acc[nt][0] * mul, acc[nt][1] * mul);
-    if (row + 8 < S)
-      *reinterpret_cast<uint32_t*>(dst + (long long)(row + 8) * stride + col) =
-          pack_bf16(acc[nt][2] * mul, acc[nt][3] * mul);
-  }
-}
-
-template <int HD>
-struct BwdSmem {
-  static constexpr int LD = HD + 8;  // bf16 a shared row (bank-conflict padding)
-  static constexpr int kTile = kRows * LD;
-  // four bf16 tiles and two 64-float vectors
-  static constexpr int kBytes = 4 * kTile * 2 + 2 * kRows * 4;
-};
-
-template <int HD, int PARTS>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H,
-                        int KV, float scale, int causal) {
-  using L = BwdSmem<HD>;
-  constexpr int LD = L::LD;
-  constexpr bool kWantV = PARTS & kDv, kWantK = PARTS & kDk;
-  extern __shared__ __align__(16) unsigned char smem_dkdv[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_dkdv);
-  bf16* Vs = Ks + L::kTile;
-  bf16* Qs = Vs + L::kTile;
-  bf16* dOs = Qs + L::kTile;
-  float* Ls = reinterpret_cast<float*>(dOs + L::kTile);  // lse in log2 units
-  float* Ds = Ls + kRows;
-
-  const int jt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int k0 = jt * kRows, G = H / KV;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, c2 = 2 * (lane % 4);
-  const int wrow = 16 * warp;  // the warp's first row in the key tile
-  const int kv_a = k0 + wrow + g, kv_b = kv_a + 8;
-  const float sl2 = scale * kLog2e;
-  const long long q_stride = (long long)H * HD, kv_stride = (long long)KV * HD;
-  const long long kv_off = ((long long)b * S * KV + kvh) * HD;
-
-  load_rows<HD, LD>(Ks, k + kv_off, kv_stride, k0, S);
-  if constexpr (kWantK) load_rows<HD, LD>(Vs, v + kv_off, kv_stride, k0, S);
-
-  float acc_k[HD / 8][4], acc_v[HD / 8][4];  // the one not wanted is dead
-#pragma unroll
-  for (int nt = 0; nt < HD / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[nt][e] = acc_v[nt][e] = 0.f;
-
-  const int nq = (S + kRows - 1) / kRows;
-  for (int hh = 0; hh < G; ++hh) {
-    const int h = kvh * G + hh;
-    const long long q_off = ((long long)b * S * H + h) * HD;
-    const float* lrow = lse + ((long long)b * H + h) * S;
-    const float* drow = delta + ((long long)b * H + h) * S;
-    for (int qt = causal ? jt : 0; qt < nq; ++qt) {
-      const int q0 = qt * kRows;
-      __syncthreads();  // every warp is done with the last query tile
-      load_rows<HD, LD>(Qs, q + q_off, q_stride, q0, S);
-      load_rows<HD, LD>(dOs, dout + q_off, q_stride, q0, S);
-      if (threadIdx.x < kRows) {
-        const int qi = q0 + threadIdx.x;
-        Ls[threadIdx.x] = qi < S ? lrow[qi] * kLog2e : 0.f;
-        Ds[threadIdx.x] = qi < S ? drow[qi] : 0.f;
-      }
-      __syncthreads();
-
-      float p[8][4], ds[8][4];
-      uint32_t fa[4][4];
-      rows_by_rows<HD, LD>(p, Ks, wrow, Qs, g, c2);  // S^T = K Q^T
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qc = nt * 8 + c2 + (e & 1);  // query column in the tile
-          const int kvr = e < 2 ? kv_a : kv_b;
-          const bool live = q0 + qc < S && (!causal || kvr <= q0 + qc);
-          p[nt][e] = live ? exp2f(fmaf(p[nt][e], sl2, -Ls[qc])) : 0.f;
-        }
-      if constexpr (kWantV) {
-        to_a(fa, p);
-        acc_across_rows<HD, LD>(acc_v, fa, dOs, lane);  // dV += P^T dO
-      }
-      if constexpr (kWantK) {
-        rows_by_rows<HD, LD>(ds, Vs, wrow, dOs, g, c2);  // dP^T = V dO^T
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            ds[nt][e] = p[nt][e] * (ds[nt][e] - Ds[nt * 8 + c2 + (e & 1)]);
-        to_a(fa, ds);
-        acc_across_rows<HD, LD>(acc_k, fa, Qs, lane);  // dK += dS^T Q
-      }
-    }
-  }
-  if constexpr (kWantK) store_acc<HD>(dk + kv_off, kv_stride, kv_a, S, acc_k, scale, c2);
-  if constexpr (kWantV) store_acc<HD>(dv + kv_off, kv_stride, kv_a, S, acc_v, 1.f, c2);
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                      const float* __restrict__ lse, const float* __restrict__ delta,
-                      bf16* __restrict__ dq, int S, int H, int KV, float scale,
-                      int causal) {
-  using L = BwdSmem<HD>;
-  constexpr int LD = L::LD;
-  extern __shared__ __align__(16) unsigned char smem_dq[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_dq);
-  bf16* dOs = Qs + L::kTile;
-  bf16* Ks = dOs + L::kTile;
-  bf16* Vs = Ks + L::kTile;
-
-  const int nq = (S + kRows - 1) / kRows;
-  const int it = nq - 1 - (int)blockIdx.x;  // the longest causal rows first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = it * kRows, kvh = h / (H / KV);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, c2 = 2 * (lane % 4);
-  const int wrow = 16 * warp;
-  const int qa = q0 + wrow + g;  // this thread's rows qa and qa + 8
-  const float sl2 = scale * kLog2e;
-  const long long q_stride = (long long)H * HD, kv_stride = (long long)KV * HD;
-  const long long q_off = ((long long)b * S * H + h) * HD;
-  const long long kv_off = ((long long)b * S * KV + kvh) * HD;
-  const float* lrow = lse + ((long long)b * H + h) * S;
-  const float* drow = delta + ((long long)b * H + h) * S;
-  const float lse2[2] = {qa < S ? lrow[qa] * kLog2e : 0.f,
-                         qa + 8 < S ? lrow[qa + 8] * kLog2e : 0.f};
-  const float dd[2] = {qa < S ? drow[qa] : 0.f, qa + 8 < S ? drow[qa + 8] : 0.f};
-
-  load_rows<HD, LD>(Qs, q + q_off, q_stride, q0, S);
-  load_rows<HD, LD>(dOs, dout + q_off, q_stride, q0, S);
-
-  float acc[HD / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < HD / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-
-  const int nk = causal ? it + 1 : nq;
-  for (int jt = 0; jt < nk; ++jt) {
-    const int k0 = jt * kRows;
-    __syncthreads();  // every warp is done with the last key tile
-    load_rows<HD, LD>(Ks, k + kv_off, kv_stride, k0, S);
-    load_rows<HD, LD>(Vs, v + kv_off, kv_stride, k0, S);
-    __syncthreads();
-
-    float p[8][4], ds[8][4];
-    rows_by_rows<HD, LD>(p, Qs, wrow, Ks, g, c2);    // S = Q K^T
-    rows_by_rows<HD, LD>(ds, dOs, wrow, Vs, g, c2);  // dP = dO V^T
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kc = k0 + nt * 8 + c2 + (e & 1);  // key column
-        const int hi = e >> 1;
-        const bool live = kc < S && (!causal || kc <= qa + 8 * hi);
-        const float pe = live ? exp2f(fmaf(p[nt][e], sl2, -lse2[hi])) : 0.f;
-        ds[nt][e] = pe * (ds[nt][e] - dd[hi]);
-      }
-    uint32_t da[4][4];
-    to_a(da, ds);
-    acc_across_rows<HD, LD>(acc, da, Ks, lane);  // dQ += dS K
-  }
-  store_acc<HD>(dq + q_off, q_stride, qa, S, acc, scale, c2);
-}
-
-// ---------------------------------------------------------------------------
-// fp32: FMA loops (tests only)
-// ---------------------------------------------------------------------------
 
 template <int LD>
 __device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
@@ -554,136 +987,222 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+
 // ---------------------------------------------------------------------------
 // host
 // ---------------------------------------------------------------------------
 
-// one launch of the dK/dV kernel for the gradients PARTS; the shared-memory
-// opt-in above the 48 KB default is set once an instance
-template <typename T, int HD, int PARTS>
-cudaError_t launch_dkdv(const T* q, const T* k, const T* v, const T* dout,
-                        const float* lse, const float* delta, T* dk, T* dv, int B, int S,
-                        int H, int KV, float scale, int causal, cudaStream_t stream) {
-  const dim3 grid((S + kRows - 1) / kRows, KV, B);
-  if constexpr (sizeof(T) == 2) {
-    constexpr int smem = BwdSmem<HD>::kBytes;
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        flash_bwd_dkdv_bf16<HD, PARTS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (attr != cudaSuccess) return attr;
-    flash_bwd_dkdv_bf16<HD, PARTS><<<grid, kThreads, smem, stream>>>(
-        q, k, v, dout, lse, delta, dk, dv, S, H, KV, scale, causal);
-  } else {
-    constexpr int smem = (int)f32_smem<HD>();
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        flash_bwd_dkdv_f32<HD, PARTS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (attr != cudaSuccess) return attr;
-    flash_bwd_dkdv_f32<HD, PARTS><<<grid, kThreads, smem, stream>>>(
-        q, k, v, dout, lse, delta, dk, dv, S, H, KV, scale, causal);
+int sm_count() {
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n > 0 ? n : 1;
+  }();
+  return sms;
+}
+
+// the dK/dV launch's head groups a KV head: powers of two dividing G, the
+// least that gives as many items as SMs under causal (items of unequal
+// length), or the most that keeps the items no more than the SMs under no
+// mask (equal items: a second round would cost as much as a split saves)
+int dkdv_splits(int B, int S, int KV, int G, int causal) {
+  const long long items = (long long)((S + kKeyRows - 1) / kKeyRows) * KV * B;
+  const long long sms = sm_count();
+  int ns = 1;
+  while (G % (2 * ns) == 0 && (causal ? items * ns < sms : 2 * items * ns <= sms)) ns *= 2;
+  return ns;
+}
+
+// floats of workspace the backward takes: D and lse log2 e (B, H, Sp) and,
+// where dK/dV is split, its partials; D (B, H, S) in fp32
+long long bwd_workspace(int B, int S, int H, int KV, int hd, int causal, int is_bf16) {
+  if (!is_bf16) return (long long)B * H * S;
+  const int ns = dkdv_splits(B, S, KV, H / KV, causal);
+  return 2LL * B * H * padded_rows(S) + (ns > 1 ? 2LL * ns * B * S * KV * hd : 0);
+}
+
+int grid_of(long long works) { return (int)(works < sm_count() ? works : sm_count()); }
+
+template <int HD>
+cudaError_t launch_bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
+                            const bf16* dout, const float* lse, float* ws, bf16* dq,
+                            bf16* dk, bf16* dv, int B, int S, int H, int KV, float scale,
+                            int causal, cudaStream_t stream) {
+  // the shared-memory opt-in above the 48 KB default, once an instance
+  static const cudaError_t attr = [] {
+    const cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_bf16<HD>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               DkdvLayout<HD>::kSmem);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(flash_bwd_dq_bf16<HD>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                DqLayout<HD>::kSmem);
+  }();
+  if (attr != cudaSuccess) return attr;
+  const long long rows = (long long)B * H * padded_rows(S);
+  float* delta = ws;
+  float* lse2 = ws + rows;
+  float* part = lse2 + rows;
+  // 16 rows a warp, 128 a block
+  const long long prep_blocks = ((long long)B * S * H + 127) / 128;
+  flash_bwd_prep<HD><<<(unsigned)(prep_blocks < 16LL * sm_count() ? prep_blocks
+                                                                  : 16LL * sm_count()),
+                       256, 0, stream>>>(o, dout, lse, delta, lse2, B, S, H,
+                                         (long long)B * S * H);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+
+  // dK/dV: K and V 64 rows a box, Q and dO N; dQ: Q and dO 128, K and V N
+  constexpr int N = Tiles<HD>::kN;
+  CUtensorMap tq, tk, tv, tdo, tq2, tk2, tv2, tdo2;
+  if (!make_map(&tq, q, B, S, H, HD, N) || !make_map(&tk, k, B, S, KV, HD, kKeyRows) ||
+      !make_map(&tv, v, B, S, KV, HD, kKeyRows) || !make_map(&tdo, dout, B, S, H, HD, N) ||
+      !make_map(&tq2, q, B, S, H, HD, kDqRows) || !make_map(&tk2, k, B, S, KV, HD, N) ||
+      !make_map(&tv2, v, B, S, KV, HD, N) || !make_map(&tdo2, dout, B, S, H, HD, kDqRows))
+    return cudaErrorInvalidValue;
+
+  const int ns = dkdv_splits(B, S, KV, H / KV, causal);
+  const long long kv_works = (long long)((S + kKeyRows - 1) / kKeyRows) * KV * B * ns;
+  flash_bwd_dkdv_bf16<HD><<<grid_of(kv_works), kBwdThreads, DkdvLayout<HD>::kSmem, stream>>>(
+      tq, tk, tv, tdo, lse2, delta, dk, dv, part, B, S, H, KV, ns, scale, causal);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  if (ns > 1) {
+    const long long n4 = (long long)B * S * KV * HD / 4;
+    const long long blocks = (n4 + 255) / 256, cap = 8LL * sm_count();
+    flash_bwd_sum<<<(unsigned)(blocks < cap ? blocks : cap), 256, 0, stream>>>(
+        reinterpret_cast<const float4*>(part), reinterpret_cast<uint2*>(dk),
+        reinterpret_cast<uint2*>(dv), n4, ns, scale);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
   }
+  const long long q_works = (long long)((S + kDqRows - 1) / kDqRows) * H * B;
+  flash_bwd_dq_bf16<HD><<<grid_of(q_works), kBwdThreads, DqLayout<HD>::kSmem, stream>>>(
+      tq2, tk2, tv2, tdo2, lse2, delta, dq, B, S, H, KV, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
-cudaError_t launch_bwd(const T* q, const T* k, const T* v, const T* o, const T* dout,
-                       const float* lse, float* delta, T* dq, T* dk, T* dv, int B, int S,
-                       int H, int KV, float scale, int causal, cudaStream_t stream) {
-  constexpr bool kBf16 = sizeof(T) == 2;
-  // the shared-memory opt-in above the 48 KB default, once an instance
+// one launch of the fp32 dK/dV kernel for the gradients PARTS; the
+// shared-memory opt-in above the 48 KB default is set once an instance
+template <int HD, int PARTS>
+cudaError_t launch_dkdv_f32(const float* q, const float* k, const float* v,
+                            const float* dout, const float* lse, const float* delta,
+                            float* dk, float* dv, int B, int S, int H, int KV, float scale,
+                            int causal, cudaStream_t stream) {
+  const dim3 grid((S + kRows - 1) / kRows, KV, B);
+  constexpr int smem = (int)f32_smem<HD>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bwd_dkdv_f32<HD, PARTS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  flash_bwd_dkdv_f32<HD, PARTS><<<grid, kThreads, smem, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, S, H, KV, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_bwd_f32(const float* q, const float* k, const float* v, const float* o,
+                           const float* dout, const float* lse, float* delta, float* dq,
+                           float* dk, float* dv, int B, int S, int H, int KV, float scale,
+                           int causal, cudaStream_t stream) {
   constexpr int smem_dq =
-      kBf16 ? BwdSmem<HD>::kBytes
-            : (int)(((size_t)4 * kRows * (HD + 1) + (size_t)kRows * (kRows + 1)) *
-                    sizeof(float));
-  static const cudaError_t attr = [] {
-    if constexpr (kBf16)
-      return cudaFuncSetAttribute(flash_bwd_dq_bf16<HD>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
-    else
-      return cudaFuncSetAttribute(flash_bwd_dq_f32<HD>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
-  }();
+      (int)(((size_t)4 * kRows * (HD + 1) + (size_t)kRows * (kRows + 1)) * sizeof(float));
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bwd_dq_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
   if (attr != cudaSuccess) return attr;
 
   const long long rows = (long long)B * S * H;
-  flash_bwd_dot<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(o, dout, delta, S, H,
-                                                                     HD, rows);
+  flash_bwd_dot<<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(o, dout, delta, S, H, HD,
+                                                                 rows);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   if constexpr (split_dkdv<HD>()) {
-    e = launch_dkdv<T, HD, kDv>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale,
-                                causal, stream);
+    e = launch_dkdv_f32<HD, kDv>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale,
+                                 causal, stream);
     if (e != cudaSuccess) return e;
-    e = launch_dkdv<T, HD, kDk>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale,
-                                causal, stream);
+    e = launch_dkdv_f32<HD, kDk>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale,
+                                 causal, stream);
   } else {
-    e = launch_dkdv<T, HD, kDkDv>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale,
-                                  causal, stream);
+    e = launch_dkdv_f32<HD, kDkDv>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, scale,
+                                   causal, stream);
   }
   if (e != cudaSuccess) return e;
   const dim3 grid_q((S + kRows - 1) / kRows, H, B);
-  if constexpr (kBf16)
-    flash_bwd_dq_bf16<HD><<<grid_q, kThreads, smem_dq, stream>>>(
-        q, k, v, dout, lse, delta, dq, S, H, KV, scale, causal);
-  else
-    flash_bwd_dq_f32<HD><<<grid_q, kThreads, smem_dq, stream>>>(
-        q, k, v, dout, lse, delta, dq, S, H, KV, scale, causal);
+  flash_bwd_dq_f32<HD><<<grid_q, kThreads, smem_dq, stream>>>(q, k, v, dout, lse, delta, dq,
+                                                              S, H, KV, scale, causal);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t dispatch_bwd(const void* q, const void* k, const void* v, const void* o,
-                         const void* dout, const float* lse, float* delta, void* dq,
-                         void* dk, void* dv, int B, int S, int H, int KV, float scale,
-                         int causal, int is_bf16, cudaStream_t s) {
+                         const void* dout, const float* lse, float* ws, void* dq, void* dk,
+                         void* dv, int B, int S, int H, int KV, float scale, int causal,
+                         int is_bf16, cudaStream_t s) {
   if (is_bf16)
-    return launch_bwd<bf16, HD>((const bf16*)q, (const bf16*)k, (const bf16*)v,
-                                (const bf16*)o, (const bf16*)dout, lse, delta, (bf16*)dq,
-                                (bf16*)dk, (bf16*)dv, B, S, H, KV, scale, causal, s);
-  return launch_bwd<float, HD>((const float*)q, (const float*)k, (const float*)v,
-                               (const float*)o, (const float*)dout, lse, delta, (float*)dq,
-                               (float*)dk, (float*)dv, B, S, H, KV, scale, causal, s);
+    return launch_bwd_bf16<HD>((const bf16*)q, (const bf16*)k, (const bf16*)v,
+                               (const bf16*)o, (const bf16*)dout, lse, ws, (bf16*)dq,
+                               (bf16*)dk, (bf16*)dv, B, S, H, KV, scale, causal, s);
+  return launch_bwd_f32<HD>((const float*)q, (const float*)k, (const float*)v,
+                            (const float*)o, (const float*)dout, lse, ws, (float*)dq,
+                            (float*)dk, (float*)dv, B, S, H, KV, scale, causal, s);
 }
 
 }  // namespace
 
 // The gradient of the forward's out = softmax(q k^T * scale) v: q, dq (B, S,
 // H, hd); k, v, dk, dv (B, S, KV, hd); o, dout (B, S, H, hd); lse (B, H, S)
-// fp32 from the training forward; delta (B, H, S) fp32 scratch. Contiguous,
-// 16-byte aligned, all bf16 (is_bf16) or all fp32; hd 16, 64, 128 or 160;
-// H % KV == 0; B, S >= 1. Three launches on `stream` (four at hd 160);
-// returns cudaGetLastError() after the first that fails
-// (cudaErrorInvalidValue for an hd without an instance).
+// fp32 from the training forward; workspace fp32 scratch of
+// repro_flash_attention_bwd_workspace floats. Contiguous, 16-byte aligned,
+// all bf16 (is_bf16) or all fp32; hd 16, 64, 128 or 160; H % KV == 0; B,
+// S >= 1. bf16: three launches on `stream` (four where dK/dV is split);
+// fp32: three (four at hd 160). Returns cudaGetLastError() after the first
+// that fails (cudaErrorInvalidValue for an hd without an instance, or when
+// a tensor map cannot be made).
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* o, const void* dout, const float* lse,
-                                         float* delta, void* dq, void* dk, void* dv, int B,
-                                         int S, int H, int KV, int hd, float scale,
+                                         float* workspace, void* dq, void* dk, void* dv,
+                                         int B, int S, int H, int KV, int hd, float scale,
                                          int causal, int is_bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (hd) {
     case 16:
-      return (int)dispatch_bwd<16>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H,
+      return (int)dispatch_bwd<16>(q, k, v, o, dout, lse, workspace, dq, dk, dv, B, S, H,
                                    KV, scale, causal, is_bf16, s);
     case 64:
-      return (int)dispatch_bwd<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H,
+      return (int)dispatch_bwd<64>(q, k, v, o, dout, lse, workspace, dq, dk, dv, B, S, H,
                                    KV, scale, causal, is_bf16, s);
     case 128:
-      return (int)dispatch_bwd<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H,
+      return (int)dispatch_bwd<128>(q, k, v, o, dout, lse, workspace, dq, dk, dv, B, S, H,
                                     KV, scale, causal, is_bf16, s);
     case 160:
-      return (int)dispatch_bwd<160>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H,
+      return (int)dispatch_bwd<160>(q, k, v, o, dout, lse, workspace, dq, dk, dv, B, S, H,
                                     KV, scale, causal, is_bf16, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// Dynamic shared memory a CTA of the bf16 dK/dV or dQ kernel asks for at
-// head dim hd (0 for an hd without an instance).
-extern "C" int repro_flash_attention_bwd_smem(int hd) {
+// fp32 floats of workspace repro_flash_attention_bwd takes for these
+// arguments (it depends on the card's SM count where dK/dV is split).
+extern "C" long long repro_flash_attention_bwd_workspace(int B, int S, int H, int KV, int hd,
+                                                         int causal, int is_bf16) {
+  return bwd_workspace(B, S, H, KV, hd, causal, is_bf16);
+}
+
+// The dK/dV splits of the bf16 backward at these shapes (1: none).
+extern "C" int repro_flash_attention_bwd_splits(int B, int S, int H, int KV, int causal) {
+  return dkdv_splits(B, S, KV, H / KV, causal);
+}
+
+// Dynamic shared memory a CTA of the bf16 dK/dV (kernel 0) or dQ (kernel 1)
+// launch asks for at head dim hd (0 for an hd without an instance).
+extern "C" int repro_flash_attention_bwd_smem(int hd, int kernel) {
   switch (hd) {
-    case 16: return BwdSmem<16>::kBytes;
-    case 64: return BwdSmem<64>::kBytes;
-    case 128: return BwdSmem<128>::kBytes;
-    case 160: return BwdSmem<160>::kBytes;
+    case 16: return kernel ? DqLayout<16>::kSmem : DkdvLayout<16>::kSmem;
+    case 64: return kernel ? DqLayout<64>::kSmem : DkdvLayout<64>::kSmem;
+    case 128: return kernel ? DqLayout<128>::kSmem : DkdvLayout<128>::kSmem;
+    case 160: return kernel ? DqLayout<160>::kSmem : DkdvLayout<160>::kSmem;
     default: return 0;
   }
 }
+

@@ -20,7 +20,11 @@ Training: the TPU kernel has no gradient (the reference trains through
 autodiff of its einsum attention). :func:`flash_attention_lse` is the
 forward's training instance, which also writes each row's log-sum-exp;
 :func:`flash_attention_bwd` is the hand-written gradient from it (a
-``D = rowsum(dO o)`` pass, then dK/dV and dQ passes with ``mma.sync``,
+``D = rowsum(dO o)`` pass, then persistent dK/dV and dQ kernels built as
+the forward is: a producer warpgroup feeding TMA rings, two consumer
+warpgroups on ``wgmma``; one dK/dV launch at every head dim, its items
+dealt longest first, and where they are fewer than the SMs a KV head's
+query heads split over items whose fp32 partials a fixed-order pass adds;
 deterministic); :class:`FlashAttentionFn` joins the two under autograd.
 """
 from __future__ import annotations
@@ -99,7 +103,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``out`` and ``lse``; dk and dv sum over each KV head's query heads. A
     CPU tensor takes the plain version (:func:`ref.attention_bwd_ref`,
     autograd through ``attention_ref``). A CUDA tensor launches the kernels
-    (three launches, four at hd 160, counted once in
+    (three or four launches, counted once in
     ``flash_attention_bwd.launches``) or
     raises, on the inputs :func:`flash_attention` takes, with ``out`` and
     ``dout`` shaped and typed as q and ``lse`` (B, H, S) fp32."""
@@ -122,13 +126,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     if q.numel() == 0:
         return dq, dk, dv
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    check("flash_attention_bwd", library().repro_flash_attention_bwd(
+    lib = library()
+    kv, bf16 = k.shape[2], int(q.dtype == torch.bfloat16)
+    # D = rowsum(dO o), the lse rows the kernels read and, where the dK/dV
+    # launch splits a KV head's query heads, its fp32 partials
+    workspace = torch.empty(
+        lib.repro_flash_attention_bwd_workspace(b, s, h, kv, hd, int(causal), bf16),
+        dtype=torch.float32, device=q.device)
+    check("flash_attention_bwd", lib.repro_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, s, h, k.shape[2], hd,
-        1.0 / math.sqrt(hd), int(causal), int(q.dtype == torch.bfloat16),
-        stream_ptr(q)))
+        dout.data_ptr(), lse.data_ptr(), workspace.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, s, h, kv, hd, 1.0 / math.sqrt(hd),
+        int(causal), bf16, stream_ptr(q)))
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 

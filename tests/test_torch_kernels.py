@@ -11,6 +11,7 @@ CUDA kernel against its plain version on the card and skip without one.
 """
 import pathlib
 import re
+import shutil
 
 import pytest
 
@@ -719,3 +720,24 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, tol, hd):
                 want = tref.attention_ref(q, k, v, causal=causal)
                 torch.testing.assert_close(got, want, atol=tol, rtol=tol)
                 assert torch.equal(got, flash_attention(q, k, v, causal=causal))
+
+
+def test_library_path_follows_the_headers(tmp_path, monkeypatch):
+    # the library is named by a hash of the sources and of the headers they
+    # include, so an edit to a header alone builds a new one; nvcc compiles
+    # the *.cu sources only
+    from repro_torch.kernels import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert [p.name for p in _build.headers()] == ["sm90.cuh"]
+    assert _build.sources() and all(p.suffix == ".cu" for p in _build.sources())
+    before = _build.library_path()
+    header = csrc / "sm90.cuh"
+    text = header.read_bytes()
+    header.write_bytes(text + b"\n")
+    edited = _build.library_path()
+    assert edited != before and edited.parent == before.parent
+    header.write_bytes(text)
+    assert _build.library_path() == before
