@@ -140,8 +140,9 @@ Phases (any failed check raises, and the script exits nonzero):
 15. The harnesses: ``repro_torch.testing.plan_fuzz.run_fuzz`` over 100
    plans at 8 shards with the reference CI leg's seed 20260807 (every plan
    verifier-clean and its fused result equal to the eager oracle), and each
-   of the 16 relational cases of ``repro_torch.testing.dist_cases`` once,
-   held to what tests/test_dist.py asserts (``dist_cases.checks``).
+   of the 18 cases of ``repro_torch.testing.dist_cases`` (16 relational,
+   ``moe_ep`` and ``moe_decode_psum``) once, held to what
+   tests/test_dist.py asserts (``dist_cases.checks``).
 
 Then, with the relational tables freed, the serving path (the LM slice):
 
@@ -201,21 +202,53 @@ Then, with the serving model freed, the training path:
    profiled step.
 18. The reference's ``--tiny`` commands on the card, in process through
    the launchers' ``main``: ``launch.serve --arch {llama3-8b,
-   stablelm-12b} --tiny`` and ``launch.train --arch {granite-3-2b,
-   stablelm-12b} --tiny --steps 3`` (head dim 16), each against the same
-   command with ``--device cpu``: flash launched (counted), the prefill's
-   logits within ``LM_TOL``, every step's loss within ``TINY_LOSS_TOL``.
+   stablelm-12b, qwen2-moe-a2.7b, dbrx-132b} --tiny`` and ``launch.train
+   --arch {granite-3-2b, stablelm-12b, qwen2-moe-a2.7b, dbrx-132b} --tiny
+   --steps 3`` (head dim 16), each against the same command with
+   ``--device cpu`` (the MoE archs' CPU runs on the card runs' routes,
+   ``RouteTap``): flash and the histogram launched (counted), the
+   prefill's logits within ``LM_TOL``, every step's loss within
+   ``TINY_LOSS_TOL``.
+19. Mixture-of-Experts, with every earlier model freed: qwen2-moe-a2.7b at
+   full width and depth (24 layers, d 2048, 16/16 heads of 128, 60
+   experts top-4 of d_ff 1408 plus a shared SwiGLU of 5632, untied vocab
+   151936; 14.32 B random bf16 parameters, fp32 routers, from a
+   ``torch.Generator`` seeded 0) serves ``LM_BATCH`` x ``LM_PROMPT``
+   prompts and ``LM_GEN`` greedy tokens through ``generate``: flash once a
+   layer in the prefill (group size 1), bucket_histogram once a layer a
+   forward (the experts' dispatch: 24 in the prefill, 24 each decode
+   step); every logit finite; no host sync in a forward
+   (``set_sync_debug_mode``); the prefill's ``moe_dropped``; the plain run
+   teacher-forced on the kernel run's routes (``RouteTap``: the share of
+   (layer, token) routes its own top-k would change under
+   ``MOE_FLIP_SHARE``), every step's logits within ``LM_TOL``; the serving
+   invariant at capacity factor ``MOE_INVARIANT_CF`` (one causal forward
+   on prefill + decode's routes, within ``LM_TOL``, nothing dropped);
+   times, peak, one traced prefill and 8 decode steps (flash's and the
+   histogram's device ms). Then trained at full width and
+   ``MOE_TRAIN_LAYERS`` (4) of 24 layers (2.91 B parameters), 8 x 1024
+   tokens a step in its 4 microbatches: 2 layers against ``oracle_scope()``
+   with phase 16's tolerances, on the kernel runs' routes; a warm-up step
+   and 2 steps, each 32 LSE forwards, 16 backwards and 32 histograms;
+   finite losses and aux; one profiled step. Then dbrx-132b at full width
+   and ``MOE_BIG_LAYERS`` (4) of 40 layers (48/8 heads of 128: flash at
+   group size 6; 16 experts of d_ff 10752; 14.27 B parameters) served as
+   qwen2-moe-a2.7b is, untraced.
 Phase 2 also holds flash_attention against its plain version (S 1 to
 4096, around the 64-row fp32 and 128-row bf16 tiles, causal or not, group
-size 1 and 4, head dims 16, 64, 128 and 160, fp32 and bf16, scores up to
-+-1e4; every entry raises ``TypeError`` at hd 96), and the training
+size 1, 4 and 6, head dims 16, 64, 128 and 160, fp32 and bf16, the MoE
+prefill layers' shapes, scores up to +-1e4; every entry raises
+``TypeError`` at hd 96), bucket_histogram at the MoE dispatch's shapes
+(``MOE_HIST_SHAPES``: P 60 and 16, n 16 to 16384), and the training
 entries (``check_flash_train``): flash_attention_lse's out equal to the
 serving entry's and its lse against a float64 logsumexp;
 flash_attention_bwd against autograd through ``attention_ref`` at the
 training path's shape, llama3-8b's (hd 128), a stablelm-12b microbatch's
-(hd 160) and hd 16's, at S 1, 63, 64, 65, 127, 128, 129, 1000, 1025 (every
-tile edge of the backward) for every head dim, causal or not, bf16 and
-fp32, group sizes 1, 2, 4 and 8 (every split of the bf16 dK/dV launch),
+(hd 160), hd 16's and a qwen2-moe-a2.7b microbatch's (group size 1), at S
+1, 63, 64, 65, 127, 128, 129, 1000, 1025 (every tile edge of the backward)
+for every head dim, causal or not, bf16 and fp32 (and bf16 at group size
+6, dbrx-132b's), group sizes 1, 2, 4 and 8 (every split of the bf16 dK/dV
+launch),
 each of dq, dk, dv in every 64-row
 tile within ``FLASH_BWD_TOL`` of the tile's plain norm (a planted fault,
 the lse off by ln 2 past the first four tiles, must fail at hd 64, 160
@@ -225,21 +258,27 @@ flash_attention at the serving path's shape beside
 entries at one microbatch of the training path (B 2, S 1024, H 32, KV 8,
 hd 64) beside their plain versions and the calls SDPA's flash backend
 makes (``aten._scaled_dot_product_flash_attention``, which also returns
-the log-sum-exp, and its ``_backward`` on that call's out and lse).
+the log-sum-exp, and its ``_backward`` on that call's out and lse); and
+phase 19's shapes: bucket_histogram over qwen2-moe-a2.7b's prefill
+dispatch (P 60, n 16384) beside ``torch.bincount`` (``bucket_histogram@moe``),
+flash at its prefill layer (group size 1, ``flash_attention@g1``) and at
+dbrx-132b's (group size 6, ``flash_attention@g6``) beside SDPA.
 
 It prints one JSON line with the serving path's numbers, one with the main
 path's, one with phase 11's (``{"plan": ...}``), one with phases 12-13's
 (``{"serving": ...}``), one with phases 14-15's (``{"pipeline": ...}``),
 one with phase 16's (``{"train": ...}``), one with phase 17's
 (``{"stablelm": ...}``), one with phase 18's (``{"tiny": ...}``), one
-with every kernel's (the flash entries' other head dims as
-``<entry>@hd160`` and ``@hd16``),
+with phase 19's (``{"moe": ...}``), one with every kernel's (the flash
+entries' other head dims as ``<entry>@hd160`` and ``@hd16``, phase 19's
+shapes as ``bucket_histogram@moe``, ``flash_attention@g1`` and ``@g6``),
 then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line. Without a card it exits
 2 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -279,6 +318,7 @@ from repro_torch.kernels.histogram import bucket_histogram  # noqa: E402
 from repro_torch.kernels.segment_reduce import segment_reduce_tiles  # noqa: E402
 from repro_torch.kernels.segment_scan import segment_scan_tiles  # noqa: E402
 from repro_torch.launch.serve import generate, prompts  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models.factory import build_model  # noqa: E402
 from repro_torch.train import steps as TS  # noqa: E402
 from repro_torch.train.loop import LoopConfig, run  # noqa: E402
@@ -333,9 +373,12 @@ BIG_ARCH, BIG_TRAIN_LAYERS, BIG_TRAIN_STEPS = "stablelm-12b", 4, 2
 # phase 18: the reference's --tiny launcher commands, in process on the card
 # and with --device cpu (one model from one seed on both: the launchers draw
 # on the host), at their default sizes: serving (batch 4, prompt 32, 16
-# tokens) and 3 training steps (batch 16, seq 256)
-TINY_SERVE_ARCHS = ("llama3-8b", "stablelm-12b")
-TINY_TRAIN_ARCHS = ("granite-3-2b", "stablelm-12b")
+# tokens) and 3 training steps (batch 16, seq 256); the MoE archs' CPU runs
+# follow the card runs' routes (``RouteTap``)
+TINY_SERVE_ARCHS = ("llama3-8b", "stablelm-12b", "qwen2-moe-a2.7b",
+                    "dbrx-132b")
+TINY_TRAIN_ARCHS = ("granite-3-2b", "stablelm-12b", "qwen2-moe-a2.7b",
+                    "dbrx-132b")
 TINY_TRAIN_STEPS = 3
 # Each step's loss of the card's tiny run against the CPU's, absolute. The
 # card rounds P to bf16 in the kernel (the CPU's plain attention keeps fp32)
@@ -354,6 +397,37 @@ TINY_LOSS_TOL = 1e-3
 # wrong mask or a wrong head moves logits by their own scale (~0.2), four
 # times this.
 LM_TOL = 0.05
+# phase 19: qwen2-moe-a2.7b served at full width and depth (14.32 B
+# parameters: 60 experts on one card, fp32 routers) as phase 8 serves
+# llama3-8b, its serving invariant at capacity factor MOE_INVARIANT_CF (the
+# capacity depends on the routed token set, so prefill + decode equal one
+# causal forward only where nothing is dropped, as tests/test_serve.py
+# raises it); trained at full width and MOE_TRAIN_LAYERS of its 24 layers
+# (2.91 B parameters, ~55 GiB of training state), TRAIN_SEQ x TRAIN_BATCH
+# tokens a step in its 4 microbatches, a warm-up step and MOE_TRAIN_STEPS
+# steps; dbrx-132b served at full width and MOE_BIG_LAYERS of its 40 layers
+# (14.27 B parameters; 40 layers are ~264 GB)
+MOE_ARCH, MOE_BIG_ARCH = "qwen2-moe-a2.7b", "dbrx-132b"
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_BIG_LAYERS = 4, 2, 4
+MOE_INVARIANT_CF = 16.0
+# Routes are discrete: a token's top-k changes where two of its router
+# probabilities are closer than the rounding that separates two runs. The
+# kernel and plain runs differ in how attention rounds (bf16 P in the
+# kernel, ~2^-8 relative on each attention output), which moves the router's
+# inputs by ~0.4% of their RMS and its logits (~N(0, 1) at random weights)
+# by ~0.004; the gap between the k-th and the next of 60 such logits is
+# below that for a few percent of tokens, a share that grows with depth as
+# the runs drift apart. A wrong mask or head moves the router's inputs by
+# their own size and changes most tokens' routes: on a narrow qwen2-moe on
+# the CPU, 2^-8 noise on every attention output flips 2.1% of the routes, a
+# bidirectional mask 97.5% and a wrong head 100%
+# (tests/test_torch_moe.py holds both sides; the card's readings are in
+# PERF.md). So the share of (layer, token) routes that differ is held under
+# MOE_FLIP_SHARE, and the plain run then follows the kernel run's routes
+# (``RouteTap``), so that every row's routes agree and every row is held to
+# LM_TOL or phase 16's tolerances.
+MOE_FLIP_SHARE = 0.15
+
 # segment_reduce's pass-1 tile (csrc/segment_reduce.cu), whose edges phase 2
 # probes
 SEG_TILE = 4096
@@ -478,6 +552,63 @@ def set_launches(value: int = 0) -> None:
 
 def launches() -> dict[str, int]:
     return {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
+
+
+class RouteTap:
+    """The MoE layers' routes (each token's top-k expert ids), tapped at
+    ``models/moe._route``. ``record()`` keeps every call's ids in call
+    order; ``follow(calls)`` makes a second run of the same calls take those
+    ids instead of its own (the combine weights and the aux taken from its
+    own probabilities at them, ``moe.routed``) and counts ``flips``, the
+    (layer, token) routes whose own top-k set differs, out of ``routes``.
+    The call sequence must match the recorded one, remat recomputes
+    included."""
+
+    def __init__(self):
+        self.calls: list[torch.Tensor] = []
+        self.flips = 0
+        self.routes = 0
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        real = MOE._route
+        MOE._route = lambda w, xt, cfg: fn(real, w, xt, cfg)
+        try:
+            yield self
+        finally:
+            MOE._route = real
+
+    def record(self):
+        def tap(real, w, xt, cfg):
+            out = real(w, xt, cfg)
+            self.calls.append(out[0].detach())
+            return out
+        return self._patched(tap)
+
+    @contextlib.contextmanager
+    def follow(self, calls: list[torch.Tensor]):
+        pending = iter(calls)
+
+        def tap(real, w, xt, cfg):
+            own = real(w, xt, cfg)[0]
+            want = next(pending, None)
+            check(want is not None and tuple(want.shape) == tuple(own.shape),
+                  f"route tap: call {self.routes} of shape {tuple(own.shape)} "
+                  f"does not follow the recorded calls")
+            want = want.to(own.device)
+            self.flips += int((own.sort(-1).values !=
+                               want.sort(-1).values).any(-1).sum())
+            self.routes += own.shape[0]
+            return MOE.routed(MOE.router_probs(w, xt), want, cfg)
+
+        with self._patched(tap):
+            yield self
+        check(next(pending, None) is None,
+              "route tap: fewer calls than recorded")
+
+    @property
+    def share(self) -> float:
+        return self.flips / max(self.routes, 1)
 
 
 def sm_clock() -> str:
@@ -641,6 +772,7 @@ def phase_kernels(dev) -> None:
     check(torch.equal(bucket_histogram(odd, 37), ref.histogram_ref(odd, 37)),
           "histogram odd")
     check_histogram_edges(dev, rng)
+    check_histogram_moe(dev, rng)
 
     # bitonic: every tile size, u32 keys in int64 (wide and with many
     # duplicates), the u32 max key, repeated payloads
@@ -850,6 +982,30 @@ def check_histogram_edges(dev, rng) -> None:
         same("all ids P", torch.full((n,), p, dtype=torch.int32, device=dev), p)
 
 
+# bucket_histogram's shapes on the MoE path: (P experts, n = tokens x top-k)
+# for qwen2-moe-a2.7b's prefill (4 x 1024 tokens x 4), decode step (4 x 4)
+# and training microbatch (2 x 1024 x 4), dbrx-132b's prefill and decode
+MOE_HIST_SHAPES = ((60, 16384), (60, 16), (60, 8192), (16, 16384), (16, 16))
+
+
+def check_histogram_moe(dev, rng) -> None:
+    """bucket_histogram at ``MOE_HIST_SHAPES``: expert ids over [0, P) (the
+    local path routes every token), skewed to a few experts, and with -1
+    for the ids another shard owns (the decode psum path); the same counts
+    on three calls in a row."""
+    for p, n in MOE_HIST_SHAPES:
+        ids = [rng.integers(0, p, n), np.minimum(rng.geometric(0.3, n) - 1,
+                                                 p - 1),
+               np.where(rng.random(n) < 0.75, -1, rng.integers(0, p, n))]
+        for i, a in enumerate(ids):
+            x = torch.from_numpy(a.astype(np.int32)).to(dev)
+            want = ref.histogram_ref(x, p)
+            for call in range(3):
+                check(torch.equal(bucket_histogram(x, p), want),
+                      f"histogram at the MoE shape P={p} n={n} ids {i} "
+                      f"(call {call + 1} of 3)")
+
+
 def check_segment_reduce_edges(dev, rng) -> dict[str, float]:
     """segment_reduce where its design has edges, as groupby passes ids
     (``contiguous_runs=True``): runs that end exactly at the 4096-row tile
@@ -1038,8 +1194,10 @@ def check_flash(dev, rng) -> None:
     """flash_attention against attention_ref on the card: S at and around
     the fp32 kernel's 64-row tiles and the bf16 kernel's 128-row tiles, and
     long (1, 63, 64, 65, 127, 128, 129, 255, 1023, 1024, and 4096 at hd 64
-    and 128, 1025 at hd 16 and 160), causal or not, group size 1 and 4,
-    every head dim of ``KERNEL_HEAD_DIMS``, B up to 4, fp32 within 2e-5 and
+    and 128, 1025 at hd 16 and 160), causal or not, group size 1, 4 and 6
+    (dbrx-132b's), every head dim of ``KERNEL_HEAD_DIMS``, B up to 4, and
+    the MoE prefill layers' shapes (``(4, 1024, 16, 16, 128)``, ``(4, 1024,
+    48, 8, 128)``), fp32 within 2e-5 and
     bf16 within 2e-2 (``tests/test_kernels.py``'s tolerances: the softmax
     sums run in another order, and bf16 outputs of ~[2, 4) round one ulp,
     2^-6, apart); one case with scores scaled to +-1e4 (the online
@@ -1056,7 +1214,10 @@ def check_flash(dev, rng) -> None:
              for s, b in ((1, 4), (63, 3), (64, 2), (65, 4), (127, 3),
                           (128, 2), (129, 4), (255, 2), (1023, 2), (1024, 2),
                           (4096, 1) if hd in (64, 128) else (1025, 1))
-             for h, kv in ((8, 8), (8, 2))]
+             for h, kv in ((8, 8), (8, 2), (12, 2))]
+    # the MoE serving paths' prefill layers: qwen2-moe-a2.7b's group size 1
+    # (16/16 heads) and dbrx-132b's 6 (48/8)
+    cases += [(4, 1024, 16, 16, 128, True, 1.0), (4, 1024, 48, 8, 128, True, 1.0)]
     # q ~ N(0, 1e8), k ~ N(0, 1): scores q.k / sqrt(hd) ~ N(0, 1e8)
     cases.append((1, 130, 8, 2, 128, True, 1e4))
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
@@ -1130,22 +1291,30 @@ FLASH_TRAIN_SEQS = (1, 63, 64, 65, 127, 128, 129, 1000, 1025)
 # 4 and 8 give every split it takes at these shapes (on a 132-SM card: 1
 # at G 1 and on the path's shapes but hd 160's, 2 there, up to G below)
 FLASH_TRAIN_GROUPS = ((4, 4), (4, 2), (8, 2), (16, 2))
+# dbrx-132b's group size, 6 (48/8 heads): not a power of two, so the dK/dV
+# launch's dealing and splitting of a KV head's heads meet it at every S
+FLASH_TRAIN_G6 = (12, 2)
 
 
 def flash_train_cases():
     """(B, S, H, KV, hd, causal, dtype) of phase 2's training checks: the
     path's shape (granite-3-2b's heads, B 2, S 1024, bf16, causal),
     llama3-8b's (hd 128), one microbatch of phase 17's stablelm-12b (hd
-    160, B 1) and hd 16 at B 2; every ``FLASH_TRAIN_SEQS`` at group size 4
-    for every head dim, causal or not, bf16 and fp32; and in bf16 every
-    other group of ``FLASH_TRAIN_GROUPS`` at S 129 and 1025, causal or
-    not."""
+    160, B 1), hd 16 at B 2 and one microbatch of phase 19's qwen2-moe-a2.7b
+    (hd 128, group size 1, B 2); every ``FLASH_TRAIN_SEQS`` at group size 4
+    for every head dim, causal or not, bf16 and fp32, and in bf16 at group
+    size 6 (``FLASH_TRAIN_G6``); and in bf16 every other group of
+    ``FLASH_TRAIN_GROUPS`` at S 129 and 1025, causal or not."""
     bf, f32 = torch.bfloat16, torch.float32
     cases = [(2, 1024, 32, 8, 64, True, bf), (2, 1024, 32, 8, 128, True, bf),
-             (1, 1024, 32, 8, 160, True, bf), (2, 1024, 32, 8, 16, True, bf)]
+             (1, 1024, 32, 8, 160, True, bf), (2, 1024, 32, 8, 16, True, bf),
+             (2, 1024, 16, 16, 128, True, bf)]
     cases += [(2 if s < 1025 else 1, s, 8, 2, hd, causal, dt)
               for dt in (bf, f32) for hd in KERNEL_HEAD_DIMS
               for causal in (True, False) for s in FLASH_TRAIN_SEQS]
+    cases += [(2 if s < 1025 else 1, s, *FLASH_TRAIN_G6, hd, causal, bf)
+              for hd in KERNEL_HEAD_DIMS for causal in (True, False)
+              for s in FLASH_TRAIN_SEQS]
     cases += [(2 if s < 1025 else 1, s, h, kv, hd, causal, bf)
               for hd in KERNEL_HEAD_DIMS for h, kv in FLASH_TRAIN_GROUPS
               if (h, kv) != (8, 2) for causal in (True, False)
@@ -1519,7 +1688,8 @@ def profiled(name: str, call, top: int = 8) -> dict:
     overhead), the summed device time of its GPU kernels, their ratio (the
     device's busy share; the port uses one stream), the device time of the
     port's own CUDA kernels (``PORTED_KERNELS``) and the kernels that took
-    the most device time."""
+    the most device time; ``ported`` splits the port's by source file
+    (``flash``, ``hist``, ...)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1540,12 +1710,20 @@ def profiled(name: str, call, top: int = 8) -> dict:
     check(busy > 0, f"profile of {name}: no device time recorded")
     ported = sum(ms for kname, ms in by_name.items()
                  if any(k in kname for k in PORTED_KERNELS))
+    # by kernel source: flash, hist, hash32, bitonic, seg, scan
+    by_source: dict[str, float] = {}
+    for kname, ms in by_name.items():
+        hit = next((k for k in PORTED_KERNELS if k in kname), None)
+        if hit is not None:
+            src = hit.split("_")[0]
+            by_source[src] = by_source.get(src, 0.0) + ms
     # torch ops the host dispatched (top-level: not those inside another op)
     host_ops = sum(1 for ev in prof.events() if ev.device_type ==
                    DeviceType.CPU and ev.cpu_parent is None and
                    ev.name.startswith("aten::"))
     return {"wall_ms": wall, "device_ms": busy, "busy_share": busy / wall,
-            "ported_kernels_ms": ported, "host_ops": host_ops,
+            "ported_kernels_ms": ported, "ported": by_source,
+            "host_ops": host_ops,
             "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:top]}
 
 
@@ -1888,7 +2066,9 @@ def same_rows(name: str, got, want) -> None:
 
 def count_syncs(call) -> tuple[object, int]:
     """(result, host synchronisations the call made), counted by
-    ``torch.cuda.set_sync_debug_mode("warn")``'s warnings."""
+    ``torch.cuda.set_sync_debug_mode("warn")``'s warnings (not the notice
+    the first call of the mode in a process gives, that the mode is a
+    prototype)."""
     import warnings
 
     torch.cuda.synchronize()
@@ -1899,7 +2079,8 @@ def count_syncs(call) -> tuple[object, int]:
             res = call()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    return res, sum("synchroniz" in str(w.message) for w in seen)
+    return res, sum("synchroniz" in str(w.message) and
+                    "prototype" not in str(w.message) for w in seen)
 
 
 def phase_serving(ctx: DistContext, dev, rows: int, profile=None) -> dict:
@@ -2559,6 +2740,34 @@ def phase_timing(dev, rows: int) -> dict[str, dict]:
         dev, timer, TRAIN_BATCH // train_microbatches(TRAIN_ARCH), TRAIN_SEQ,
         cfg.num_heads, cfg.num_kv_heads, cfg.hd))
     out.update(flash_dims_timing(dev, timer))
+    out.update(moe_timing(dev, timer, rng))
+    return out
+
+
+def moe_timing(dev, timer, rng) -> dict[str, dict]:
+    """The kernels at phase 19's shapes: bucket_histogram over qwen2-moe-
+    a2.7b's prefill dispatch (4 x 1024 tokens x top-4 expert ids over P 60;
+    ``bucket_histogram@moe``) beside ``torch.bincount``, and flash at its
+    prefill layer (B 4, S 1024, 16/16 heads of 128, group size 1;
+    ``flash_attention@g1``) and at dbrx-132b's (48/8 heads, group size 6;
+    ``flash_attention@g6``) beside SDPA."""
+    cfg = get_config(MOE_ARCH)
+    p, n = cfg.moe_num_experts, LM_BATCH * LM_PROMPT * cfg.moe_top_k
+    ids = torch.from_numpy(rng.integers(0, p, n).astype(np.int32)).to(dev)
+    ms = timer(lambda: bucket_histogram(ids, p))
+    plain = timer(lambda: ref.histogram_ref(ids, p))
+    lib = timer(lambda: torch.bincount(ids, minlength=p))
+    bms, by = bound_ms(n * 4 + p * 4, n * 3)
+    out = {"bucket_histogram@moe": dict(
+        ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+        max_abs_err=float((bucket_histogram(ids, p)
+                           - ref.histogram_ref(ids, p)).abs().max()),
+        shape=dict(P=p, n=n))}
+    out["flash_attention@g1"] = flash_fwd_timing(
+        dev, timer, LM_BATCH, LM_PROMPT, cfg.num_heads, cfg.num_kv_heads, cfg.hd)
+    big = get_config(MOE_BIG_ARCH)
+    out["flash_attention@g6"] = flash_fwd_timing(
+        dev, timer, LM_BATCH, LM_PROMPT, big.num_heads, big.num_kv_heads, big.hd)
     return out
 
 
@@ -2884,11 +3093,15 @@ def train_launches(cfg, microbatches: int) -> dict[str, int]:
     """Each kernel's launches in one train step: with ``remat="full"`` every
     layer runs the LSE forward once in the forward and once more when its
     block is recomputed in the backward, and the backward once, for each
-    microbatch; the serving entry and the relational kernels never."""
+    microbatch; an MoE layer's dispatch counts its experts' tokens with
+    bucket_histogram in both forwards; the serving entry and the other
+    relational kernels never."""
     fwd = 2 if cfg.remat == "full" else 1
+    moe = fwd * cfg.num_layers * microbatches if cfg.moe_num_experts else 0
     return {**ZERO_LAUNCHES,
             "flash_attention_lse": fwd * cfg.num_layers * microbatches,
-            "flash_attention_bwd": cfg.num_layers * microbatches}
+            "flash_attention_bwd": cfg.num_layers * microbatches,
+            "bucket_histogram": moe}
 
 
 def train_batches(dev, cfg, n: int) -> tuple[list[dict], list[float]]:
@@ -2922,19 +3135,26 @@ def phase_train_plain(dev, batch, arch: str = TRAIN_ARCH) -> dict:
     the kernels and under ``oracle_scope()`` (plain attention on the card),
     then one train step of each from the same weights: loss and grad norm.
     The kernel run's launches must be ``train_launches``' (the plain run's
-    none)."""
+    none). An MoE model's plain runs follow the kernel runs' routes
+    (``RouteTap``), the share of routes they would have changed under
+    ``MOE_FLIP_SHARE``."""
     cfg = get_config(arch).replace(num_layers=TRAIN_PLAIN_LAYERS)
     k = train_microbatches(arch)
     model = build_model(cfg, dev,
                         generator=torch.Generator(device=dev).manual_seed(0))
     state = TS.bind_state(model)
     set_launches(0)
-    grads, _ = TS._accumulate_grads(model, state.params, batch, k)
+    tap = RouteTap()
+    with tap.record():
+        grads, _ = TS._accumulate_grads(model, state.params, batch, k)
     check(launches() == train_launches(cfg, k),
           f"{TRAIN_PLAIN_LAYERS}-layer gradients launched {launches()}, want "
           f"{train_launches(cfg, k)}")
-    with kops.oracle_scope():
+    with kops.oracle_scope(), tap.follow(tap.calls):
         plain, _ = TS._accumulate_grads(model, state.params, batch, k)
+    check(tap.share <= MOE_FLIP_SHARE,
+          f"{tap.flips} of {tap.routes} routes differ between the kernel and "
+          f"plain gradient runs (bound {MOE_FLIP_SHARE})")
     errs = {}
     for name, g in grads.items():
         scale = float(plain[name].abs().max())
@@ -2945,11 +3165,13 @@ def phase_train_plain(dev, batch, arch: str = TRAIN_ARCH) -> dict:
     del grads, plain
     step = TS.make_train_step(model, OptConfig(**TRAIN_OPT), microbatches=k)
     set_launches(0)
-    _, mk = step(state, batch)
+    step_tap = RouteTap()
+    with step_tap.record():
+        _, mk = step(state, batch)
     mk = {n: float(v) for n, v in mk.items()}
     del state  # its masters and moments, before the plain run draws its own
     set_launches(0)
-    with kops.oracle_scope():
+    with kops.oracle_scope(), step_tap.follow(step_tap.calls):
         _, mp = step(TS.init_train_state(model, 0), batch)
     check(all(v == 0 for v in launches().values()),
           f"the plain train step launched {launches()}")
@@ -2964,7 +3186,8 @@ def phase_train_plain(dev, batch, arch: str = TRAIN_ARCH) -> dict:
             "plain_loss": mp["loss"], "grad_norm": mk["grad_norm"],
             "plain_grad_norm": mp["grad_norm"], "loss_rel_err": dl,
             "grad_norm_rel_err": dg, "worst_grad_leaf": worst,
-            "worst_grad_rel_err": errs[worst]}
+            "worst_grad_rel_err": errs[worst], "route_flips": tap.flips,
+            "routes": tap.routes, "step_route_flips": step_tap.flips}
 
 
 def phase_train(dev, batches, profile=None, arch: str = TRAIN_ARCH,
@@ -3009,8 +3232,8 @@ def phase_train(dev, batches, profile=None, arch: str = TRAIN_ARCH,
     peak = torch.cuda.max_memory_allocated()
     for i, n in enumerate(per_step):
         check(n == want, f"train step {i + 1} launched {n}, want {want}")
-    check(all(math.isfinite(x["loss"]) and math.isfinite(x["grad_norm"])
-              for x in metrics), f"non-finite training metrics: {metrics}")
+    check(all(math.isfinite(v) for x in metrics for v in x.values()),
+          f"non-finite training metrics: {metrics}")
     check(int(state.step) == steps + 1, "the state's step count")
     prof = None
     if profile is not None:
@@ -3023,10 +3246,15 @@ def phase_train(dev, batches, profile=None, arch: str = TRAIN_ARCH,
         state = held["state"]
     # model FLOPs a token: 6N over the matrices (a tied embedding counted
     # once, as the unembedding's product; an untied input embedding, a
-    # gather, not at all) plus the causal attention's products, forward and
-    # backward: 3 x 2 products x 2 hd FLOPs over (S + 1) / 2 keys a head a
-    # layer; the remat recompute is not counted
+    # gather, not at all; of an MoE layer's experts the top-k a token runs)
+    # plus the causal attention's products, forward and backward: 3 x 2
+    # products x 2 hd FLOPs over (S + 1) / 2 keys a head a layer; the remat
+    # recompute and the capacity's vacant slots are not counted
     n_matmul = n_params - (0 if cfg.tie_embeddings else model.lm.embed.numel())
+    if cfg.moe_num_experts:
+        e_pad = model.lm.layers[0].moe["wi"].shape[0]
+        n_matmul -= cfg.num_layers * (e_pad - cfg.moe_top_k) * 3 * \
+            cfg.d_model * cfg.moe_d_ff
     del state, step, model
     med = statistics.median(walls)
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -3040,9 +3268,9 @@ def phase_train(dev, batches, profile=None, arch: str = TRAIN_ARCH,
             "median_step_ms": med, "tokens_per_s": tok_s,
             "flops_per_token": flops_tok,
             "bf16_peak_share": tok_s * flops_tok / TENSOR_BF16_OPS_PER_S,
-            "loss": [x["loss"] for x in metrics],
-            "grad_norm": [x["grad_norm"] for x in metrics],
-            "lr": [x["lr"] for x in metrics], "peak_bytes": peak,
+            **{n: [x[n] for x in metrics] for n in (
+                "loss", "grad_norm", "lr", "moe_aux", "moe_dropped")},
+            "peak_bytes": peak,
             "launches": counts, "launches_per_step": want, "profile": prof}
 
 
@@ -3177,11 +3405,13 @@ def phase_tiny(dev) -> dict:
     card (their default device), the counts zeroed just before and read
     just after, then the same command with ``--device cpu`` (the launchers
     draw the weights on the host, so both runs hold one model). Serving:
-    flash once a layer, no other LM kernel, finite logits, the prefill's
-    logits within ``LM_TOL`` of the CPU run's. Training: every step logged
-    (``--log-every 1``), ``train_launches``' LSE forwards and backwards a
-    step, each step's loss finite and within ``TINY_LOSS_TOL`` of the CPU
-    run's."""
+    flash once a layer, no other LM kernel (an MoE arch: bucket_histogram
+    once a layer a forward), finite logits, the prefill's logits within
+    ``LM_TOL`` of the CPU run's. Training: every step logged (``--log-every
+    1``), ``train_launches``' launches a step, each step's loss finite and
+    within ``TINY_LOSS_TOL`` of the CPU run's. An MoE arch's CPU run follows
+    the card run's routes (``RouteTap``; the share it would have changed
+    under ``MOE_FLIP_SHARE``)."""
     from repro_torch.launch import serve as serve_cli
     from repro_torch.launch import train as train_cli
 
@@ -3190,16 +3420,24 @@ def phase_tiny(dev) -> dict:
         cfg = get_tiny(arch)
         argv = ["--arch", arch, "--tiny"]
         set_launches(0)
-        card = serve_cli.main(argv)
+        tap = RouteTap()
+        with tap.record():
+            card = serve_cli.main(argv)
         counts = launches()
+        gen = card.tokens.shape[1]
+        hist = cfg.num_layers * gen if cfg.moe_num_experts else 0
         check(counts["flash_attention"] == cfg.num_layers and
-              all(counts[k] == 0 for k in LM_KERNELS[1:]),
+              all(counts[k] == 0 for k in LM_KERNELS[1:]) and
+              counts["bucket_histogram"] == hist,
               f"serve --tiny {arch} on the card launched {counts}, want flash "
-              f"once a layer ({cfg.num_layers})")
+              f"once a layer ({cfg.num_layers}) and bucket_histogram {hist}")
         check(card.logits[0].device.type == dev.type and
               all(bool(torch.isfinite(x).all()) for x in card.logits),
               f"serve --tiny {arch}: non-finite logits, or not on {dev}")
-        cpu = serve_cli.main(argv + ["--device", "cpu"])
+        with tap.follow(tap.calls):
+            cpu = serve_cli.main(argv + ["--device", "cpu"])
+        check(tap.share <= MOE_FLIP_SHARE, f"serve --tiny {arch}: {tap.flips} "
+              f"of {tap.routes} routes differ from the card's")
         err = logit_err(card.logits[0].cpu(), cpu.logits[0])
         check(err <= LM_TOL, f"serve --tiny {arch}: prefill logits differ from "
               f"the --device cpu run's by {err}")
@@ -3207,19 +3445,26 @@ def phase_tiny(dev) -> dict:
             "hd": cfg.hd, "launches": counts, "prefill_max_abs_err": err,
             "prefill_logit_std": float(cpu.logits[0].float().std()),
             "same_tokens": int((card.tokens.cpu() == cpu.tokens).sum()),
-            "tokens": card.tokens.numel()}
+            "tokens": card.tokens.numel(), "route_flips": tap.flips,
+            "routes": tap.routes}
     for arch in TINY_TRAIN_ARCHS:
         cfg = get_tiny(arch)
         argv = ["--arch", arch, "--tiny", "--steps", str(TINY_TRAIN_STEPS),
                 "--log-every", "1"]
         want = train_launches(cfg, 1)
         set_launches(0)
-        card = train_cli.main(argv)
+        tap = RouteTap()
+        with tap.record():
+            card = train_cli.main(argv)
         counts = launches()
-        check(all(counts[k] == TINY_TRAIN_STEPS * want[k] for k in LM_KERNELS),
+        check(all(counts[k] == TINY_TRAIN_STEPS * want[k]
+                  for k in LM_KERNELS + ("bucket_histogram",)),
               f"train --tiny {arch} on the card launched {counts}, want "
               f"{TINY_TRAIN_STEPS} x {want} of the LM kernels")
-        cpu = train_cli.main(argv + ["--device", "cpu"])
+        with tap.follow(tap.calls):
+            cpu = train_cli.main(argv + ["--device", "cpu"])
+        check(tap.share <= MOE_FLIP_SHARE, f"train --tiny {arch}: {tap.flips} "
+              f"of {tap.routes} routes differ from the card's")
         diffs = [abs(a["loss"] - b["loss"]) for a, b in zip(card, cpu)]
         check(len(card) == len(cpu) == TINY_TRAIN_STEPS and
               all(math.isfinite(x["loss"]) for x in card) and
@@ -3230,8 +3475,232 @@ def phase_tiny(dev) -> dict:
         out["train"][arch] = {
             "hd": cfg.hd, "launches": counts,
             "loss": [x["loss"] for x in card],
-            "cpu_loss": [x["loss"] for x in cpu], "max_loss_diff": max(diffs)}
+            "cpu_loss": [x["loss"] for x in cpu], "max_loss_diff": max(diffs),
+            "route_flips": tap.flips, "routes": tap.routes}
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 19: Mixture-of-Experts (qwen2-moe-a2.7b served and trained, dbrx-132b
+# served), after every earlier model is freed
+# ---------------------------------------------------------------------------
+
+
+def with_capacity(model, cf: float):
+    """Set the model's (and its blocks') capacity factor; returns the old
+    config."""
+    old = model.cfg
+    cfg = old.replace(moe_capacity_factor=cf)
+    model.cfg = model.lm.cfg = cfg
+    for block in model.lm.layers:
+        block.cfg = cfg
+    return old
+
+
+def causal_routes(calls: list[torch.Tensor], layers: int, batch: int,
+                  prompt: int) -> list[torch.Tensor]:
+    """A ``generate``'s routes (the prefill's L calls of B x S tokens, then
+    each decode step's L calls of B) as the L calls of one causal forward
+    over the prompt and the fed tokens, in its token order."""
+    k = calls[0].shape[-1]
+    out = []
+    for i in range(layers):
+        parts = [calls[i].view(batch, prompt, k)] + [
+            calls[j].view(batch, 1, k)
+            for j in range(layers + i, len(calls), layers)]
+        out.append(torch.cat(parts, 1).reshape(-1, k))
+    return out
+
+
+def phase_moe_serve(dev, arch: str, layers: int | None = None,
+                    profile: bool = False) -> dict:
+    """Phase 19's serving: ``arch`` at full width (``layers`` of its depth,
+    or all), random bf16 weights and fp32 routers from a ``torch.Generator``
+    seeded 0 on the card, ``LM_BATCH`` x ``LM_PROMPT`` prompts and
+    ``LM_GEN`` greedy tokens through ``generate``, the counts zeroed just
+    before and read just after: flash once a layer (the prefill), the
+    histogram once a layer a forward (the prefill and each decode step);
+    one more decode step launches the histogram once a layer and flash
+    never. Every logit finite; the host syncs of one forward (must be 0)
+    and its ``moe_dropped``. Then the plain run, teacher-forced, following
+    the kernel run's routes: every step's logits within ``LM_TOL``, the
+    flips under ``MOE_FLIP_SHARE``; a bidirectional mask must move the
+    prefill's logits by over 3 ``LM_TOL``; the serving invariant at
+    ``MOE_INVARIANT_CF`` (prefill + decode against one causal forward that
+    follows their routes, within ``LM_TOL``); the serving times, and with
+    ``profile`` one traced prefill and 8 decode steps."""
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    check(model.lm.layers[0].moe["router"].dtype == torch.float32,
+          "the router is not fp32")
+    tokens = prompts(cfg, LM_BATCH, LM_PROMPT, 0, dev)
+    torch.cuda.reset_peak_memory_stats()
+    set_launches(0)
+    tap = RouteTap()
+    with tap.record():
+        gen = generate(model, tokens, LM_GEN, keep_logits=True)
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    want = {**ZERO_LAUNCHES, "flash_attention": L,
+            "bucket_histogram": L * LM_GEN}
+    check(counts == want, f"{arch} generate launched {counts}, want {want}")
+    check(tuple(gen.tokens.shape) == (LM_BATCH, LM_GEN) and
+          all(bool(torch.isfinite(x).all()) for x in gen.logits),
+          f"{arch}: generated shape {tuple(gen.tokens.shape)}, or non-finite "
+          f"logits")
+    set_launches(0)
+    with torch.no_grad():
+        last, _ = make_decode_step(model)(gen.cache, gen.tokens[:, -1:],
+                                          LM_PROMPT + LM_GEN - 1)
+    step = launches()
+    check(step["flash_attention"] == 0 and step["bucket_histogram"] == L and
+          bool(torch.isfinite(last).all()),
+          f"{arch}: a decode step launched {step}, want the histogram {L} "
+          f"times and no flash")
+    gen.cache = None
+    with torch.no_grad():
+        (causal, _, aux), syncs = count_syncs(
+            lambda: model.forward(tokens=tokens))
+    check(syncs == 0, f"{arch}: one forward made {syncs} host syncs")
+    dropped = float(aux["moe_dropped"])
+    std = float(gen.logits[0][:, :cfg.vocab_size].float().std())
+    # LM_TOL's premise, that a wrong attention moves the logits by more
+    # than it, checked directly (qwen2-moe's logits have std ~0.12, under
+    # phase 17's 3 LM_TOL proxy): the prefill once more through plain
+    # attention with a bidirectional mask, on the kernel run's routes, must
+    # move them (every row's: the last row sees every key either way) by
+    # over 3 LM_TOL
+    real_attention = kops.attention
+    kops.attention = lambda q, k, v, causal=True: real_attention(
+        q, k, v, causal=False)
+    try:
+        with torch.no_grad(), kops.oracle_scope(), \
+                RouteTap().follow(tap.calls[:L]):
+            wrong, _, _ = model.forward(tokens=tokens)
+    finally:
+        kops.attention = real_attention
+    wrong_err = logit_err(wrong, causal)
+    del wrong, causal
+    check(wrong_err > 3 * LM_TOL, f"{arch}: a bidirectional mask moves the "
+          f"prefill logits by only {wrong_err}, too little for LM_TOL {LM_TOL} "
+          f"to tell a wrong attention")
+
+    set_launches(0)
+    with kops.oracle_scope(), tap.follow(tap.calls):
+        plain = generate(model, tokens, LM_GEN, forced=gen.tokens,
+                         keep_logits=True)
+    check(all(v == 0 for v in launches().values()),
+          f"{arch}: the plain run launched {launches()}")
+    check(tap.share <= MOE_FLIP_SHARE, f"{arch}: {tap.flips} of {tap.routes} "
+          f"routes differ between the kernel and plain runs (bound "
+          f"{MOE_FLIP_SHARE})")
+    plain_errs = [logit_err(a, b) for a, b in zip(gen.logits, plain.logits)]
+    check(max(plain_errs) <= LM_TOL,
+          f"{arch}: logits differ from the plain run by {max(plain_errs)}")
+    del plain
+
+    old = with_capacity(model, MOE_INVARIANT_CF)
+    try:
+        inv_tap = RouteTap()
+        with inv_tap.record():
+            res = generate(model, tokens, LM_GEN, forced=gen.tokens,
+                           keep_logits=True)
+        res.cache = None
+        seq = torch.cat([tokens, gen.tokens[:, :LM_GEN - 1]], 1)
+        follow = RouteTap()
+        set_launches(0)
+        with torch.no_grad(), follow.follow(causal_routes(
+                inv_tap.calls, L, LM_BATCH, LM_PROMPT)):
+            full, _, full_aux = model.forward(tokens=seq)
+        check(launches()["flash_attention"] == L and
+              launches()["bucket_histogram"] == L,
+              f"{arch}: the causal forward launched {launches()}")
+        check(follow.share <= MOE_FLIP_SHARE,
+              f"{arch}: {follow.flips} of {follow.routes} routes of the causal "
+              f"forward differ from prefill + decode's")
+        rows = full[:, LM_PROMPT - 1:, :cfg.vocab_size]
+        inv_errs = [logit_err(g[:, :cfg.vocab_size], rows[:, i])
+                    for i, g in enumerate(res.logits)]
+        check(max(inv_errs) <= LM_TOL and float(full_aux["moe_dropped"]) == 0,
+              f"{arch}: prefill + decode differ from the causal forward by "
+              f"{max(inv_errs)} (dropped {float(full_aux['moe_dropped'])})")
+        del full, rows, res
+    finally:
+        with_capacity(model, old.moe_capacity_factor)
+    times = phase_serve_times(model, tokens)
+    prof = phase_serve_profile(model, tokens) if profile else None
+    del model, tokens, gen
+    torch.cuda.empty_cache()
+    return {"arch": arch, "layers": L, "parameters": n_params,
+            "init_s": init_s, "batch": LM_BATCH, "prompt_len": LM_PROMPT,
+            "gen": LM_GEN, "peak_bytes": peak, "launches": counts,
+            "decode_step_launches": step, "forward_host_syncs": syncs,
+            "prefill_moe_dropped": dropped, "prefill_logit_std": std,
+            "wrong_mask_max_abs_err": wrong_err,
+            "plain_max_abs_err": max(plain_errs),
+            "plain_route_flips": tap.flips, "routes": tap.routes,
+            "causal_max_abs_err": max(inv_errs),
+            "causal_route_flips": follow.flips,
+            "invariant_capacity_factor": MOE_INVARIANT_CF, **times,
+            "profile": prof}
+
+
+def phase_moe_train(dev, profile=None) -> dict:
+    """Phase 19's training: ``MOE_ARCH`` at full width, kernels against
+    plain attention at ``TRAIN_PLAIN_LAYERS`` layers (phase 16's
+    tolerances, the plain runs following the kernel runs' routes), then
+    ``MOE_TRAIN_LAYERS`` layers trained on the pipeline's batches
+    (``phase_train``: a warm-up step, ``MOE_TRAIN_STEPS`` steps of
+    ``train_launches``' launches each, finite losses and aux, one profiled
+    step)."""
+    cfg = get_config(MOE_ARCH)
+    batches, pipe_ms = train_batches(dev, cfg, MOE_TRAIN_STEPS + 2)
+    plain = phase_train_plain(dev, batches[0], MOE_ARCH)
+    torch.cuda.empty_cache()
+    train = phase_train(dev, batches, profile, MOE_ARCH, MOE_TRAIN_LAYERS,
+                        MOE_TRAIN_STEPS)
+    del batches
+    torch.cuda.empty_cache()
+    return {**train, "pipeline_ms": pipe_ms, "plain": plain}
+
+
+def say_moe_serve(r: dict, card: str) -> None:
+    say(f"[19] {r['arch']} at {r['layers']} layers: {r['parameters']} "
+        f"parameters drawn in {r['init_s']:.1f} s; {LM_BATCH} x {LM_PROMPT}"
+        f"-token prompts, {LM_GEN} greedy tokens; launches {r['launches']}; a "
+        f"decode step {r['decode_step_launches']['bucket_histogram']} "
+        f"histograms, no flash; host syncs of one forward "
+        f"{r['forward_host_syncs']}; prefill moe_dropped "
+        f"{r['prefill_moe_dropped']:g}; peak {r['peak_bytes'] / 2**30:.2f} GiB")
+    say(f"[19] plain run, teacher-forced, on the kernel run's routes: logits "
+        f"within {r['plain_max_abs_err']:.4g} (tolerance {LM_TOL}, prefill "
+        f"logits' std {r['prefill_logit_std']:.4f}, moved "
+        f"{r['wrong_mask_max_abs_err']:.4g} by a bidirectional mask); its "
+        f"own routes would "
+        f"differ at {r['plain_route_flips']} of {r['routes']} (layer, token) "
+        f"routes; one causal forward at capacity factor "
+        f"{r['invariant_capacity_factor']:g} within {r['causal_max_abs_err']:.4g}"
+        f" ({r['causal_route_flips']} routes would differ)")
+    say(f"[19] prefill median {r['prefill_ms']:.2f} ms, decode "
+        f"{r['decode_ms_per_token']:.3f} ms a token, "
+        f"{r['decode_tokens_per_s']:.1f} tokens/s decoding, "
+        f"{r['end_to_end_tokens_per_s']:.1f} tokens/s end to end on {card}")
+    for name, pr in (r["profile"] or {}).items():
+        say(f"[19] {name}: profiled wall {pr['wall_ms']:.1f} ms, GPU kernels "
+            f"{pr['device_ms']:.2f} ms, busy share {pr['busy_share']:.2f}, "
+            f"flash {pr['ported'].get('flash', 0.0):.3f} ms, bucket_histogram "
+            f"{pr['ported'].get('hist', 0.0):.3f} ms, {pr['host_ops']} torch "
+            f"ops dispatched by the host, on {card}")
+        for kname, ms in pr["top"]:
+            say(f"      {ms:8.3f} ms  {kname[:110]}")
 
 
 # ---------------------------------------------------------------------------
@@ -3397,7 +3866,8 @@ def main() -> None:
     say(f"[7] Timer floor (a one-element add): {t['floor_ms']:.4f} ms; a copy "
         f"of bucket_histogram's {4 * rows >> 20} MiB column: {t['copy_ms']:.4f} "
         f"ms on {card}")
-    for key in ("flash_attention", "flash_attention@hd160", "flash_attention@hd16"):
+    for key in ("flash_attention", "flash_attention@hd160", "flash_attention@hd16",
+                "flash_attention@g1", "flash_attention@g6"):
         t = times[key]
         say(f"[7] {key} at {t['shape']}: " + (
             f"SDPA's output differs from the plain version's by "
@@ -3582,6 +4052,55 @@ def main() -> None:
             f"{[round(x, 5) for x in r['cpu_loss']]} (largest difference "
             f"{r['max_loss_diff']:.3g}, tolerance {TINY_LOSS_TOL:g})")
     say(f"[18] the --tiny commands {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    moe_serve = phase_moe_serve(dev, MOE_ARCH, profile=True)
+    say_moe_serve(moe_serve, card)
+    for name, pr in moe_serve["profile"].items():
+        moe_serve["profile"][name] = {k: pr[k] for k in (
+            "wall_ms", "device_ms", "busy_share", "ported", "host_ops", "top")}
+    t1 = time.perf_counter()
+    moe_train = phase_moe_train(dev, profiled)
+    mp = moe_train["plain"]
+    say(f"[19] {TRAIN_PLAIN_LAYERS} layers of {MOE_ARCH}'s width, kernels vs "
+        f"plain attention (on the kernel run's routes; {mp['route_flips']} of "
+        f"{mp['routes']} would differ): every gradient leaf within "
+        f"{mp['worst_grad_rel_err']:.4g} of its largest (worst "
+        f"{mp['worst_grad_leaf']}, tolerance {TRAIN_GRAD_TOL:g}); one step's "
+        f"loss {mp['loss']:.6f} vs {mp['plain_loss']:.6f}, grad norm "
+        f"{mp['grad_norm']:.5f} vs {mp['plain_grad_norm']:.5f}")
+    say(f"[19] {MOE_ARCH} at {moe_train['layers']} of "
+        f"{get_config(MOE_ARCH).num_layers} layers: {moe_train['parameters']} "
+        f"parameters; {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step in "
+        f"{moe_train['microbatches']} microbatches; warm-up "
+        f"{moe_train['warmup_step_ms']:.1f} ms, then "
+        f"{[round(x, 1) for x in moe_train['step_ms']]} ms, "
+        f"{moe_train['tokens_per_s']:.0f} tokens/s, "
+        f"{100 * moe_train['bf16_peak_share']:.1f}% of the dense bf16 peak "
+        f"({moe_train['flops_per_token'] / 1e9:.2f} GFLOP a token), peak "
+        f"{moe_train['peak_bytes'] / 2**30:.2f} GiB on {card}")
+    say(f"[19] loss {[round(x, 4) for x in moe_train['loss']]}, moe_aux "
+        f"{[round(x, 4) for x in moe_train['moe_aux']]}, moe_dropped "
+        f"{moe_train['moe_dropped']}, grad norm "
+        f"{[round(x, 4) for x in moe_train['grad_norm']]}; launches a step "
+        f"{moe_train['launches_per_step']['flash_attention_lse']} LSE "
+        f"forwards + {moe_train['launches_per_step']['flash_attention_bwd']} "
+        f"backwards + {moe_train['launches_per_step']['bucket_histogram']} "
+        f"histograms, in all {moe_train['launches']}")
+    pr = moe_train["profile"]
+    say(f"[19] one profiled step: wall {pr['wall_ms']:.1f} ms, GPU kernels "
+        f"{pr['device_ms']:.1f} ms, busy share {pr['busy_share']:.2f}, flash "
+        f"{pr['ported'].get('flash', 0.0):.2f} ms, bucket_histogram "
+        f"{pr['ported'].get('hist', 0.0):.3f} ms, {pr['host_ops']} torch ops")
+    for kname, ms in pr["top"]:
+        say(f"      {ms:8.2f} ms  {kname[:110]}")
+    moe_train["profile"] = {k: pr[k] for k in (
+        "wall_ms", "device_ms", "busy_share", "ported", "host_ops", "top")}
+    say(f"[19] training {time.perf_counter() - t1:.1f} s")
+    moe_big = phase_moe_serve(dev, MOE_BIG_ARCH, MOE_BIG_LAYERS)
+    say_moe_serve(moe_big, card)
+    say(f"[19] phase 19 {time.perf_counter() - t0:.1f} s")
 
     for name in ("flash_attention_lse", "flash_attention_bwd"):
         for suffix in ("", "@hd160", "@hd16"):
@@ -3615,11 +4134,19 @@ def main() -> None:
         "flash_attention@hd16": sum(r["launches"]["flash_attention"]
                                     for r in tiny["serve"].values()),
         **{f"{n}@hd16": sum(r["launches"][n] for r in tiny["train"].values())
-           for n in LM_KERNELS[1:]}}
+           for n in LM_KERNELS[1:]},
+        # phase 19: qwen2-moe-a2.7b's generate (flash at group size 1, the
+        # histogram over 60 experts) and dbrx-132b's (group size 6)
+        "bucket_histogram@moe": moe_serve["launches"]["bucket_histogram"],
+        "flash_attention@g1": moe_serve["launches"]["flash_attention"],
+        "flash_attention@g6": moe_big["launches"]["flash_attention"]}
     kernels = []
     entries = [(name, name) for name in KERNELS] + [
         (f"{name}{suffix}", name) for suffix in ("@hd160", "@hd16")
-        for name in LM_KERNELS]
+        for name in LM_KERNELS] + [
+        ("bucket_histogram@moe", "bucket_histogram"),
+        ("flash_attention@g1", "flash_attention"),
+        ("flash_attention@g6", "flash_attention")]
     for key, name in entries:
         _, source, replaces = KERNELS[name]
         t = times[key]
@@ -3679,6 +4206,8 @@ def main() -> None:
     say(json.dumps({"stablelm": {"serve": big, "train": big_train,
                                  "card": card}}))
     say(json.dumps({"tiny": {**tiny, "card": card}}))
+    say(json.dumps({"moe": {"serve": moe_serve, "train": moe_train,
+                            "dbrx_serve": moe_big, "card": card}}))
     say(json.dumps({"kernels": kernels}))
     say(nvidia_smi())
     say(json.dumps({"ok": True, "device": {

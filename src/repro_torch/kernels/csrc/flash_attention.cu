@@ -20,7 +20,8 @@
 // specialised, persistent. One CTA an SM, of three warpgroups; CTA i walks
 // the work tiles i, i + grid, ... A work tile is (128-row query tile, head,
 // batch), ordered query tile first from the last one down, so the longest
-// causal rows start first.
+// causal rows start first, and dealt to the CTAs in a snake (i, then
+// 2 grid - 1 - i, ...), so each CTA's causal work stays near the mean.
 //   - Producer warpgroup (setmaxnreg down to 24 registers): one thread
 //     issues TMA copies, each work tile's Q, then its 128-row K and V tiles
 //     into a ring of stages, each with its own `full` mbarrier (K and V
@@ -238,7 +239,9 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
     setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
       int it = 0, j = 0;
-      for (int w = blockIdx.x; w < works; w += gridDim.x, ++j) {
+      for (int r = 0; r * (int)gridDim.x < works; ++r) {
+        const int w = snake(r);
+        if (w >= works) continue;
         const Work t = work_tile(w, S, H, B, causal);
         const int kvh = t.h / (H / KV);
         mbar_wait(bar_q_empty, (j & 1) ^ 1);
@@ -275,6 +278,7 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
           }
         }
         it += t.nk;
+        ++j;
       }
     }
     return;
@@ -329,7 +333,9 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
   auto parity = [](int slot) { return (uint32_t)((slot / L::kStages) & 1); };
 
   int j = 0;
-  for (int w = blockIdx.x; w < works; w += gridDim.x, ++j) {
+  for (int r = 0; r * (int)gridDim.x < works; ++r) {
+    const int w = snake(r);
+    if (w >= works) continue;
     const Work t = work_tile(w, S, H, B, causal);
     const int nk = t.nk, row0 = t.q0 + r0, first = it;
 #pragma unroll
@@ -432,6 +438,7 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
                      t.q0 + 64 * c, t.b);
       bulk_commit();
     }
+    ++j;
   }
   if (lt == 0) bulk_wait();
 }
@@ -456,7 +463,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, fl
       !make_map(&tv, v, B, S, KV, HD) || !make_map(&to, o, B, S, H, HD, 64))
     return cudaErrorInvalidValue;
   // persistent: one CTA an SM (the shared memory allows no more), each
-  // walking work tiles blockIdx.x, + gridDim.x, ...
+  // taking work tiles blockIdx.x, 2 grid - 1 - blockIdx.x, ... (snake)
   static const int sms = [] {
     int dev = 0, n = 0;
     cudaGetDevice(&dev);

@@ -172,13 +172,6 @@ __device__ __forceinline__ void warp_arrive(uint32_t bar) {
   if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
 }
 
-// round r's work item of this CTA: item i, then 2 grid - 1 - i, ... (a
-// snake over items ordered longest first)
-__device__ __forceinline__ int snake(int r) {
-  return r * (int)gridDim.x + ((r & 1) ? (int)gridDim.x - 1 - (int)blockIdx.x
-                                       : (int)blockIdx.x);
-}
-
 // 1. D = rowsum(dO o) and lse log2 e into (B, H, Sp); past S, D 0 and lse
 // +inf. o and dO are read as they lie, (B S H) rows of hd: two lanes a row,
 // so each load of a warp covers whole 32-byte sectors of 16 rows, and a lane

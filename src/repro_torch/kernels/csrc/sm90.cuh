@@ -243,6 +243,15 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
 }
 
 // two floats as bf16x2, the first in the low half
+// round r's work item of this CTA of a persistent grid: item i, then
+// 2 grid - 1 - i, ... (a snake over items ordered longest first, so each
+// CTA's sum of lengths stays near the mean); past the last item in the
+// last round, the caller skips it
+__device__ __forceinline__ int snake(int r) {
+  return r * (int)gridDim.x + ((r & 1) ? (int)gridDim.x - 1 - (int)blockIdx.x
+                                       : (int)blockIdx.x);
+}
+
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);

@@ -1,12 +1,14 @@
 """``ModelConfig``: the port's copy of ``repro/models/common.py``'s config.
 
 One dataclass covers every architecture family of the JAX package; the
-port builds only the dense GQA family so far, but keeps every field so a
-config copies over value for value. The mesh and sharding helpers of the
+port builds the dense GQA and MoE families so far, but keeps every field so
+a config copies over value for value. The mesh and sharding helpers of the
 reference (``ShardingRules``, partition specs, ``fsdp_extend``, ``cast``)
 are multi-device machinery and are not carried over: the port runs on
-one card. ``remat`` applies in training (``models/transformer.py``); the
-other compile knobs (``scan_layers``, ``fsdp``, ``layout``, the shuffle and
+one card. ``remat`` applies in training (``models/transformer.py``);
+``ep_shuffle``, ``layout`` and the MoE shuffle's ``moe_shuffle_stages`` and
+``moe_shuffle_mode`` choose ``models/moe.moe_fwd``'s path over a
+``VirtualMesh``; the other compile knobs (``scan_layers``, ``fsdp``, the
 seq-shard flags, ``time_unroll``) are kept as fields and ignored: PyTorch
 runs eagerly, layer by layer.
 """
@@ -68,7 +70,7 @@ class ModelConfig:
     dtype: Any = torch.bfloat16         # activation/compute dtype
     param_dtype: Any = torch.bfloat16   # parameter dtype
 
-    # --- the reference's compile/sharding knobs (kept; only remat is read) ------
+    # --- the reference's compile/sharding knobs (remat and the MoE path's read) -
     scan_layers: bool = True
     remat: str = "full"
     fsdp: bool = False

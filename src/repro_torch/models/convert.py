@@ -3,9 +3,12 @@
 ``params_from_jax`` takes the reference's LM parameter tree with numpy
 leaves (``jax.tree.map(np.asarray, params)``; layers stacked on a leading
 L dim) and returns the state dict of
-:class:`~repro_torch.models.transformer.Transformer`, unstacked per layer,
-in ``cfg.param_dtype``. Loaded with ``load_state_dict``, the port computes
-the same function as the reference on the same weights.
+:class:`~repro_torch.models.transformer.Transformer`, unstacked per layer
+(nested groups, the MoE's ``shared`` expert, as dotted names), in
+``cfg.param_dtype`` but the MoE router, which stays fp32 as the reference
+keeps it (a bf16 router would round the logits that pick the routes).
+Loaded with ``load_state_dict``, the port computes the same function as the
+reference on the same weights.
 
 ``train_state_from_jax`` carries the reference's whole ``TrainState``
 (numpy leaves) across the same way: the parameters, the optimizer's fp32
@@ -28,6 +31,20 @@ def _tensor(a, dtype) -> torch.Tensor:
     return torch.from_numpy(a).to(dtype)
 
 
+# per-layer leaves kept in fp32 whatever ``param_dtype`` is
+FP32_LEAVES = ("moe.router",)
+
+
+def _layer_leaves(group, prefix: str):
+    """(dotted name, stacked leaf) of a per-layer group, nested dicts
+    flattened."""
+    for name, leaf in group.items():
+        if isinstance(leaf, dict):
+            yield from _layer_leaves(leaf, f"{prefix}{name}.")
+        else:
+            yield prefix + name, leaf
+
+
 def params_from_jax(tree, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     dt = cfg.param_dtype
     sd = {"embed": _tensor(tree["embed"]["table"], dt),
@@ -38,9 +55,12 @@ def params_from_jax(tree, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     for i in range(cfg.num_layers):
         sd[f"layers.{i}.ln1"] = _tensor(layers["ln1"][i], dt)
         sd[f"layers.{i}.ln2"] = _tensor(layers["ln2"][i], dt)
-        for group in ("attn", "mlp"):
-            for name, leaf in layers[group].items():
-                sd[f"layers.{i}.{group}.{name}"] = _tensor(leaf[i], dt)
+        for group in ("attn", "mlp", "moe"):
+            if group not in layers:
+                continue
+            for name, leaf in _layer_leaves(layers[group], f"{group}."):
+                sd[f"layers.{i}.{name}"] = _tensor(
+                    leaf[i], torch.float32 if name in FP32_LEAVES else dt)
     return sd
 
 

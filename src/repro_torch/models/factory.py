@@ -1,11 +1,12 @@
-"""Model factory of the port (``repro/models/factory.py``), dense family.
+"""Model factory of the port (``repro/models/factory.py``), dense and MoE
+families.
 
 ``build_model(cfg, device)`` returns a :class:`Model`: an ``nn.Module``
 holding a :class:`~repro_torch.models.transformer.Transformer` drawn from
 a ``torch.Generator``, with ``loss_fn``, ``forward``, ``init_cache`` and
 ``decode_step``. The parameters live in the module, so the step functions
 take none (the reference passes its parameter tree to every call). Left for
-later: the other families (and with MoE, the loss's aux term).
+later: the other families.
 """
 from __future__ import annotations
 
@@ -30,14 +31,15 @@ class Model(nn.Module):
     def loss_fn(self, batch: dict[str, torch.Tensor]):
         """(loss, metrics): next-token cross-entropy over the padded vocab,
         weighted by the pipeline's per-sample ``weight``
-        (``repro/models/factory.py:43-79``, dense family).
+        (``repro/models/factory.py:43-79``).
 
         Label 0 is padding: ``mask = (labels != 0) * weight``; the loss is
         ``sum((lse - logit[label]) * mask) / max(sum(mask), 1)``, in fp32.
         The reference contracts a one-hot (a sharding device); a gather of
-        the label's logit is the same function. Metrics: ``loss``,
-        ``tokens`` (the sum of the mask) and the forward's aux (zero for
-        the dense family), as the reference's."""
+        the label's logit is the same function. An MoE model adds
+        ``0.01 * moe_aux / num_layers``. Metrics: ``loss``, ``tokens`` (the
+        sum of the mask) and the forward's aux (summed over the layers;
+        zero for the dense family), as the reference's."""
         if batch.get("embeds") is not None:
             raise NotImplementedError("loss with embeds (vlm) is not ported")
         tokens = batch["tokens"]
@@ -51,9 +53,9 @@ class Model(nn.Module):
         ll = torch.gather(lg, -1, labels[..., None])[..., 0]
         tokens_n = mask.sum()
         loss = ((lse - ll) * mask).sum() / torch.clamp(tokens_n, min=1.0)
-        metrics = {"loss": loss, "tokens": tokens_n, **{
-            k: torch.full((), v, dtype=torch.float32, device=loss.device)
-            for k, v in aux.items()}}
+        if self.cfg.moe_num_experts:
+            loss = loss + 0.01 * aux["moe_aux"] / self.cfg.num_layers
+        metrics = {"loss": loss, "tokens": tokens_n, **aux}
         return loss, metrics
 
     def forward(self, *, tokens: torch.Tensor, mode: str = "causal",
@@ -79,9 +81,10 @@ def build_model(cfg: ModelConfig, device: str | torch.device = "cuda", *,
     on the host, whose weights are then moved to ``device``, so that a seed
     gives the same model on every device (as the reference's key does)."""
     dev = resolve_device(device)
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.arch}: family {cfg.family!r} is not ported (dense only)")
+            f"{cfg.arch}: family {cfg.family!r} is not ported (dense and moe "
+            f"only)")
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     elif generator.device.type not in (dev.type, "cpu"):

@@ -1,7 +1,8 @@
 """The decoder-only transformer of the port (``repro/models/transformer.py``),
-dense GQA family: ``Block`` (RMSNorm, GQA attention, RMSNorm, SwiGLU MLP,
-two residual adds) and ``Transformer`` (embedding, the blocks, final norm,
-a tied or untied head), with ``init_cache``.
+dense GQA and MoE families: ``Block`` (RMSNorm, GQA attention, RMSNorm, a
+SwiGLU MLP or, with ``cfg.moe_num_experts``, the MoE layer of
+``models/moe.py``, two residual adds) and ``Transformer`` (embedding, the
+blocks, final norm, a tied or untied head), with ``init_cache``.
 
 The reference scans stacked layer parameters under ``jit``; here
 ``Transformer.forward`` (the reference's ``lm_forward``) is a Python loop
@@ -10,8 +11,11 @@ stays stacked on L, as the reference's, and each block writes its slice in
 place. While autograd records (training), ``cfg.remat`` applies as the
 reference's ``_remat``: ``"full"`` runs each block under
 ``torch.utils.checkpoint`` (its input saved, its forward run again in the
-backward), ``"none"`` plainly. Left for later: MoE, MLA, the vision front,
-and the ``"dots"`` policy (matmul outputs saved).
+backward; an MoE block routes the same tokens the same way again), ``"none"``
+plainly. The forward's aux (``moe_aux``, ``moe_dropped``) is the sum over
+the layers, in order, of fp32 tensors on the device (zeros for the dense
+family), as the reference's scan sums them. Left for later: MLA, the vision
+front, and the ``"dots"`` policy (matmul outputs saved).
 """
 from __future__ import annotations
 
@@ -23,7 +27,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as NN
+from repro_torch.models import moe as MOE
 from repro_torch.models.common import ModelConfig
+
+AUX_KEYS = ("moe_aux", "moe_dropped")
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -32,8 +39,30 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-def _frozen_dict(d: dict[str, torch.Tensor]) -> nn.ParameterDict:
-    return nn.ParameterDict({k: _frozen(v) for k, v in d.items()})
+class FrozenTree(nn.Module):
+    """A layer's (nested) dict of frozen parameters, read as the layers'
+    functions read their trees (``p[name]``, ``name in p``); a nested dict,
+    the MoE's ``shared`` expert, becomes a child (state-dict names
+    ``attn.wq``, ``moe.router``, ``moe.shared.wi``, ...). Each leaf keeps
+    its dtype (the MoE router fp32)."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for name, leaf in tree.items():
+            if isinstance(leaf, dict):
+                self.add_module(name, FrozenTree(leaf))
+            else:
+                self.register_parameter(name, _frozen(leaf))
+
+    def __getitem__(self, name: str):
+        if name in self._parameters:
+            return self._parameters[name]
+        if name in self._modules:
+            return self._modules[name]
+        raise KeyError(name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
 
 
 def _remat_contexts():
@@ -51,20 +80,28 @@ class Block(nn.Module):
         self.cfg = cfg
         dev = generator.device
         self.ln1 = _frozen(NN.init_norm(cfg.d_model, cfg.param_dtype, dev))
-        self.attn = _frozen_dict(NN.init_attention(cfg, generator))
+        self.attn = FrozenTree(NN.init_attention(cfg, generator))
         self.ln2 = _frozen(NN.init_norm(cfg.d_model, cfg.param_dtype, dev))
-        self.mlp = _frozen_dict(NN.init_mlp(cfg.d_model, cfg.d_ff, cfg,
-                                            generator))
+        if cfg.moe_num_experts:
+            self.moe = FrozenTree(MOE.init_moe(cfg, generator))
+        else:
+            self.mlp = FrozenTree(NN.init_mlp(cfg.d_model, cfg.d_ff, cfg,
+                                              generator))
 
     def forward(self, x: torch.Tensor, *, rope, mode: str, cache=None,
                 pos: int | None = None):
+        """(x, cache, aux): aux the MoE layer's {"moe_aux", "moe_dropped"},
+        None for a dense block."""
         cfg = self.cfg
         h = NN.rms_norm(x, self.ln1, cfg.norm_eps)
         a, cache = NN.attention_fwd(self.attn, h, cfg, mode=mode, rope=rope,
                                     cache=cache, pos=pos)
         x = x + a
         h = NN.rms_norm(x, self.ln2, cfg.norm_eps)
-        return x + NN.mlp_fwd(self.mlp, h), cache
+        if cfg.moe_num_experts:
+            y, aux = MOE.moe_fwd(self.moe, h, cfg)
+            return x + y, cache, aux
+        return x + NN.mlp_fwd(self.mlp, h), cache, None
 
 
 class Transformer(nn.Module):
@@ -75,10 +112,11 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator):
         super().__init__()
-        if cfg.family != "dense" or cfg.attn_kind != "gqa" or \
-                cfg.moe_num_experts or cfg.frontend != "none":
+        if cfg.family not in ("dense", "moe") or cfg.attn_kind != "gqa" or \
+                bool(cfg.moe_num_experts) != (cfg.family == "moe") or \
+                cfg.frontend != "none":
             raise NotImplementedError(
-                f"{cfg.arch}: only the dense GQA family is ported")
+                f"{cfg.arch}: only the dense GQA and MoE families are ported")
         self.cfg = cfg
         dev = generator.device
         self.embed = _frozen(NN.init_embed(cfg, generator))
@@ -107,20 +145,24 @@ class Transformer(nn.Module):
         if remat and cfg.remat not in ("none", "full"):
             raise NotImplementedError(f"remat={cfg.remat!r}: the port has "
                                       "'full' and 'none'")
+        total = {k: torch.zeros((), dtype=torch.float32, device=x.device)
+                 for k in AUX_KEYS}
         for i, block in enumerate(self.layers):
             layer_cache = None if cache is None else \
                 {"k": cache["k"][i], "v": cache["v"][i]}
             if remat and cfg.remat == "full":
-                x, _ = checkpoint(block, x, rope=rope, mode=mode,
-                                  use_reentrant=False,
-                                  context_fn=_remat_contexts)
+                x, _, aux = checkpoint(block, x, rope=rope, mode=mode,
+                                       use_reentrant=False,
+                                       context_fn=_remat_contexts)
             else:
-                x, _ = block(x, rope=rope, mode=mode, cache=layer_cache,
-                             pos=pos)
+                x, _, aux = block(x, rope=rope, mode=mode, cache=layer_cache,
+                                  pos=pos)
+            if aux is not None:
+                total = {k: total[k] + aux[k] for k in AUX_KEYS}
         x = NN.rms_norm(x, self.final_norm, cfg.norm_eps)
         head = self.embed if cfg.tie_embeddings else self.lm_head
         logits = NN.unembed_fwd(head, x, cfg)
-        return logits, cache, {"moe_aux": 0.0, "moe_dropped": 0.0}
+        return logits, cache, total
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device

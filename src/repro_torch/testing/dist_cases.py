@@ -1,5 +1,5 @@
-"""Distributed test cases on 8 virtual shards (the port of the relational
-cases of ``repro.testing.dist_cases``).
+"""Distributed test cases on virtual shards (the port of the relational and
+MoE cases of ``repro.testing.dist_cases``).
 
 ``python -m repro_torch.testing.dist_cases <case> [--device cpu]`` prints
 one JSON line (``JSON:{...}``) with the reference's keys. The reference
@@ -9,9 +9,12 @@ against its own oracle (a counting, set or one-host oracle, or the eager
 run), as the reference's does; :func:`checks` says what each case's JSON
 must show.
 
-The reference's LM-side cases (``moe_ep``, ``moe_decode_psum``,
-``flash_decode_shard``, ``compress_pod``, ``elastic_restore``) need modules
-the port does not have yet (ROADMAP queue 1 item 12).
+The MoE cases (``moe_ep``, ``moe_decode_psum``) take the reference's
+(2, 4) data x model mesh as two batch halves, each over a ``VirtualMesh(4)``
+as the model axis: every shard holds the reference's tokens and capacity.
+The reference's other three LM-side cases (``flash_decode_shard``,
+``compress_pod``, ``elastic_restore``) need modules the port does not have
+yet (ROADMAP queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -748,6 +751,64 @@ def case_verify_audit(device="cuda"):
     return out
 
 
+def _moe_case(device, num_shared: int, seq: int):
+    """The reference's MoE case setup: its config (d_model 32, 8 experts
+    top-2, d_ff 48, capacity factor 8), weights drawn for a 4-way model
+    axis from a generator seeded 0, x (4, seq, 32) standard normal from one
+    seeded 1; the local path's output and aux, and each batch half's
+    through ``moe_fwd`` over a ``VirtualMesh(4)``."""
+    import torch
+
+    from repro_torch.core.mesh import VirtualMesh
+    from repro_torch.models.common import ModelConfig
+    from repro_torch.models.moe import init_moe, moe_fwd
+    from repro_torch.utils import resolve_device
+
+    dev = resolve_device(device)
+    cfg = ModelConfig(arch="m", family="moe", num_layers=1, d_model=32,
+                      num_heads=4, num_kv_heads=4, d_ff=0, vocab_size=64,
+                      moe_num_experts=8, moe_top_k=2,
+                      moe_num_shared=num_shared, moe_d_ff=48,
+                      moe_capacity_factor=8.0, dtype=torch.float32,
+                      param_dtype=torch.float32)
+    p = init_moe(cfg, torch.Generator(device=dev).manual_seed(0), 4)
+    x = torch.randn((4, seq, 32), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev)
+    with torch.no_grad():
+        y_local, aux_local = moe_fwd(p, x, cfg, None)
+        halves = [moe_fwd(p, x[h:h + 2], cfg, VirtualMesh(4))
+                  for h in (0, 2)]
+    return y_local, aux_local, halves
+
+
+def case_moe_ep(device="cuda"):
+    """Expert-parallel dispatch (the shuffle over the model axis) equal to
+    the one-device dispatch on the same weights. The EP aux is each seq
+    shard's, averaged over the axis (a deliberate approximation of the
+    global statistic, noisy at 8 tokens a shard): it must be a sane
+    positive value near uniform routing's 1.0. The reference's replicated
+    aux output is its first data shard's: here the first batch half's."""
+    import torch
+
+    y_local, aux_l, halves = _moe_case(device, 1, 8)
+    y_ep = torch.cat([y for y, _ in halves], 0)
+    aux_ep = halves[0][1]
+    return {"moe_ep_err": float((y_local - y_ep).abs().max()),
+            "moe_dropped_local": float(aux_l["moe_dropped"]),
+            "aux_close": 0.5 < float(aux_ep["moe_aux"]) < 3.0
+            and float(aux_l["moe_aux"]) > 0}
+
+
+def case_moe_decode_psum(device="cuda"):
+    """The decode path (S == 1: each shard's own experts over every token,
+    summed) equal to the local path."""
+    import torch
+
+    y_local, _, halves = _moe_case(device, 0, 1)
+    y_ep = torch.cat([y for y, _ in halves], 0)
+    return {"moe_decode_err": float((y_local - y_ep).abs().max())}
+
+
 CASES = {k[5:]: v for k, v in list(globals().items())
          if k.startswith("case_")}
 
@@ -866,6 +927,12 @@ _CHECKS = {
         ("alignment and window carries gather",
          lambda r: r["sort_join_align"]["actual"]["all_gather"] > 0
          and r["sort_window"]["actual"]["all_gather"] > 0)),
+    "moe_ep": (
+        ("EP dispatch equal to the local path", lambda r: r["moe_ep_err"] < 2e-5),
+        ("aux sane", _all("aux_close"))),
+    "moe_decode_psum": (
+        ("psum decode equal to the local path",
+         lambda r: r["moe_decode_err"] < 2e-5),),
 }
 
 

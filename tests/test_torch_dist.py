@@ -462,7 +462,7 @@ def test_chip_smoke_cpu_rehearsal_drives_the_pipeline_and_harnesses(
     with pytest.raises(smoke.CheckFailed, match="appears twice"):
         smoke.check_pipeline_batch("x", batch, cfg, pipe_oracle)
     h = smoke.phase_harnesses(cpu, plans=6)
-    assert h["fuzz"]["plans"] == 6 and len(h["dist_cases_seconds"]) == 16
+    assert h["fuzz"]["plans"] == 6 and len(h["dist_cases_seconds"]) == 18
     json.dumps(h)
 
 

@@ -3,8 +3,9 @@ virtual shards on the CPU, each held to what tests/test_dist.py asserts of
 the reference's case of the same name (``dist_cases.checks``, which
 chip_smoke.py's phase 15 uses too); a planted bad output of each case
 fails those checks. The port needs no subprocess: its shards are virtual.
-The reference's five LM-side cases wait for their modules (ROADMAP queue
-1 item 12).
+The MoE cases (``moe_ep``, ``moe_decode_psum``) are here; the reference's
+three other LM-side cases wait for their modules (ROADMAP queue 1 item
+12).
 """
 import functools
 
@@ -48,7 +49,7 @@ def test_every_relational_case_is_ported():
         "sort_chain", "sort_align_skew", "global_limit", "overflow_retry",
         "cost_groupby", "window_chain", "window_thin_shards", "sort_multikey",
         "serving_async", "async_overflow_deferred", "staged_shuffle",
-        "verify_audit"])
+        "verify_audit", "moe_ep", "moe_decode_psum"])
 
 
 def test_dist_cases_cli_prints_one_json_line(capsys):
@@ -170,6 +171,15 @@ def test_async_overflow_verification_is_deferred():
     assert_checked("async_overflow_deferred")
 
 
+def test_moe_ep_matches_local():
+    assert_checked("moe_ep")
+    assert run_case("moe_ep")["moe_dropped_local"] == 0.0
+
+
+def test_moe_decode_psum_matches_local():
+    assert_checked("moe_decode_psum")
+
+
 def _with(key, value):
     return lambda r: {**r, key: value(r)}
 
@@ -197,6 +207,8 @@ PLANTED = {
     "staged_shuffle": _with("stages_reported", lambda r: [1, 1, 1]),
     "verify_audit": _nested("ring_shuffle", "actual",
                             lambda r: {**r["actual"], "all_to_all": 1}),
+    "moe_ep": _with("moe_ep_err", lambda r: 2e-5),
+    "moe_decode_psum": _with("moe_decode_err", lambda r: 1e-3),
 }
 
 

@@ -42,6 +42,8 @@ from repro_torch.models.factory import build_model  # noqa: E402
 from repro_torch.train.steps import make_decode_step, make_prefill_step  # noqa: E402
 
 ARCHS = ["llama3-8b", "granite-3-2b", "stablelm-12b"]
+# the MoE family's archs: tests/test_torch_moe.py holds their models
+MOE_ARCHS = ["qwen2-moe-a2.7b", "dbrx-132b"]
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"f32": 1e-5, "bf16": 3e-2}
@@ -86,7 +88,7 @@ def _tokens(cfg, b, s, seed=0):
 # --- configs ------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 @pytest.mark.parametrize("which", ["get_config", "get_tiny"])
 def test_config_copies_the_reference_value_for_value(arch, which):
     j = getattr(jconfigs, which)(arch)
@@ -107,7 +109,7 @@ def test_every_ported_config_has_flash_kernel_instances():
     ported arch, full size and TINY: a dim without one raises there."""
     from repro_torch.kernels.flash_attention import KERNEL_HEAD_DIMS
 
-    assert sorted(tconfigs.PORTED) == sorted(ARCHS)
+    assert sorted(tconfigs.PORTED) == sorted(ARCHS + MOE_ARCHS)
     for arch in tconfigs.PORTED:
         for cfg in (tconfigs.get_config(arch), tconfigs.get_tiny(arch)):
             assert cfg.hd in KERNEL_HEAD_DIMS, (arch, cfg.hd)
@@ -284,7 +286,7 @@ def test_build_model_needs_a_card_unless_asked_for_the_cpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_model(cfg)
     with pytest.raises(NotImplementedError):
-        build_model(cfg.replace(family="moe"), "cpu")
+        build_model(cfg.replace(family="hybrid"), "cpu")
 
 
 # --- the whole model ------------------------------------------------------------

@@ -181,11 +181,17 @@ def _load_smoke():
 
 
 def _count_wrapper_calls(monkeypatch, smoke):
-    """A CPU tensor launches nothing: count each flash wrapper's calls as
-    its launches, and route training through ``FlashAttentionFn`` (whose
-    wrappers take their plain versions here), as on the card."""
-    counted = {n: smoke.KERNELS[n][0] for n in smoke.LM_KERNELS}
-    real = {n: getattr(fa, n) for n in counted}
+    """A CPU tensor launches nothing: count each flash wrapper's calls, and
+    the histogram's (the MoE archs' dispatch), as their launches, and route
+    training through ``FlashAttentionFn`` (whose wrappers take their plain
+    versions here), as on the card."""
+    from repro_torch.kernels import histogram
+
+    counted = {n: smoke.KERNELS[n][0] for n in smoke.LM_KERNELS +
+               ("bucket_histogram",)}
+    modules = {n: fa for n in smoke.LM_KERNELS}
+    modules["bucket_histogram"] = histogram
+    real = {n: getattr(modules[n], n) for n in counted}
 
     def counting(name):
         def launch(*a, **kw):
@@ -194,7 +200,7 @@ def _count_wrapper_calls(monkeypatch, smoke):
         return launch
 
     for name in counted:
-        monkeypatch.setattr(fa, name, counting(name))
+        monkeypatch.setattr(modules[name], name, counting(name))
     real_attention = tops.attention
 
     def attention(q, k, v, *, causal=True):
