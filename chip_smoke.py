@@ -202,9 +202,10 @@ Then, with the serving model freed, the training path:
    profiled step.
 18. The reference's ``--tiny`` commands on the card, in process through
    the launchers' ``main``: ``launch.serve --arch {llama3-8b,
-   stablelm-12b, qwen2-moe-a2.7b, dbrx-132b} --tiny`` and ``launch.train
-   --arch {granite-3-2b, stablelm-12b, qwen2-moe-a2.7b, dbrx-132b} --tiny
-   --steps 3`` (head dim 16), each against the same command with
+   stablelm-12b, qwen2-moe-a2.7b, dbrx-132b, minicpm3-4b} --tiny`` and
+   ``launch.train --arch {granite-3-2b, stablelm-12b, qwen2-moe-a2.7b,
+   dbrx-132b, minicpm3-4b} --tiny --steps 3`` (head dim 16; minicpm3-4b's
+   MLA widths 24/16), each against the same command with
    ``--device cpu`` (the MoE archs' CPU runs on the card runs' routes,
    ``RouteTap``): flash and the histogram launched (counted), the
    prefill's logits within ``LM_TOL``, every step's loss within
@@ -234,25 +235,40 @@ Then, with the serving model freed, the training path:
    and ``MOE_BIG_LAYERS`` (4) of 40 layers (48/8 heads of 128: flash at
    group size 6; 16 experts of d_ff 10752; 14.27 B parameters) served as
    qwen2-moe-a2.7b is, untraced.
+20. Multi-head latent attention, with every earlier model freed:
+   minicpm3-4b at full width and depth (62 layers, d 2560, 40/40 heads,
+   q·k width 96 = nope 64 + rope 32, p·v width 64, latent cache 256 + 32
+   a token; 4.26 B parameters) served as phase 17 serves stablelm-12b:
+   flash at widths 96/64 once a layer in the prefill (62), none in an
+   absorbed decode step; logits within ``LM_TOL`` of the plain run, and
+   prefill + absorbed decode within ``MLA_DECODE_TOL`` of one causal
+   forward; a bidirectional mask must move the prefill logits by more
+   than 3 times that; times, peak, one traced prefill and 8 decode steps.
+   Then trained at full width and ``MLA_TRAIN_LAYERS`` (8) of 62 layers
+   (0.88 B) in its 8 microbatches: 2 layers against ``oracle_scope()``
+   with phase 16's tolerances, a warm-up step and 2 steps of 128 LSE
+   forwards and 64 backwards each, finite losses, one profiled step.
 Phase 2 also holds flash_attention against its plain version (S 1 to
 4096, around the 64-row fp32 and 128-row bf16 tiles, causal or not, group
-size 1, 4 and 6, head dims 16, 64, 128 and 160, fp32 and bf16, the MoE
-prefill layers' shapes, scores up to +-1e4; every entry raises
-``TypeError`` at hd 96), bucket_histogram at the MoE dispatch's shapes
+size 1, 4 and 6, every (q·k, p·v) width pair of ``KERNEL_HEAD_DIMS``
+(16, 64, 128, 160 for both; MLA's 96/64 and 24/16), fp32 and bf16, the
+MoE and MLA prefill layers' shapes, scores up to +-1e4; every entry
+raises ``TypeError`` at (96, 96) and (128, 64)), bucket_histogram at the MoE dispatch's shapes
 (``MOE_HIST_SHAPES``: P 60 and 16, n 16 to 16384), and the training
 entries (``check_flash_train``): flash_attention_lse's out equal to the
 serving entry's and its lse against a float64 logsumexp;
 flash_attention_bwd against autograd through ``attention_ref`` at the
 training path's shape, llama3-8b's (hd 128), a stablelm-12b microbatch's
-(hd 160), hd 16's and a qwen2-moe-a2.7b microbatch's (group size 1), at S
+(hd 160), hd 16's, a qwen2-moe-a2.7b microbatch's (group size 1) and a
+minicpm3-4b one's (96/64), at S
 1, 63, 64, 65, 127, 128, 129, 1000, 1025 (every tile edge of the backward)
-for every head dim, causal or not, bf16 and fp32 (and bf16 at group size
+for every width pair, causal or not, bf16 and fp32 (and bf16 at group size
 6, dbrx-132b's), group sizes 1, 2, 4 and 8 (every split of the bf16 dK/dV
 launch),
 each of dq, dk, dv in every 64-row
 tile within ``FLASH_BWD_TOL`` of the tile's plain norm (a planted fault,
-the lse off by ln 2 past the first four tiles, must fail at hd 64, 160
-and 16), the same bits on two runs. Phase 7 times
+the lse off by ln 2 past the first four tiles, must fail at q·k widths
+64, 160, 16 and 96), the same bits on two runs. Phase 7 times
 flash_attention at the serving path's shape beside
 ``F.scaled_dot_product_attention`` (``library_ms``), and the training
 entries at one microbatch of the training path (B 2, S 1024, H 32, KV 8,
@@ -262,16 +278,25 @@ the log-sum-exp, and its ``_backward`` on that call's out and lse); and
 phase 19's shapes: bucket_histogram over qwen2-moe-a2.7b's prefill
 dispatch (P 60, n 16384) beside ``torch.bincount`` (``bucket_histogram@moe``),
 flash at its prefill layer (group size 1, ``flash_attention@g1``) and at
-dbrx-132b's (group size 6, ``flash_attention@g6``) beside SDPA.
+dbrx-132b's (group size 6, ``flash_attention@g6``) beside SDPA; and
+phase 20's: flash at minicpm3-4b's prefill layer (``flash_attention@mla``)
+and its training entries at one microbatch (``flash_attention_lse@mla``,
+``flash_attention_bwd@mla``) beside SDPA (which leaves its flash backend
+at unequal widths: the backend it took is printed; the training
+yardstick is SDPA on inputs that require grad and its autograd backward).
+Phase 7's ptxas report fails a flash bf16 instance that spills or whose
+``wgmma`` products ptxas serialized (C7520).
 
 It prints one JSON line with the serving path's numbers, one with the main
 path's, one with phase 11's (``{"plan": ...}``), one with phases 12-13's
 (``{"serving": ...}``), one with phases 14-15's (``{"pipeline": ...}``),
 one with phase 16's (``{"train": ...}``), one with phase 17's
 (``{"stablelm": ...}``), one with phase 18's (``{"tiny": ...}``), one
-with phase 19's (``{"moe": ...}``), one with every kernel's (the flash
-entries' other head dims as ``<entry>@hd160`` and ``@hd16``, phase 19's
-shapes as ``bucket_histogram@moe``, ``flash_attention@g1`` and ``@g6``),
+with phase 19's (``{"moe": ...}``), one with phase 20's (``{"mla":
+...}``), one with every kernel's (the flash entries' other head dims as
+``<entry>@hd160`` and ``@hd16``, phase 19's shapes as
+``bucket_histogram@moe``, ``flash_attention@g1`` and ``@g6``, phase 20's
+as ``<entry>@mla``),
 then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line. Without a card it exits
 2 and prints no result.
@@ -376,16 +401,17 @@ BIG_ARCH, BIG_TRAIN_LAYERS, BIG_TRAIN_STEPS = "stablelm-12b", 4, 2
 # tokens) and 3 training steps (batch 16, seq 256); the MoE archs' CPU runs
 # follow the card runs' routes (``RouteTap``)
 TINY_SERVE_ARCHS = ("llama3-8b", "stablelm-12b", "qwen2-moe-a2.7b",
-                    "dbrx-132b")
+                    "dbrx-132b", "minicpm3-4b")
 TINY_TRAIN_ARCHS = ("granite-3-2b", "stablelm-12b", "qwen2-moe-a2.7b",
-                    "dbrx-132b")
+                    "dbrx-132b", "minicpm3-4b")
 TINY_TRAIN_STEPS = 3
 # Each step's loss of the card's tiny run against the CPU's, absolute. The
 # card rounds P to bf16 in the kernel (the CPU's plain attention keeps fp32)
 # and sums its bf16 GEMMs in another order. On the CPU, the kernel's
 # rounding moves the three losses (~6.25-6.30, near ln 512) by at most
-# 9.4e-5, and a wrong mask (bidirectional) by 3.5e-3 (granite) and 6.4e-3
-# (stablelm): 1e-3 is ten times the one, a third to a sixth of the other
+# 9.4e-5, and a wrong mask (bidirectional) by 3.5e-3 (granite), 6.4e-3
+# (stablelm) and 4.8e-3 (minicpm3-4b, whose kernel rounding moves them
+# 6.3e-5): 1e-3 is ten times the one, a third to a sixth of the other
 # (tests/test_torch_stablelm.py holds both sides of it).
 TINY_LOSS_TOL = 1e-3
 # Logits of two runs of the serving path that differ only in how prefill
@@ -427,6 +453,23 @@ MOE_INVARIANT_CF = 16.0
 # (``RouteTap``), so that every row's routes agree and every row is held to
 # LM_TOL or phase 16's tolerances.
 MOE_FLIP_SHARE = 0.15
+# phase 20: minicpm3-4b (multi-head latent attention: flash at q k width 96,
+# p v width 64, 40/40 heads) served at full width and depth (4.26 B
+# parameters) as phase 17 serves stablelm-12b, then trained at full width
+# and MLA_TRAIN_LAYERS of its 62 layers (~20 B a parameter of training
+# state: 62 layers need ~85 GB, 8 hold 0.88 B parameters and ~18 GB) in
+# its 8 microbatches, a warm-up step and BIG_TRAIN_STEPS steps
+MLA_ARCH, MLA_TRAIN_LAYERS = "minicpm3-4b", 8
+# Prefill + decode against one causal forward over the same tokens, for
+# MLA: decode takes the absorbed path (W_uk folded into q, scores over the
+# latent cache, each of its two score einsums rounded to bf16 and added in
+# bf16, the context in latent space, then W_uv), another order of
+# operations and rounding than the causal forward's materialised K and V
+# through the flash kernel. The reference's own serving test allows 8e-2
+# for this arch (tests/test_serve.py); a wrong mask moves the logits by
+# their own scale (std ~sqrt(2560 / 73472) = 0.19 at random weights), and
+# tests/test_torch_mla.py holds both sides of it at TINY on the CPU.
+MLA_DECODE_TOL = 8e-2
 
 # segment_reduce's pass-1 tile (csrc/segment_reduce.cu), whose edges phase 2
 # probes
@@ -637,37 +680,52 @@ REPORTED_KERNELS = ("flash_fwd_bf16", "flash_bwd_prep", "flash_bwd_dkdv_bf16",
                     "bitonic_tile", "bitonic_perm")
 _OPS = {"0": "sum", "1": "min", "2": "max"}
 # flash_bwd_dkdv_f32's PARTS: both gradients, or (past hd 128) one a
-# launch; the bf16 instances take hd alone
+# launch; the bf16 instances take the widths alone
 _DKDV_PARTS = {"1": "dV", "2": "dK", "3": "dK+dV"}
+
+
+def _instance_name(m) -> str:
+    """A kernel instance's name from its mangled name's match: the kernel
+    and its template arguments, Li128ELi128 (flash's q k and p v widths;
+    flash_bwd_prep's p v width alone), fLi0 (float, sum), Lb1 (flash's
+    LSE-writing training instance), Li160ELi160ELi1 (the widths, the fp32
+    dK/dV launch's gradients), Li8 (a bitonic tile's log size)."""
+    args = m.group(2) or ""
+    t = {"f": "float", "i": "int"}.get(args[:1])
+    n = re.findall(r"Li(\d+)", args)
+    label = ("" if not n else f"<{n[0]}>" if t is None else
+             f"<{t}, {_OPS.get(n[0], n[0])}>")
+    if t is None and len(n) > 1:
+        label = f"<{n[0]}/{n[1]}" + (
+            f", {_DKDV_PARTS[n[2]]}" if len(n) > 2 else "") + ">"
+    lse = re.findall(r"Lb(\d)", args)
+    if lse:
+        label = label[:-1] + (", lse>" if lse[0] == "1" else ", serving>")
+    return m.group(1) + label
 
 
 def ptxas_report() -> list[dict]:
     """Every instance of ``REPORTED_KERNELS`` as the build's ``-Xptxas -v``
     output (``_build.LOGS``) reports it: registers a thread, stack frame
-    and spill bytes (stores, loads) and static shared memory."""
+    and spill bytes (stores, loads), static shared memory, and
+    ``wgmma_serialized`` where ptxas warns that it serialized the
+    instance's ``wgmma`` products (C7520: a product on a path it treats as
+    divergent, or too few registers)."""
     found = []
     pat = re.compile(r"\d+(%s)(?:I(\w*?)EE)?" % "|".join(REPORTED_KERNELS))
+    serialized = set()
     for _, log in _build.LOGS.values():
         cur = None
         for line in log.splitlines():
-            if "Compiling entry function" in line:
+            if "C7520" in line or "instructions are serialized" in line:
+                m = pat.search(line)
+                if m:
+                    serialized.add(_instance_name(m))
+            elif "Compiling entry function" in line:
                 m = pat.search(line)
                 cur = None
-                if m:  # template arguments: Li128 (hd), fLi0 (float, sum),
-                    # Lb1 (flash's LSE-writing training instance), Li160ELi1
-                    # (hd, the fp32 dK/dV launch's gradients)
-                    args = m.group(2) or ""
-                    t = {"f": "float", "i": "int"}.get(args[:1])
-                    n = re.findall(r"Li(\d+)", args)
-                    label = ("" if not n else f"<{n[0]}>" if t is None else
-                             f"<{t}, {_OPS.get(n[0], n[0])}>")
-                    if t is None and len(n) > 1:
-                        label = f"<{n[0]}, {_DKDV_PARTS[n[1]]}>"
-                    lse = re.findall(r"Lb(\d)", args)
-                    if lse:
-                        label = label[:-1] + (", lse>" if lse[0] == "1"
-                                              else ", serving>")
-                    cur = {"kernel": m.group(1) + label}
+                if m:
+                    cur = {"kernel": _instance_name(m)}
                     found.append(cur)
             elif cur is not None and "spill stores" in line:
                 st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
@@ -679,6 +737,8 @@ def ptxas_report() -> list[dict]:
                                                  line).group(1))
                 smem = re.search(r"(\d+) bytes smem", line)
                 cur["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    for r in found:
+        r["wgmma_serialized"] = r["kernel"] in serialized
     return found
 
 
@@ -715,6 +775,14 @@ def bound_ms(nbytes: float, ops: float,
              ops_per_s: float = SCALAR_OPS_PER_S) -> tuple[float, str]:
     tb, to = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def attn_widths(cfg) -> tuple[int, int]:
+    """The flash kernel's (q k, p v) widths for ``cfg``: MLA's (nope + rope,
+    v), else (hd, hd)."""
+    if cfg.attn_kind == "mla":
+        return cfg.mla_nope_dim + cfg.mla_rope_dim, cfg.mla_v_dim
+    return cfg.hd, cfg.hd
 
 
 def bitonic_bound(nbytes: float, tile: int, probe: dict,
@@ -1194,39 +1262,46 @@ def check_flash(dev, rng) -> None:
     """flash_attention against attention_ref on the card: S at and around
     the fp32 kernel's 64-row tiles and the bf16 kernel's 128-row tiles, and
     long (1, 63, 64, 65, 127, 128, 129, 255, 1023, 1024, and 4096 at hd 64
-    and 128, 1025 at hd 16 and 160), causal or not, group size 1, 4 and 6
-    (dbrx-132b's), every head dim of ``KERNEL_HEAD_DIMS``, B up to 4, and
-    the MoE prefill layers' shapes (``(4, 1024, 16, 16, 128)``, ``(4, 1024,
-    48, 8, 128)``), fp32 within 2e-5 and
+    and 128, 1025 at the other widths), causal or not, group size 1, 4 and
+    6 (dbrx-132b's), every (q k, p v) width pair of ``KERNEL_HEAD_DIMS``
+    (MLA's (96, 64) and (24, 16) among them), B up to 4, and the MoE and
+    MLA prefill layers' shapes (``(4, 1024, 16, 16, 128)``, ``(4, 1024, 48,
+    8, 128)``, ``(4, 1024, 40, 40, 96/64)``), fp32 within 2e-5 and
     bf16 within 2e-2 (``tests/test_kernels.py``'s tolerances: the softmax
     sums run in another order, and bf16 outputs of ~[2, 4) round one ulp,
     2^-6, apart); one case with scores scaled to +-1e4 (the online
     softmax's rescaling); the same bits on a second run. Every entry raises
-    ``TypeError`` at a head dim without an instance (96, MLA's)."""
-    def qkv(b, s, h, kv, hd, dtype, scale=1.0):
+    ``TypeError`` at a width pair without an instance ((96, 96), (128,
+    64))."""
+    def qkv(b, s, h, kv, hd, dtype, scale=1.0, dv=None):
         def x(*shape, sc=1.0):
             a = rng.standard_normal(shape).astype(np.float32) * sc
             return torch.from_numpy(a).to(dev, dtype)
-        return x(b, s, h, hd, sc=scale), x(b, s, kv, hd), x(b, s, kv, hd)
+        return (x(b, s, h, hd, sc=scale), x(b, s, kv, hd),
+                x(b, s, kv, hd if dv is None else dv))
 
-    cases = [(b, s, h, kv, hd, causal, 1.0)
-             for hd in KERNEL_HEAD_DIMS for causal in (True, False)
+    cases = [(b, s, h, kv, hd, causal, 1.0, dv)
+             for hd, dv in KERNEL_HEAD_DIMS for causal in (True, False)
              for s, b in ((1, 4), (63, 3), (64, 2), (65, 4), (127, 3),
                           (128, 2), (129, 4), (255, 2), (1023, 2), (1024, 2),
                           (4096, 1) if hd in (64, 128) else (1025, 1))
              for h, kv in ((8, 8), (8, 2), (12, 2))]
     # the MoE serving paths' prefill layers: qwen2-moe-a2.7b's group size 1
-    # (16/16 heads) and dbrx-132b's 6 (48/8)
-    cases += [(4, 1024, 16, 16, 128, True, 1.0), (4, 1024, 48, 8, 128, True, 1.0)]
+    # (16/16 heads) and dbrx-132b's 6 (48/8); minicpm3-4b's (40/40 heads,
+    # q k over 96, p v over 64)
+    cases += [(4, 1024, 16, 16, 128, True, 1.0, 128),
+              (4, 1024, 48, 8, 128, True, 1.0, 128),
+              (4, 1024, 40, 40, 96, True, 1.0, 64)]
     # q ~ N(0, 1e8), k ~ N(0, 1): scores q.k / sqrt(hd) ~ N(0, 1e8)
-    cases.append((1, 130, 8, 2, 128, True, 1e4))
+    cases.append((1, 130, 8, 2, 128, True, 1e4, 128))
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-        for b, s, h, kv, hd, causal, scale in cases:
-            q, k, v = qkv(b, s, h, kv, hd, dtype, scale)
+        for b, s, h, kv, hd, causal, scale, dv in cases:
+            q, k, v = qkv(b, s, h, kv, hd, dtype, scale, dv)
             got = flash_attention(q, k, v, causal=causal)
             want = ref.attention_ref(q, k, v, causal=causal)
-            name = (f"flash {dtype} B={b} S={s} H={h} KV={kv} hd={hd} "
+            name = (f"flash {dtype} B={b} S={s} H={h} KV={kv} hd={hd}/{dv} "
                     f"causal={causal} q scale {scale:g}")
+            check(got.shape == want.shape == (b, s, h, dv), f"{name}: shape")
             check(torch.allclose(got, want, atol=tol, rtol=tol),
                   f"{name}: differs by {float((got - want).abs().max())}")
             check(torch.equal(got, flash_attention(q, k, v, causal=causal)),
@@ -1234,17 +1309,20 @@ def check_flash(dev, rng) -> None:
     # the scores of the last case reach past +-1e4
     top = torch.einsum("bsd,btd->bst", q[:, :, 0].float(), k[:, :, 0].float())
     check(float(top.abs().max()) / math.sqrt(128) > 1e4, "flash: scores < 1e4")
-    q, k, v = qkv(1, 4, 2, 2, 96, torch.bfloat16)
-    for name, call in (
-            ("flash_attention", lambda: flash_attention(q, k, v)),
-            ("flash_attention_lse", lambda: flash_attention_lse(q, k, v)),
-            ("flash_attention_bwd", lambda: flash_attention_bwd(
-                q, k, v, q, torch.zeros(1, 2, 4, device=dev), q))):
-        try:
-            call()
-            check(False, f"{name} ran at head dim 96, which has no instance")
-        except TypeError as e:
-            check("head dims" in str(e), f"{name} at hd 96: {e}")
+    for hd, dv in ((96, 96), (128, 64)):
+        q, k, v = qkv(1, 4, 2, 2, hd, torch.bfloat16, dv=dv)
+        o = q.new_zeros((1, 4, 2, dv))
+        for name, call in (
+                ("flash_attention", lambda: flash_attention(q, k, v)),
+                ("flash_attention_lse", lambda: flash_attention_lse(q, k, v)),
+                ("flash_attention_bwd", lambda: flash_attention_bwd(
+                    q, k, v, o, torch.zeros(1, 2, 4, device=dev), o))):
+            try:
+                call()
+                check(False, f"{name} ran at widths ({hd}, {dv}), which have "
+                      f"no instance")
+            except TypeError as e:
+                check("head dims" in str(e), f"{name} at ({hd}, {dv}): {e}")
 
 
 # The flash backward against autograd through attention_ref (fp32 inside)
@@ -1278,8 +1356,9 @@ FLASH_LSE_TOL = 1e-4
 LIBRARY_SAME_FN = 5e-2
 
 
-# the head dims whose first case in flash_train_cases plants the lse fault
-FLASH_PLANTED_DIMS = (64, 160, 16)
+# the q k widths whose first case in flash_train_cases plants the lse
+# fault (96: MLA's, at its training shape)
+FLASH_PLANTED_DIMS = (64, 160, 16, 96)
 
 
 # sequence lengths that straddle every tile edge of the backward: the 64-row
@@ -1297,26 +1376,30 @@ FLASH_TRAIN_G6 = (12, 2)
 
 
 def flash_train_cases():
-    """(B, S, H, KV, hd, causal, dtype) of phase 2's training checks: the
-    path's shape (granite-3-2b's heads, B 2, S 1024, bf16, causal),
-    llama3-8b's (hd 128), one microbatch of phase 17's stablelm-12b (hd
-    160, B 1), hd 16 at B 2 and one microbatch of phase 19's qwen2-moe-a2.7b
-    (hd 128, group size 1, B 2); every ``FLASH_TRAIN_SEQS`` at group size 4
-    for every head dim, causal or not, bf16 and fp32, and in bf16 at group
-    size 6 (``FLASH_TRAIN_G6``); and in bf16 every other group of
-    ``FLASH_TRAIN_GROUPS`` at S 129 and 1025, causal or not."""
+    """(B, S, H, KV, hd, causal, dtype, dv) of phase 2's training checks
+    (hd the q k width, dv the p v width): the path's shape (granite-3-2b's
+    heads, B 2, S 1024, bf16, causal), llama3-8b's (hd 128), one microbatch
+    of phase 17's stablelm-12b (hd 160, B 1), hd 16 at B 2, one microbatch
+    of phase 19's qwen2-moe-a2.7b (hd 128, group size 1, B 2) and of phase
+    20's minicpm3-4b (40/40 heads, 96/64, B 1); every ``FLASH_TRAIN_SEQS``
+    at group size 4 for every width pair, causal or not, bf16 and fp32, and
+    in bf16 at group size 6 (``FLASH_TRAIN_G6``); and in bf16 every other
+    group of ``FLASH_TRAIN_GROUPS`` at S 129 and 1025, causal or not."""
     bf, f32 = torch.bfloat16, torch.float32
-    cases = [(2, 1024, 32, 8, 64, True, bf), (2, 1024, 32, 8, 128, True, bf),
-             (1, 1024, 32, 8, 160, True, bf), (2, 1024, 32, 8, 16, True, bf),
-             (2, 1024, 16, 16, 128, True, bf)]
-    cases += [(2 if s < 1025 else 1, s, 8, 2, hd, causal, dt)
-              for dt in (bf, f32) for hd in KERNEL_HEAD_DIMS
+    cases = [(2, 1024, 32, 8, 64, True, bf, 64),
+             (2, 1024, 32, 8, 128, True, bf, 128),
+             (1, 1024, 32, 8, 160, True, bf, 160),
+             (2, 1024, 32, 8, 16, True, bf, 16),
+             (2, 1024, 16, 16, 128, True, bf, 128),
+             (1, 1024, 40, 40, 96, True, bf, 64)]
+    cases += [(2 if s < 1025 else 1, s, 8, 2, hd, causal, dt, dv)
+              for dt in (bf, f32) for hd, dv in KERNEL_HEAD_DIMS
               for causal in (True, False) for s in FLASH_TRAIN_SEQS]
-    cases += [(2 if s < 1025 else 1, s, *FLASH_TRAIN_G6, hd, causal, bf)
-              for hd in KERNEL_HEAD_DIMS for causal in (True, False)
+    cases += [(2 if s < 1025 else 1, s, *FLASH_TRAIN_G6, hd, causal, bf, dv)
+              for hd, dv in KERNEL_HEAD_DIMS for causal in (True, False)
               for s in FLASH_TRAIN_SEQS]
-    cases += [(2 if s < 1025 else 1, s, h, kv, hd, causal, bf)
-              for hd in KERNEL_HEAD_DIMS for h, kv in FLASH_TRAIN_GROUPS
+    cases += [(2 if s < 1025 else 1, s, h, kv, hd, causal, bf, dv)
+              for hd, dv in KERNEL_HEAD_DIMS for h, kv in FLASH_TRAIN_GROUPS
               if (h, kv) != (8, 2) for causal in (True, False)
               for s in (129, 1025)]
     return cases
@@ -1365,13 +1448,13 @@ def check_flash_train(dev, rng) -> dict:
     worst = {key: {"rel": 0.0, "zero_rms": 0.0, "excess": 0.0}
              for key in ("bf16", "f32")}
     planted = {}
-    for b, s, h, kv, hd, causal, dtype in flash_train_cases():
+    for b, s, h, kv, hd, causal, dtype, dv in flash_train_cases():
         def x(*shape):
             a = rng.standard_normal(shape).astype(np.float32)
             return torch.from_numpy(a).to(dev, dtype)
-        q, k, v, dout = x(b, s, h, hd), x(b, s, kv, hd), x(b, s, kv, hd), \
-            x(b, s, h, hd)
-        name = (f"flash train {dtype} B={b} S={s} H={h} KV={kv} hd={hd} "
+        q, k, v, dout = x(b, s, h, hd), x(b, s, kv, hd), x(b, s, kv, dv), \
+            x(b, s, h, dv)
+        name = (f"flash train {dtype} B={b} S={s} H={h} KV={kv} hd={hd}/{dv} "
                 f"causal={causal}")
         out, lse = flash_attention_lse(q, k, v, causal=causal)
         check(torch.equal(out, flash_attention(q, k, v, causal=causal)),
@@ -2741,6 +2824,26 @@ def phase_timing(dev, rows: int) -> dict[str, dict]:
         cfg.num_heads, cfg.num_kv_heads, cfg.hd))
     out.update(flash_dims_timing(dev, timer))
     out.update(moe_timing(dev, timer, rng))
+    out.update(mla_timing(dev, timer))
+    return out
+
+
+def mla_timing(dev, timer) -> dict[str, dict]:
+    """The MLA instances (q k width 96, p v width 64) at phase 20's shapes:
+    the serving entry at a minicpm3-4b prefill layer (B 4, S 1024, 40/40
+    heads; ``flash_attention@mla``), the training entries at one
+    microbatch of its training path (B 1; ``flash_attention_lse@mla``,
+    ``flash_attention_bwd@mla``). The library is SDPA on the same inputs,
+    through whichever backend takes unequal widths (named)."""
+    cfg = get_config(MLA_ARCH)
+    dqk, dv = attn_widths(cfg)
+    out = {"flash_attention@mla": flash_fwd_timing(
+        dev, timer, LM_BATCH, LM_PROMPT, cfg.num_heads, cfg.num_kv_heads, dqk,
+        dv)}
+    train = flash_train_timing(
+        dev, timer, TRAIN_BATCH // train_microbatches(MLA_ARCH), TRAIN_SEQ,
+        cfg.num_heads, cfg.num_kv_heads, dqk, dv)
+    out.update({f"{k}@mla": v for k, v in train.items()})
     return out
 
 
@@ -2801,13 +2904,33 @@ def library_call(fn):
         return None, str(e).splitlines()[0][:200]
 
 
-def flash_fwd_timing(dev, timer, b, s, h, kv, hd) -> dict:
-    """The serving entry at (B, S, H, KV, hd), bf16, causal, beside its
-    plain version and ``F.scaled_dot_product_attention`` (``library_ms``;
-    ``None`` and ``library_error`` where it refuses the head dim)."""
+# SDPA's backends, by the aten op each dispatches to
+SDPA_BACKENDS = (("flash", "_scaled_dot_product_flash_attention"),
+                 ("cudnn", "_scaled_dot_product_cudnn_attention"),
+                 ("efficient", "_scaled_dot_product_efficient_attention"),
+                 ("math", "_scaled_dot_product_attention_math"))
+
+
+def sdpa_backend(call) -> str:
+    """The backend an SDPA call picked: the aten op a CPU-side trace of one
+    call shows."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        call()
+    names = [e.key for e in prof.key_averages()]
+    return next((label for label, op in SDPA_BACKENDS
+                 if any(op in n for n in names)), "unknown")
+
+
+def flash_fwd_timing(dev, timer, b, s, h, kv, hd, dv=None) -> dict:
+    """The serving entry at (B, S, H, KV, hd) (v ``dv`` wide, hd unless
+    given), bf16, causal, beside its plain version and
+    ``F.scaled_dot_product_attention`` (``library_ms``, the backend it
+    picked; ``None`` and ``library_error`` where it refuses the widths)."""
+    dv = hd if dv is None else dv
     g = torch.Generator(device=dev).manual_seed(12)
     q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
-               for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+               for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, dv)))
     ms = timer(lambda: flash_attention(q, k, v))
     plain = timer(lambda: ref.attention_ref(q, k, v))
     # the port never calls SDPA: it is timed here as the yardstick
@@ -2818,44 +2941,54 @@ def flash_fwd_timing(dev, timer, b, s, h, kv, hd) -> dict:
                                               enable_gqa=True)
 
     # q, k, v read once and out written once; the products of the
-    # s (s + 1) / 2 unmasked (query, key) pairs: 2 hd for q k and 2 hd for
+    # s (s + 1) / 2 unmasked (query, key) pairs: 2 hd for q k and 2 dv for
     # p v each, on the bf16 tensor cores
-    bms, by = bound_ms(2 * (2 * q.numel() + k.numel() + v.numel()),
-                       4 * b * h * hd * s * (s + 1) / 2, TENSOR_BF16_OPS_PER_S)
+    bms, by = bound_ms(2 * (q.numel() + k.numel() + v.numel() + b * s * h * dv),
+                       2 * b * h * (hd + dv) * s * (s + 1) / 2,
+                       TENSOR_BF16_OPS_PER_S)
     want = ref.attention_ref(q, k, v)
     lib_out, lib_error = library_call(lib_fwd)
     res = dict(
         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
         library_ms=None if lib_out is None else timer(lib_fwd),
+        library_backend=None if lib_out is None else sdpa_backend(lib_fwd),
         max_abs_err=float((flash_attention(q, k, v) - want).float().abs().max()),
         library_max_abs_err=None if lib_out is None else float(
             (lib_out.transpose(1, 2) - want).float().abs().max()),
-        shape=dict(B=b, S=s, H=h, KV=kv, hd=hd))
+        shape=dict(B=b, S=s, H=h, KV=kv, hd=hd, dv=dv))
     if lib_error is not None:
         res["library_error"] = lib_error
     return res
 
 
-def flash_train_timing(dev, timer, b, s, h, kv, hd) -> dict[str, dict]:
-    """The training entries at (B, S, H, KV, hd), bf16, causal (for hd 64:
-    one layer of one microbatch of granite-3-2b, B 2), each beside its
-    plain version and beside the call SDPA's flash backend makes for the
-    same function on the same (transposed, GQA) inputs:
+def flash_train_timing(dev, timer, b, s, h, kv, hd, dv=None) -> dict[str, dict]:
+    """The training entries at (B, S, H, KV, hd) (v ``dv`` wide, hd unless
+    given), bf16, causal (for hd 64: one layer of one microbatch of
+    granite-3-2b, B 2), each beside its plain version and beside the
+    library. At equal widths that is the call SDPA's flash backend makes
+    for the same function on the same (transposed, GQA) inputs:
     ``aten._scaled_dot_product_flash_attention``, which returns the output
     and the log-sum-exp, and ``_backward`` on that call's output and
     log-sum-exp, each one call timed directly (``None`` and
-    ``library_error`` where the library refuses the head dim). The
-    library's results must agree with the plain versions
-    (``LIBRARY_SAME_FN``). Bounds: each input read and output written
-    once; the forward's s(s+1)/2 products, and 2.5 times them for the
-    backward, at 989 TFLOP/s."""
+    ``library_error`` where the library refuses the head dim). The flash
+    backend takes equal widths only, so at MLA's it is
+    ``F.scaled_dot_product_attention`` on inputs that require grad (the
+    forward that saves for its backward) and its autograd backward, through
+    the backend SDPA picks (``library_backend``). The library's results
+    must agree with the plain versions (``LIBRARY_SAME_FN``). Bounds: each
+    input read and output written once; the forward's s(s+1)/2 products
+    (2 hd + 2 dv FLOPs a pair) and the backward's five (q k^T again, dO
+    v^T, P^T dO, dS^T q, dS k: 2 (3 hd + 2 dv) a pair, 2.5 times the
+    forward's at equal widths), at 989 TFLOP/s."""
+    dv = hd if dv is None else dv
     g = torch.Generator(device=dev).manual_seed(13)
     q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
-                   for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd),
-                                 (b, s, h, hd)))
-    shape = dict(B=b, S=s, H=h, KV=kv, hd=hd)
-    fwd_ops = 4 * b * h * hd * s * (s + 1) / 2
-    io = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v in, out
+                   for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, dv),
+                                 (b, s, h, dv)))
+    shape = dict(B=b, S=s, H=h, KV=kv, hd=hd, dv=dv)
+    pairs = b * h * s * (s + 1) / 2
+    fwd_ops = 2 * (hd + dv) * pairs
+    io = 2 * (q.numel() + k.numel() + v.numel() + do.numel())  # q, k, v in, out
     lse_bytes = 4 * b * h * s
     out, lse = flash_attention_lse(q, k, v)
     for _ in range(100):  # load the card before the first reading
@@ -2865,24 +2998,32 @@ def flash_train_timing(dev, timer, b, s, h, kv, hd) -> dict[str, dict]:
     plain = timer(lambda: ref.attention_lse_ref(q, k, v))
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
     aten = torch.ops.aten
+    sdpa = hd != dv  # the flash backend refuses unequal widths
+    leaves = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
 
     def lib_fwd():
+        if sdpa:
+            with torch.enable_grad():
+                return (F.scaled_dot_product_attention(
+                    *leaves, is_causal=True, enable_gqa=True),)
         return aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, True)
 
     bms, by = bound_ms(io + lse_bytes, fwd_ops, TENSOR_BF16_OPS_PER_S)
     want_out, want_lse = ref.attention_lse_ref(q, k, v)
     fwd, lib_error = library_call(lib_fwd)
-    lib = lib_err = None
+    lib = lib_err = backend = None
     if fwd is not None:
         lib = timer(lib_fwd)
-        lib_err = max(
-            float((fwd[0].transpose(1, 2) - want_out).float().abs().max()),
-            float((fwd[1][..., :s] - want_lse).abs().max()))
+        backend = sdpa_backend(lib_fwd) if sdpa else "flash"
+        lib_err = float((fwd[0].transpose(1, 2) - want_out).float().abs().max())
+        if not sdpa:
+            lib_err = max(lib_err, float((fwd[1][..., :s] - want_lse).abs().max()))
         check(lib_err <= LIBRARY_SAME_FN,
-              f"the library's flash forward differs from the plain version "
+              f"the library's forward differs from the plain version "
               f"by {lib_err} at {shape}")
     res = {"flash_attention_lse": dict(
         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+        library_backend=backend,
         max_abs_err=max(float((out - want_out).float().abs().max()),
                         float((lse - want_lse).abs().max())),
         serving_entry_ms=serving, library_max_abs_err=lib_err, shape=shape)}
@@ -2890,6 +3031,8 @@ def flash_train_timing(dev, timer, b, s, h, kv, hd) -> dict[str, dict]:
         res["flash_attention_lse"]["library_error"] = lib_error
 
     def lib_bwd():
+        if sdpa:
+            return torch.autograd.grad(fwd[0], leaves, dot, retain_graph=True)
         return aten._scaled_dot_product_flash_attention_backward(
             dot, qt, kt, vt, fwd[0], fwd[1], *fwd[2:6], 0.0, True,
             *fwd[6:8])
@@ -2897,8 +3040,10 @@ def flash_train_timing(dev, timer, b, s, h, kv, hd) -> dict[str, dict]:
     bwd = timer(lambda: flash_attention_bwd(q, k, v, out, lse, do))
     plain = timer(lambda: ref.attention_bwd_ref(q, k, v, do))
     # dq, dk, dv written; q, k, v, o, dO read (and lse, a row each)
-    bms, by = bound_ms(2 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel())
-                       + lse_bytes, 2.5 * fwd_ops, TENSOR_BF16_OPS_PER_S)
+    bwd_ops = 2 * (3 * hd + 2 * dv) * pairs
+    bms, by = bound_ms(2 * (2 * q.numel() + 2 * do.numel() + 2 * k.numel()
+                            + 2 * v.numel()) + lse_bytes, bwd_ops,
+                       TENSOR_BF16_OPS_PER_S)
     got = flash_attention_bwd(q, k, v, out, lse, do)
     want = ref.attention_bwd_ref(q, k, v, do)
     lib = lib_rel = None
@@ -2909,7 +3054,7 @@ def flash_train_timing(dev, timer, b, s, h, kv, hd) -> dict[str, dict]:
         lib_rel = max(e["rel"] for e in bwd_errors(
             [x.transpose(1, 2) for x in grads], want, q.dtype).values())
         check(lib_rel <= LIBRARY_SAME_FN,
-              f"the library's flash backward differs from the plain version "
+              f"the library's backward differs from the plain version "
               f"by {lib_rel} of a tile's norm at {shape}")
     # the launches' own device times, a call's mean over 10 (the Timer's
     # reading also holds the host's work between them)
@@ -2922,13 +3067,14 @@ def flash_train_timing(dev, timer, b, s, h, kv, hd) -> dict[str, dict]:
             launch_ms[m.group(0)] = ms / 10
     res["flash_attention_bwd"] = dict(
         ms=bwd, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+        library_backend=backend,
         launch_ms=launch_ms, device_ms=sum(launch_ms.values()),
         max_abs_err=max(float((a.float() - w.float()).abs().max())
                         for a, w in zip(got, want)),
         tile_rel_err=max(e["rel"] for e in bwd_errors(got, want,
                                                       q.dtype).values()),
         library_tile_rel_err=lib_rel,
-        tflops=2.5 * fwd_ops / (bwd * 1e-3) / 1e12, shape=shape,
+        tflops=bwd_ops / (bwd * 1e-3) / 1e12, shape=shape,
         dkdv_splits=_build.library().repro_flash_attention_bwd_splits(
             b, s, h, kv, 1))
     if lib_error is not None:
@@ -2986,9 +3132,10 @@ def phase_serve(dev, arch: str = LM_ARCH):
     return model, tokens, gen, counts, peak, init_s, n_params
 
 
-def phase_serve_plain(model, tokens, gen) -> dict:
+def phase_serve_plain(model, tokens, gen, causal_tol: float = LM_TOL) -> dict:
     """Phase 9: the plain run teacher-forced with the kernel run's tokens,
-    and the serving invariant against one causal forward."""
+    and the serving invariant against one causal forward (within
+    ``causal_tol``: MLA's decode takes another path, ``MLA_DECODE_TOL``)."""
     cfg = model.cfg
     set_launches(0)
     with kops.oracle_scope():
@@ -3022,8 +3169,9 @@ def phase_serve_plain(model, tokens, gen) -> dict:
     del full
     inv_errs = [logit_err(g[:, :cfg.vocab_size], rows[:, i])
                 for i, g in enumerate(gen.logits)]
-    check(max(inv_errs) <= LM_TOL,
-          f"prefill + decode differ from the causal forward by {max(inv_errs)}")
+    check(max(inv_errs) <= causal_tol,
+          f"prefill + decode differ from the causal forward by {max(inv_errs)}"
+          f" (tolerance {causal_tol})")
     same = int((rows.argmax(-1).to(torch.int32) == gen.tokens).sum())
     return {"plain_max_abs_err": max(plain_errs),
             "plain_err_by_step": plain_errs,
@@ -3247,9 +3395,10 @@ def phase_train(dev, batches, profile=None, arch: str = TRAIN_ARCH,
     # model FLOPs a token: 6N over the matrices (a tied embedding counted
     # once, as the unembedding's product; an untied input embedding, a
     # gather, not at all; of an MoE layer's experts the top-k a token runs)
-    # plus the causal attention's products, forward and backward: 3 x 2
-    # products x 2 hd FLOPs over (S + 1) / 2 keys a head a layer; the remat
-    # recompute and the capacity's vacant slots are not counted
+    # plus the causal attention's products, forward and backward: 3 x (2 dqk
+    # for q k + 2 dv for p v) FLOPs over (S + 1) / 2 keys a head a layer
+    # (dqk = dv = hd but for MLA's); the remat recompute and the capacity's
+    # vacant slots are not counted
     n_matmul = n_params - (0 if cfg.tie_embeddings else model.lm.embed.numel())
     if cfg.moe_num_experts:
         e_pad = model.lm.layers[0].moe["wi"].shape[0]
@@ -3258,8 +3407,9 @@ def phase_train(dev, batches, profile=None, arch: str = TRAIN_ARCH,
     del state, step, model
     med = statistics.median(walls)
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    flops_tok = 6 * n_matmul + 6 * cfg.num_layers * cfg.num_heads * cfg.hd * \
-        (TRAIN_SEQ + 1)
+    dqk, dv = attn_widths(cfg)
+    flops_tok = 6 * n_matmul + 3 * cfg.num_layers * cfg.num_heads * \
+        (dqk + dv) * (TRAIN_SEQ + 1)
     tok_s = tokens / (med / 1e3)
     return {"arch": arch, "layers": cfg.num_layers, "parameters": n_params,
             "microbatches": k,
@@ -3347,47 +3497,73 @@ def phase_train_narrow(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_big_serve(dev, profile: bool = False) -> dict:
-    """Phase 17's serving half: ``BIG_ARCH`` through phases 8-10's checks,
-    times and (with ``profile``) traces (``phase_serve``,
-    ``phase_serve_plain``, ``phase_serve_times``, ``phase_serve_profile``):
-    one flash launch a layer in the prefill and none in a decode step,
-    finite logits, the prefill's and every decode step's logits within
-    ``LM_TOL`` of the plain-attention run and of one causal forward. The
-    tolerance's premise, logits several times larger than it (a wrong mask
-    or head moves them by their own scale), is checked on the prefill's."""
-    model, tokens, gen, counts, peak, init_s, n_params = phase_serve(dev,
-                                                                    BIG_ARCH)
+def phase_big_serve(dev, profile: bool = False, arch: str | None = None,
+                    causal_tol: float = LM_TOL) -> dict:
+    """Phase 17's serving half (and phase 20's, for ``MLA_ARCH``): ``arch``
+    through phases 8-10's checks, times and (with ``profile``) traces
+    (``phase_serve``, ``phase_serve_plain``, ``phase_serve_times``,
+    ``phase_serve_profile``): one flash launch a layer in the prefill and
+    none in a decode step, finite logits, the prefill's and every decode
+    step's logits within ``LM_TOL`` of the plain-attention run and within
+    ``causal_tol`` of one causal forward. The tolerances' premise, that a
+    wrong attention moves the logits by more, is checked on the prefill's:
+    their std at least 3 ``LM_TOL``, and a prefill through plain attention
+    with a bidirectional mask moves them (every row's, against a causal
+    prefill through the kernel) by over 3 ``causal_tol``. ``arch`` defaults
+    to ``BIG_ARCH``."""
+    arch = BIG_ARCH if arch is None else arch
+    model, tokens, gen, counts, peak, init_s, n_params = phase_serve(dev, arch)
     cfg = model.cfg
     std = float(gen.logits[0][:, :cfg.vocab_size].float().std())
-    check(std >= 3 * LM_TOL, f"{BIG_ARCH} prefill logits have std {std}, too "
+    check(std >= 3 * LM_TOL, f"{arch} prefill logits have std {std}, too "
           f"small for the tolerance {LM_TOL} to tell a wrong attention")
     first = {"prefill_ms": gen.prefill_s * 1e3,
              "decode_ms_per_token": gen.decode_s / (LM_GEN - 1) * 1e3}
-    agree = phase_serve_plain(model, tokens, gen)
+    real_attention = kops.attention
+    kops.attention = lambda q, k, v, causal=True: real_attention(
+        q, k, v, causal=False)
+    try:
+        with torch.no_grad(), kops.oracle_scope():
+            wrong, _, _ = model.forward(tokens=tokens)
+    finally:
+        kops.attention = real_attention
+    with torch.no_grad():
+        causal, _, _ = model.forward(tokens=tokens)
+    wrong_err = logit_err(wrong, causal)
+    del wrong, causal
+    check(wrong_err > 3 * causal_tol, f"{arch}: a bidirectional mask moves the "
+          f"prefill logits by only {wrong_err}, too little for the tolerance "
+          f"{causal_tol} to tell a wrong attention")
+    agree = phase_serve_plain(model, tokens, gen, causal_tol)
     del gen
     times = phase_serve_times(model, tokens)
     prof = phase_serve_profile(model, tokens) if profile else None
     del model, tokens
     torch.cuda.empty_cache()
-    return {"arch": BIG_ARCH, "parameters": n_params, "init_s": init_s,
+    return {"arch": arch, "widths": list(attn_widths(cfg)),
+            "parameters": n_params, "init_s": init_s,
             "batch": LM_BATCH, "prompt_len": LM_PROMPT, "gen": LM_GEN,
             "peak_bytes": peak, "launches": counts, "prefill_logit_std": std,
+            "wrong_mask_max_abs_err": wrong_err, "causal_tolerance": causal_tol,
             "first_run": first, **times, **agree, "profile": prof}
 
 
-def phase_big_train(dev, profile=None) -> dict:
-    """Phase 17's training half: ``BIG_ARCH`` at full width, kernels against
-    plain attention at ``TRAIN_PLAIN_LAYERS`` layers (phase 16's
-    tolerances), then ``BIG_TRAIN_LAYERS`` layers trained on the pipeline's
-    batches (``phase_train``: a warm-up step, ``BIG_TRAIN_STEPS`` steps of
-    ``train_launches``' launches each, finite losses, one profiled step)."""
-    cfg = get_config(BIG_ARCH)
+def phase_big_train(dev, profile=None, arch: str | None = None,
+                    layers: int | None = None) -> dict:
+    """Phase 17's training half (and phase 20's, for ``MLA_ARCH`` at
+    ``MLA_TRAIN_LAYERS``): ``arch`` at full width, kernels against plain
+    attention at ``TRAIN_PLAIN_LAYERS`` layers (phase 16's tolerances), then
+    ``layers`` layers trained on the pipeline's batches (``phase_train``: a
+    warm-up step, ``BIG_TRAIN_STEPS`` steps of ``train_launches``' launches
+    each, finite losses, one profiled step). ``arch`` and ``layers`` default
+    to ``BIG_ARCH`` and ``BIG_TRAIN_LAYERS``."""
+    arch = BIG_ARCH if arch is None else arch
+    layers = BIG_TRAIN_LAYERS if layers is None else layers
+    cfg = get_config(arch)
     batches, pipe_ms = train_batches(dev, cfg, BIG_TRAIN_STEPS + 2)
-    plain = phase_train_plain(dev, batches[0], BIG_ARCH)
+    plain = phase_train_plain(dev, batches[0], arch)
     torch.cuda.empty_cache()
-    train = phase_train(dev, batches, profile, BIG_ARCH, BIG_TRAIN_LAYERS,
-                        BIG_TRAIN_STEPS)
+    train = phase_train(dev, batches, profile, arch, layers, BIG_TRAIN_STEPS)
     del batches
     torch.cuda.empty_cache()
     return {**train, "pipeline_ms": pipe_ms, "plain": plain}
@@ -3442,7 +3618,8 @@ def phase_tiny(dev) -> dict:
         check(err <= LM_TOL, f"serve --tiny {arch}: prefill logits differ from "
               f"the --device cpu run's by {err}")
         out["serve"][arch] = {
-            "hd": cfg.hd, "launches": counts, "prefill_max_abs_err": err,
+            "hd": cfg.hd, "widths": list(attn_widths(cfg)), "launches": counts,
+            "prefill_max_abs_err": err,
             "prefill_logit_std": float(cpu.logits[0].float().std()),
             "same_tokens": int((card.tokens.cpu() == cpu.tokens).sum()),
             "tokens": card.tokens.numel(), "route_flips": tap.flips,
@@ -3473,7 +3650,7 @@ def phase_tiny(dev) -> dict:
               f"card, {[x['loss'] for x in cpu]} on the CPU (tolerance "
               f"{TINY_LOSS_TOL})")
         out["train"][arch] = {
-            "hd": cfg.hd, "launches": counts,
+            "hd": cfg.hd, "widths": list(attn_widths(cfg)), "launches": counts,
             "loss": [x["loss"] for x in card],
             "cpu_loss": [x["loss"] for x in cpu], "max_loss_diff": max(diffs),
             "route_flips": tap.flips, "routes": tap.routes}
@@ -3706,6 +3883,82 @@ def say_moe_serve(r: dict, card: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 20: minicpm3-4b (MLA) served at full width and depth, and trained at
+# MLA_TRAIN_LAYERS of its layers
+# ---------------------------------------------------------------------------
+
+
+def say_mla_serve(r: dict, card: str, secs: float) -> None:
+    """Phase 20's serving lines (``phase_big_serve`` for ``MLA_ARCH``); its
+    profile reduced to the printed numbers."""
+    say(f"[20] {r['arch']} (MLA, flash widths {r['widths'][0]}/"
+        f"{r['widths'][1]}): {r['parameters']} parameters drawn in "
+        f"{r['init_s']:.1f} s; {LM_BATCH} x {LM_PROMPT}-token prompts, "
+        f"{LM_GEN} greedy tokens; launches {r['launches']}; a decode step "
+        f"launches none; peak {r['peak_bytes'] / 2**30:.2f} GiB")
+    say(f"[20] plain run, teacher-forced: logits within "
+        f"{r['plain_max_abs_err']:.4g} (tolerance {LM_TOL}; prefill logits' "
+        f"std {r['prefill_logit_std']:.4f}, moved "
+        f"{r['wrong_mask_max_abs_err']:.4g} by a bidirectional mask); greedy "
+        f"tokens equal on all {r['tokens_checked']} with a top-2 margin > "
+        f"{LM_TOL}, on {r['plain_same_greedy_tokens']} of {LM_BATCH * LM_GEN} "
+        f"in all; prefill + absorbed decode vs one causal forward within "
+        f"{r['causal_max_abs_err']:.4g} (tolerance {r['causal_tolerance']:g}; "
+        f"by step {[round(x, 4) for x in r['causal_err_by_step']]})")
+    say(f"[20] prefill median {r['prefill_ms']:.2f} ms, decode "
+        f"{r['decode_ms_per_token']:.3f} ms a token, "
+        f"{r['decode_tokens_per_s']:.1f} tokens/s decoding, "
+        f"{r['end_to_end_tokens_per_s']:.1f} tokens/s end to end on {card} "
+        f"({secs:.1f} s)")
+    for name, pr in r["profile"].items():
+        say(f"[20] {name}: profiled wall {pr['wall_ms']:.1f} ms, GPU kernels "
+            f"{pr['device_ms']:.2f} ms, busy share {pr['busy_share']:.2f}, "
+            f"flash {pr['ported_kernels_ms']:.3f} ms, {pr['host_ops']} torch "
+            f"ops dispatched by the host, on {card}")
+        for kname, ms in pr["top"]:
+            say(f"      {ms:8.3f} ms  {kname[:110]}")
+        r["profile"][name] = {k: pr[k] for k in (
+            "wall_ms", "device_ms", "busy_share", "ported_kernels_ms",
+            "host_ops", "top")}
+
+
+def say_mla_train(r: dict, card: str, secs: float) -> None:
+    """Phase 20's training lines (``phase_big_train`` for ``MLA_ARCH``)."""
+    p = r["plain"]
+    say(f"[20] {TRAIN_PLAIN_LAYERS} layers of {MLA_ARCH}'s width, kernels vs "
+        f"plain attention: every gradient leaf within "
+        f"{p['worst_grad_rel_err']:.4g} of its largest (worst "
+        f"{p['worst_grad_leaf']}, tolerance {TRAIN_GRAD_TOL:g}); one step's "
+        f"loss {p['loss']:.6f} vs {p['plain_loss']:.6f}, grad norm "
+        f"{p['grad_norm']:.5f} vs {p['plain_grad_norm']:.5f}")
+    say(f"[20] {MLA_ARCH} at {r['layers']} of "
+        f"{get_config(MLA_ARCH).num_layers} layers: {r['parameters']} "
+        f"parameters; {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step in "
+        f"{r['microbatches']} microbatches; warm-up "
+        f"{r['warmup_step_ms']:.1f} ms, then "
+        f"{[round(x, 1) for x in r['step_ms']]} ms, {r['tokens_per_s']:.0f} "
+        f"tokens/s, {100 * r['bf16_peak_share']:.1f}% of the dense bf16 peak "
+        f"({r['flops_per_token'] / 1e9:.2f} GFLOP a token), peak "
+        f"{r['peak_bytes'] / 2**30:.2f} GiB on {card}")
+    say(f"[20] loss {[round(x, 4) for x in r['loss']]}, grad norm "
+        f"{[round(x, 4) for x in r['grad_norm']]}; launches a step "
+        f"{r['launches_per_step']['flash_attention_lse']} LSE forwards + "
+        f"{r['launches_per_step']['flash_attention_bwd']} backwards, in all "
+        f"{r['launches']}")
+    pr = r["profile"]
+    say(f"[20] one profiled step: wall {pr['wall_ms']:.1f} ms, GPU kernels "
+        f"{pr['device_ms']:.1f} ms, busy share {pr['busy_share']:.2f}, flash "
+        f"{pr['ported_kernels_ms']:.2f} ms, {pr['host_ops']} torch ops, on "
+        f"{card}")
+    for kname, ms in pr["top"]:
+        say(f"      {ms:8.2f} ms  {kname[:110]}")
+    r["profile"] = {k: pr[k] for k in (
+        "wall_ms", "device_ms", "busy_share", "ported_kernels_ms", "host_ops",
+        "top")}
+    say(f"[20] training {secs:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; torch.cuda.is_available() is "
@@ -3841,18 +4094,22 @@ def main() -> None:
     lib = _build.library()
     for r in ptxas_report():
         # flash's bf16 kernels' dynamic shared memory, from the library
-        hd = (re.search(r"<(\d+)", r["kernel"])
+        hd = (re.search(r"<(\d+)/(\d+)", r["kernel"])
               if r["kernel"].startswith("flash") and "bf16" in r["kernel"]
               else None)
         if hd and "bwd" in r["kernel"]:
             dyn = lib.repro_flash_attention_bwd_smem(
-                int(hd.group(1)), int("_dq_" in r["kernel"]))
+                int(hd.group(1)), int(hd.group(2)), int("_dq_" in r["kernel"]))
         elif hd:
-            dyn = lib.repro_flash_attention_smem(int(hd.group(1)))
+            dyn = lib.repro_flash_attention_smem(int(hd.group(1)),
+                                                 int(hd.group(2)))
         dyn = f", {dyn} B dynamic" if hd else ""
-        # flash's bf16 instances hold their tiles in registers by design
+        # flash's bf16 instances hold their tiles in registers by design,
+        # and keep their wgmma products in flight
         check(not hd or (r.get("spill_store_bytes"), r.get("spill_load_bytes"))
               == (0, 0), f"ptxas: {r['kernel']} spills registers")
+        check(not hd or not r["wgmma_serialized"],
+              f"ptxas: {r['kernel']}'s wgmma products are serialized (C7520)")
         say(f"[7] ptxas {r['kernel']}: {r.get('registers')} registers, stack "
             f"frame {r.get('stack_frame_bytes')} B, spills "
             f"{r.get('spill_store_bytes')} B stored / {r.get('spill_load_bytes')}"
@@ -3867,11 +4124,12 @@ def main() -> None:
         f"of bucket_histogram's {4 * rows >> 20} MiB column: {t['copy_ms']:.4f} "
         f"ms on {card}")
     for key in ("flash_attention", "flash_attention@hd160", "flash_attention@hd16",
-                "flash_attention@g1", "flash_attention@g6"):
+                "flash_attention@g1", "flash_attention@g6", "flash_attention@mla"):
         t = times[key]
         say(f"[7] {key} at {t['shape']}: " + (
-            f"SDPA's output differs from the plain version's by "
-            f"{t['library_max_abs_err']:.4g}" if "library_error" not in t else
+            f"SDPA ({t['library_backend']} backend) differs from the plain "
+            f"version's output by {t['library_max_abs_err']:.4g}"
+            if "library_error" not in t else
             f"SDPA refused: {t['library_error']}"))
     t = times["bitonic_sort_tiles"]
     pr = t["probe"]
@@ -4039,14 +4297,16 @@ def main() -> None:
     t0 = time.perf_counter()
     tiny = phase_tiny(dev)
     for arch, r in tiny["serve"].items():
-        say(f"[18] serve --tiny --arch {arch} (hd {r['hd']}) on the card: flash "
+        say(f"[18] serve --tiny --arch {arch} (widths {r['widths'][0]}/"
+            f"{r['widths'][1]}) on the card: flash "
             f"{r['launches']['flash_attention']} launches; prefill logits within "
             f"{r['prefill_max_abs_err']:.4g} of --device cpu (tolerance "
             f"{LM_TOL}, std {r['prefill_logit_std']:.3f}); {r['same_tokens']} of "
             f"{r['tokens']} greedy tokens equal")
     for arch, r in tiny["train"].items():
-        say(f"[18] train --tiny --arch {arch} --steps {TINY_TRAIN_STEPS} (hd "
-            f"{r['hd']}) on the card: {r['launches']['flash_attention_lse']} LSE "
+        say(f"[18] train --tiny --arch {arch} --steps {TINY_TRAIN_STEPS} (widths "
+            f"{r['widths'][0]}/{r['widths'][1]}) on the card: "
+            f"{r['launches']['flash_attention_lse']} LSE "
             f"forwards, {r['launches']['flash_attention_bwd']} backwards; losses "
             f"{[round(x, 5) for x in r['loss']]} vs --device cpu "
             f"{[round(x, 5) for x in r['cpu_loss']]} (largest difference "
@@ -4101,18 +4361,30 @@ def main() -> None:
     moe_big = phase_moe_serve(dev, MOE_BIG_ARCH, MOE_BIG_LAYERS)
     say_moe_serve(moe_big, card)
     say(f"[19] phase 19 {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    mla_serve = phase_big_serve(dev, profile=True, arch=MLA_ARCH,
+                                causal_tol=MLA_DECODE_TOL)
+    say_mla_serve(mla_serve, card, time.perf_counter() - t0)
+    t1 = time.perf_counter()
+    mla_train = phase_big_train(dev, profiled, MLA_ARCH, MLA_TRAIN_LAYERS)
+    say_mla_train(mla_train, card, time.perf_counter() - t1)
+    say(f"[20] phase 20 {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
 
     for name in ("flash_attention_lse", "flash_attention_bwd"):
-        for suffix in ("", "@hd160", "@hd16"):
+        for suffix in ("", "@hd160", "@hd16", "@mla"):
             t = times[name + suffix]
             sh = t["shape"]
             if "library_error" in t:
                 lib_txt = f"library error: {t['library_error']}"
             elif name == "flash_attention_lse":
-                lib_txt = (f"library within {t['library_max_abs_err']:.3g} of "
-                           f"the plain version")
+                lib_txt = (f"library ({t['library_backend']}) within "
+                           f"{t['library_max_abs_err']:.3g} of the plain version")
             else:
-                lib_txt = f"library {t['library_tile_rel_err']:.3g}"
+                lib_txt = (f"library ({t['library_backend']}) "
+                           f"{t['library_tile_rel_err']:.3g}")
             extra = (f"serving entry {t['serving_entry_ms']:.4f} ms, {lib_txt}"
                      if name == "flash_attention_lse" else
                      f"{t['tflops']:.1f} TFLOP/s, worst tile within "
@@ -4121,20 +4393,26 @@ def main() -> None:
                      f"{t['device_ms']:.4f} ms (" + ", ".join(
                          f"{k} {v:.4f}" for k, v in t["launch_ms"].items()) + ")")
             say(f"[7] {name}{suffix} at B {sh['B']}, S {sh['S']}, H {sh['H']}, "
-                f"KV {sh['KV']}, hd {sh['hd']}: {extra}, on {card}")
+                f"KV {sh['KV']}, hd {sh['hd']}/{sh['dv']}: {extra}, on {card}")
 
     # the LM kernels' launches on their paths: hd 128 serving (phase 8), hd
-    # 64 training (16), hd 160 serving and training (17), hd 16 (18)
+    # 64 training (16), hd 160 serving and training (17), hd 16 (18: the GQA
+    # archs'; minicpm3-4b's TINY runs its own (24, 16) instance), MLA's 96/64
+    # serving and training (20)
+    hd16 = [a for a, r in tiny["serve"].items() if r["widths"] == [16, 16]]
+    hd16_train = [a for a, r in tiny["train"].items() if r["widths"] == [16, 16]]
     lm_launches = {
         "flash_attention": lm_counts["flash_attention"],
         "flash_attention_lse": train["launches"]["flash_attention_lse"],
         "flash_attention_bwd": train["launches"]["flash_attention_bwd"],
         "flash_attention@hd160": big["launches"]["flash_attention"],
         **{f"{n}@hd160": big_train["launches"][n] for n in LM_KERNELS[1:]},
-        "flash_attention@hd16": sum(r["launches"]["flash_attention"]
-                                    for r in tiny["serve"].values()),
-        **{f"{n}@hd16": sum(r["launches"][n] for r in tiny["train"].values())
+        "flash_attention@hd16": sum(tiny["serve"][a]["launches"]["flash_attention"]
+                                    for a in hd16),
+        **{f"{n}@hd16": sum(tiny["train"][a]["launches"][n] for a in hd16_train)
            for n in LM_KERNELS[1:]},
+        "flash_attention@mla": mla_serve["launches"]["flash_attention"],
+        **{f"{n}@mla": mla_train["launches"][n] for n in LM_KERNELS[1:]},
         # phase 19: qwen2-moe-a2.7b's generate (flash at group size 1, the
         # histogram over 60 experts) and dbrx-132b's (group size 6)
         "bucket_histogram@moe": moe_serve["launches"]["bucket_histogram"],
@@ -4142,7 +4420,7 @@ def main() -> None:
         "flash_attention@g6": moe_big["launches"]["flash_attention"]}
     kernels = []
     entries = [(name, name) for name in KERNELS] + [
-        (f"{name}{suffix}", name) for suffix in ("@hd160", "@hd16")
+        (f"{name}{suffix}", name) for suffix in ("@hd160", "@hd16", "@mla")
         for name in LM_KERNELS] + [
         ("bucket_histogram@moe", "bucket_histogram"),
         ("flash_attention@g1", "flash_attention"),
@@ -4208,6 +4486,8 @@ def main() -> None:
     say(json.dumps({"tiny": {**tiny, "card": card}}))
     say(json.dumps({"moe": {"serve": moe_serve, "train": moe_train,
                             "dbrx_serve": moe_big, "card": card}}))
+    say(json.dumps({"mla": {"serve": mla_serve, "train": mla_train,
+                            "card": card}}))
     say(json.dumps({"kernels": kernels}))
     say(nvidia_smi())
     say(json.dumps({"ok": True, "device": {

@@ -47,13 +47,13 @@ SIGNATURES = {
     "repro_segment_scan": [_P, _P, _P, _LL, _I, _I, _I, _P, _U, _P],
     "repro_segment_scan_epochs": [],
     "repro_segment_scan_rows_per_block": [],
-    "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
-                              _I, _P],
-    "repro_flash_attention_bwd": [_P] * 10 + [_I] * 5 + [_F, _I, _I, _P],
-    "repro_flash_attention_bwd_workspace": [_I] * 7,
+    "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                              _I, _I, _P],
+    "repro_flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _P],
+    "repro_flash_attention_bwd_workspace": [_I] * 8,
     "repro_flash_attention_bwd_splits": [_I] * 5,
-    "repro_flash_attention_smem": [_I],
-    "repro_flash_attention_bwd_smem": [_I, _I],
+    "repro_flash_attention_smem": [_I, _I],
+    "repro_flash_attention_bwd_smem": [_I, _I, _I],
 }
 # the entry points that return something else than int
 RESTYPES = {"repro_flash_attention_bwd_workspace": _LL}

@@ -1,10 +1,11 @@
 // Causal or bidirectional GQA flash attention, forward, for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel repro/kernels/flash_attention.py::
-// flash_attention (_flash_kernel). q (B, S, H, hd), k and v (B, S, KV, hd),
-// out (B, S, H, hd), all contiguous in that public layout (no transposing
-// copies). Query head h reads KV head h / (H / KV), as the TPU kernel's
-// index map does, so K/V are never replicated in memory.
+// flash_attention (_flash_kernel). q (B, S, H, hd), k (B, S, KV, hd), v
+// (B, S, KV, dv), out (B, S, H, dv), all contiguous in that public layout
+// (no transposing copies); dv = hd but for MLA's widths (below). Query head
+// h reads KV head h / (H / KV), as the TPU kernel's index map does, so K/V
+// are never replicated in memory.
 // out = softmax(q k^T * scale [+ causal mask]) v with scale = 1/sqrt(hd)
 // (passed in), applied in log2 units with exp2; masked scores are -1e30; an
 // online softmax keeps the running max m, sum l and the accumulator in fp32;
@@ -14,7 +15,10 @@
 //
 // Bound: operations. At the serving path's shape (B 4, S 1024, H 32, KV 8,
 // hd 128, causal) the s(s+1)/2 unmasked (query, key) pairs need 34.4 GFLOP
-// on the bf16 tensor cores against 84 MB of q, k, v and out.
+// on the bf16 tensor cores against 84 MB of q, k, v and out. At MLA's
+// (minicpm3-4b's prefill layer: B 4, 40/40 heads, 96/64) group size 1
+// shares no K/V tile and the bytes bound it: 105 MB (0.0313 ms at 3.35
+// TB/s) against 26.9 GFLOP (0.0272 ms).
 //
 // Design, bf16 (the serving path): Hopper's asynchronous units, warp
 // specialised, persistent. One CTA an SM, of three warpgroups; CTA i walks
@@ -40,8 +44,8 @@
 //     and r + 8, each shared by a quad, so a row max takes two xor
 //     shuffles. P is rounded to bf16 (as the reference's einsum attention
 //     rounds its probabilities) into the register A operand of o += p v,
-//     wgmma m64n{hd}k16 with V as the transposed (MN-major) B operand read
-//     in its natural (kv rows, hd) layout: V is never copied. Inside a
+//     wgmma m64n{dv}k16 with V as the transposed (MN-major) B operand read
+//     in its natural (kv rows, dv) layout: V is never copied. Inside a
 //     warpgroup, kv tile n's q k^T is issued together with tile n - 1's
 //     p v, and tile n's softmax runs while that p v finishes; across the
 //     two warpgroups, one's softmax overlaps the other's products.
@@ -51,22 +55,33 @@
 //     row sums, into a staging tile in the swizzled layout and one thread
 //     hands it to a TMA store (rows past S are not written), which drains
 //     while the next work tile runs.
-// Head dims 16, 64, 128 and 160 (every reference config's but MLA's).
-// Tiles sit in shared memory as whole 64-column boxes, so a head dim that
-// is not a multiple of 64 is padded there: hd 16 to 64 columns, hd 160 to
-// 192. The box past hd reads past the tensor map's first dimension, and
-// TMA fills those columns with zeros. q k^T stops at hd (one 16-deep step
-// at hd 16, ten at hd 160), so the padding costs nothing there; p v runs
-// over the padded width (n64 at hd 16, n128 + n64 at hd 160), whose extra
+// Width pairs (q k width DQK, p v width DV): (16, 16), (64, 64), (128,
+// 128) and (160, 160) for the GQA configs, and MLA's (96, 64) for
+// minicpm3-4b (q and k are concat(nope 64, rope 32), v is 64 wide; scale
+// 1/sqrt(96)) and (24, 16) for its reduced (TINY) config. Q and K tiles
+// are DQK wide, V, the accumulators, the staging tile and the output DV
+// wide, each sitting in shared memory as whole 64-column boxes, so a width
+// that is not a multiple of 64 is padded there: 16 and 24 to 64 columns,
+// 96 to 128, 160 to 192. The box past the width reads past the tensor
+// map's first dimension, and TMA fills those columns with zeros (the row
+// strides, 2 x the width bytes, are multiples of 16, as TMA needs).
+// q k^T runs ceil(DQK / 16) steps of depth 16 and stops there (one at 16,
+// two at 24, whose second step reads columns 24-31 as zeros on both sides,
+// six at 96, ten at 160), so the padding costs nothing there; p v runs
+// over the padded DV (n64 at 16, 64; n128 + n64 at 160), whose extra
 // output columns are zeros that the output map clips on store. That is
 // idle tensor work: p v does 20% more products at hd 160 (10% of the
 // kernel's), and the kernel 2.5x the products at hd 16, which only the
-// reduced (TINY) configs run. The other way,
+// reduced (TINY) configs run. At (96, 64) nothing of p v is padded: q k^T
+// runs at 96 and p v at 64, where padding v to 96 (or all three to 128)
+// on the host would copy tensors and run 50-100% more p v products. The
+// other way for narrow widths,
 // boxes of 32 or 16 columns with a 64- or 32-byte swizzle, needs its own
 // descriptor mode for both products and leaves the hd 64/128 code alone no
-// more than this does; the padding keeps one layout for every dim.
+// more than this does; the padding keeps one layout for every width.
 // Shared memory: Q 32 KiB + 2 stages x (K + V) 128 KiB + output staging 32
-// KiB at hd 128 (96 KiB in all at hd 16 and 64). At hd 160 a padded tile is
+// KiB at hd 128 (96 KiB in all at hd 16 and 64; at (96, 64) Q 32 + 2 x (K
+// 32 + V 16) + staging 16 = 144 KiB). At hd 160 a padded tile is
 // 48 KiB, and two stages would take 288 KiB of the 227 KB a block may use:
 // that dim runs ONE stage (Q 48 + K 48 + V 48 + staging 48 = 192 KiB).
 // K and V keep separate barriers, so tile n's K still loads while tile
@@ -108,21 +123,29 @@ constexpr int kFlashThreads = 3 * kWg;     // producer + two consumers
 constexpr int kBoxBytes = kTile * 128;     // one 128 x 64 box, 16 KiB
 constexpr int kConsumerThreads = 2 * kWg;
 
-// The shared-memory plan at head dim HD: tiles of whole 64-column boxes
-// (HD padded up to kCols), a K/V ring of kStages
-template <int HD>
+// The shared-memory plan at widths (DQK, DV): Q and K tiles of whole
+// 64-column boxes at DQK, V and the output staging tile at DV (each padded
+// up), a K/V ring of two stages where they fit, else one
+template <int DQK, int DV>
 struct Layout {  // byte offsets from a 1024-byte aligned shared base
-  static_assert(HD % 16 == 0 && HD >= 16 && HD <= 3 * kBoxCols,
-                "head dims of 16-deep steps, padded to at most three boxes");
-  static constexpr int kBoxes = (HD + kBoxCols - 1) / kBoxCols;
-  static constexpr int kCols = kBoxes * kBoxCols;  // p v's width
-  static constexpr int kStages = kBoxes > 2 ? 1 : 2;  // K/V ring depth
-  static constexpr int kTileBytes = kBoxes * kBoxBytes;
+  static_assert(DQK % 8 == 0 && DQK >= 16 && DQK <= 3 * kBoxCols,
+                "q k widths of 16-byte rows, padded to at most three boxes");
+  static_assert(DV % 16 == 0 && DV >= 16 && DV <= 3 * kBoxCols,
+                "p v widths of 16-column steps, padded to at most three boxes");
+  static constexpr int kQkBoxes = (DQK + kBoxCols - 1) / kBoxCols;
+  static constexpr int kVBoxes = (DV + kBoxCols - 1) / kBoxCols;
+  static constexpr int kCols = kVBoxes * kBoxCols;  // p v's width
+  static constexpr int kQkSteps = (DQK + 15) / 16;  // q k^T's 16-deep steps
+  static constexpr int kQkBytes = kQkBoxes * kBoxBytes;  // a Q or K tile
+  static constexpr int kVBytes = kVBoxes * kBoxBytes;    // a V or staging tile
+  static constexpr int kStages =
+      kQkBytes + 2 * (kQkBytes + kVBytes) + kVBytes + 8 * 10 + 1024 <= kMaxSmem
+          ? 2 : 1;  // K/V ring depth
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kTileBytes;
-  static constexpr int kV = kK + kStages * kTileBytes;
-  static constexpr int kO = kV + kStages * kTileBytes;  // output staging
-  static constexpr int kBar = kO + kTileBytes;
+  static constexpr int kK = kQ + kQkBytes;
+  static constexpr int kV = kK + kStages * kQkBytes;
+  static constexpr int kO = kV + kStages * kVBytes;  // output staging
+  static constexpr int kBar = kO + kVBytes;
   // mbarriers: Q full, Q empty; per stage K full, V full, K empty, V empty
   static constexpr int kBytes = kBar + 8 * (2 + 4 * kStages);
   static constexpr int kSmem = kBytes + 1024;  // slack to align the base
@@ -198,14 +221,14 @@ __device__ __forceinline__ Work work_tile(int w, int S, int H, int B, int causal
 // LSE: the training instance, which also writes each row's natural-log
 // sum of exp(scaled scores) to lse (B, H, S) fp32; the serving instance
 // (LSE false) compiles without that store (lse unused).
-template <int HD, bool LSE>
+template <int DQK, int DV, bool LSE>
 __global__ void __launch_bounds__(kFlashThreads, 1)
     flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
                    const __grid_constant__ CUtensorMap to, int B, int S, int H,
                    int KV, float scale, int causal, float* __restrict__ lse) {
-  using L = Layout<HD>;
+  using L = Layout<DQK, DV>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base + L::kQ, sK = base + L::kK, sV = base + L::kV;
@@ -245,17 +268,18 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
         const Work t = work_tile(w, S, H, B, causal);
         const int kvh = t.h / (H / KV);
         mbar_wait(bar_q_empty, (j & 1) ^ 1);
-        mbar_expect_tx(bar_q, L::kTileBytes);
-        for (int x = 0; x < L::kBoxes; ++x)
+        mbar_expect_tx(bar_q, L::kQkBytes);
+        for (int x = 0; x < L::kQkBoxes; ++x)
           tma_load_4d(sQ + x * kBoxBytes, &tq, x * kBoxCols, t.h, t.q0, t.b, bar_q);
         // kv tile n of this work tile into ring position it + n: K (v 0) or
         // V (v 1), once the consumers have freed its slot
         auto load = [&](int v, int n) {
           const int pos = it + n, s = pos % L::kStages;
           mbar_wait(bar(v ? V_EMPTY : K_EMPTY, s), ((pos / L::kStages) & 1) ^ 1);
-          mbar_expect_tx(bar(v ? V_FULL : K_FULL, s), L::kTileBytes);
-          const uint32_t dst = (v ? sV : sK) + s * L::kTileBytes;
-          for (int x = 0; x < L::kBoxes; ++x)
+          const int bytes = v ? L::kVBytes : L::kQkBytes;
+          mbar_expect_tx(bar(v ? V_FULL : K_FULL, s), bytes);
+          const uint32_t dst = (v ? sV : sK) + s * bytes;
+          for (int x = 0; x < (v ? L::kVBoxes : L::kQkBoxes); ++x)
             tma_load_4d(dst + x * kBoxBytes, v ? &tv : &tk, x * kBoxCols, kvh,
                         n * kTile, t.b, bar(v ? V_FULL : K_FULL, s));
         };
@@ -298,22 +322,22 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
   uint32_t pa[8][4];
   int it = 0;  // K/V ring position, as the producer counts it
 
-  // S = q k^T of ring slot `slot` into sc: 64 x 128, hd / 16 steps of depth
-  // 16 (32 bytes of a 128-byte row; box x holds columns 64 x .. 64 x + 63),
-  // none over the padding past hd
+  // S = q k^T of ring slot `slot` into sc: 64 x 128, ceil(DQK / 16) steps
+  // of depth 16 (32 bytes of a 128-byte row; box x holds columns 64 x .. 64
+  // x + 63), none over the padding past DQK's last 16-column step
   auto issue_qk = [&](int slot) {
-    const uint32_t kt = sK + (slot % L::kStages) * L::kTileBytes;
+    const uint32_t kt = sK + (slot % L::kStages) * L::kQkBytes;
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
+    for (int kk = 0; kk < L::kQkSteps; ++kk) {
       const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
       wgmma_ss_n128(sc, gmma_desc(sQ + off + c * 64 * 128, 16, 1024),
                     gmma_desc(kt + off, 16, 1024), kk > 0);
     }
   };
   // o += p v of ring slot `slot`: 8 steps of 16 kv rows (2 KiB of V a box
-  // each), over the padded width
+  // each), over the padded DV
   auto issue_pv = [&](int slot) {
-    const uint32_t vt = sV + (slot % L::kStages) * L::kTileBytes;
+    const uint32_t vt = sV + (slot % L::kStages) * L::kVBytes;
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk)
       wgmma_pv<L::kCols, kBoxBytes>(acc, pa[kk], vt + kk * 16 * 128);
@@ -423,7 +447,7 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
     named_sync(wg_bar, kWg);
     const int rr = r0 % 8;  // rows r0 and r0 + 8 share their swizzle phase
 #pragma unroll
-    for (int jj = 0; jj < HD / 8; ++jj) {
+    for (int jj = 0; jj < DV / 8; ++jj) {
       const uint32_t chunk = (uint32_t)(((jj % 8) ^ rr) * 16 + c2 * 2);
       const uint32_t row_a = sO + (jj / 8) * kBoxBytes + r0 * 128 + chunk;
       st_shared_u32(row_a, pack_f32(acc[4 * jj] * d0, acc[4 * jj + 1] * d0));
@@ -433,7 +457,7 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
     fence_async_shared();
     named_sync(wg_bar, kWg);
     if (lt == 0) {
-      for (int x = 0; x < L::kBoxes; ++x)
+      for (int x = 0; x < L::kVBoxes; ++x)
         tma_store_4d(&to, sO + x * kBoxBytes + c * 64 * 128, x * kBoxCols, t.h,
                      t.q0 + 64 * c, t.b);
       bulk_commit();
@@ -448,19 +472,20 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
 // ---------------------------------------------------------------------------
 
 
-template <int HD, bool LSE>
+template <int DQK, int DV, bool LSE>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
                         int B, int S, int H, int KV, float scale, int causal,
                         cudaStream_t stream) {
+  using L = Layout<DQK, DV>;
   // the shared-memory opt-in above the 48 KB default is a property of the
   // function, so each instance sets it once
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_bf16<HD, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Layout<HD>::kSmem);
+      flash_fwd_bf16<DQK, DV, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::kSmem);
   if (attr != cudaSuccess) return attr;
   CUtensorMap tq, tk, tv, to;
-  if (!make_map(&tq, q, B, S, H, HD) || !make_map(&tk, k, B, S, KV, HD) ||
-      !make_map(&tv, v, B, S, KV, HD) || !make_map(&to, o, B, S, H, HD, 64))
+  if (!make_map(&tq, q, B, S, H, DQK) || !make_map(&tk, k, B, S, KV, DQK) ||
+      !make_map(&tv, v, B, S, KV, DV) || !make_map(&to, o, B, S, H, DV, 64))
     return cudaErrorInvalidValue;
   // persistent: one CTA an SM (the shared memory allows no more), each
   // taking work tiles blockIdx.x, 2 grid - 1 - blockIdx.x, ... (snake)
@@ -472,7 +497,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, fl
   }();
   const long long works = (long long)((S + kTile - 1) / kTile) * H * B;
   const int grid = (int)(works < sms ? works : sms);
-  flash_fwd_bf16<HD, LSE><<<grid, kFlashThreads, Layout<HD>::kSmem, stream>>>(
+  flash_fwd_bf16<DQK, DV, LSE><<<grid, kFlashThreads, L::kSmem, stream>>>(
       tq, tk, tv, to, B, S, H, KV, scale, causal, lse);
   return cudaGetLastError();
 }
@@ -501,56 +526,63 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
   }
 }
 
-template <int HD>
+// shared memory of the fp32 kernel: Q and K tiles at DQK, V at DV, P
+template <int DQK, int DV>
+constexpr size_t f32_smem() {
+  return ((size_t)2 * kF32Rows * (DQK + 1) + (size_t)kF32Rows * (DV + 1) +
+          (size_t)kF32Rows * (kF32Rows + 1)) *
+         sizeof(float);
+}
+
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kF32Threads)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o, int S, int H,
                   int KV, float scale, int causal, float* __restrict__ lse) {
-  constexpr int LD = HD + 1;
+  constexpr int LDQ = DQK + 1, LDV = DV + 1;
   constexpr int LDP = kF32Rows + 1;
   extern __shared__ float smf[];
   float* Qs = smf;
-  float* Ks = Qs + kF32Rows * LD;
-  float* Vs = Ks + kF32Rows * LD;
-  float* Ps = Vs + kF32Rows * LD;
+  float* Ks = Qs + kF32Rows * LDQ;
+  float* Vs = Ks + kF32Rows * LDQ;
+  float* Ps = Vs + kF32Rows * LDV;
 
   const int nq = gridDim.x;
   const int q0 = (nq - 1 - (int)blockIdx.x) * kF32Rows;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
-  const long long q_stride = (long long)H * HD, kv_stride = (long long)KV * HD;
-  const float* qb = q + ((long long)b * S * H + h) * HD;
-  const float* kb = k + ((long long)b * S * KV + kvh) * HD;
-  const float* vb = v + ((long long)b * S * KV + kvh) * HD;
-  float* ob = o + ((long long)b * S * H + h) * HD;
+  const float* qb = q + ((long long)b * S * H + h) * DQK;
+  const float* kb = k + ((long long)b * S * KV + kvh) * DQK;
+  const float* vb = v + ((long long)b * S * KV + kvh) * DV;
+  float* ob = o + ((long long)b * S * H + h) * DV;
 
-  load_tile_f32<LD>(Qs, qb, q_stride, q0, S, HD);
+  load_tile_f32<LDQ>(Qs, qb, (long long)H * DQK, q0, S, DQK);
 
   const int r = threadIdx.x >> 1, par = threadIdx.x & 1;
-  const float* qrow = Qs + r * LD;
+  const float* qrow = Qs + r * LDQ;
   float* prow = Ps + r * LDP;
-  float acc[HD / 2];
+  float acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
   float m = kNegInf, l = 0.f;
 
   const int nk = kv_tiles_f32(S, q0, causal);
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kF32Rows;
     __syncthreads();
-    load_tile_f32<LD>(Ks, kb, kv_stride, k0, S, HD);
-    load_tile_f32<LD>(Vs, vb, kv_stride, k0, S, HD);
+    load_tile_f32<LDQ>(Ks, kb, (long long)KV * DQK, k0, S, DQK);
+    load_tile_f32<LDV>(Vs, vb, (long long)KV * DV, k0, S, DV);
     __syncthreads();
 
     // score columns 2j + par of row r
     float s[kF32Rows / 2];
 #pragma unroll
     for (int j = 0; j < kF32Rows / 2; ++j) s[j] = 0.f;
-    for (int d = 0; d < HD; ++d) {
+    for (int d = 0; d < DQK; ++d) {
       const float qd = qrow[d];
 #pragma unroll
       for (int j = 0; j < kF32Rows / 2; ++j)
-        s[j] = fmaf(qd, Ks[(2 * j + par) * LD + d], s[j]);
+        s[j] = fmaf(qd, Ks[(2 * j + par) * LDQ + d], s[j]);
     }
     float mx = m;
 #pragma unroll
@@ -575,12 +607,12 @@ __global__ void __launch_bounds__(kF32Threads)
     __syncwarp();       // row r's probabilities come from this thread pair
     // output columns 2i + par of row r
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) acc[i] *= corr;
+    for (int i = 0; i < DV / 2; ++i) acc[i] *= corr;
     for (int j = 0; j < kF32Rows; ++j) {
       const float p = prow[j];
-      const float* vrow = Vs + j * LD + par;
+      const float* vrow = Vs + j * LDV + par;
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) acc[i] = fmaf(p, vrow[2 * i], acc[i]);
+      for (int i = 0; i < DV / 2; ++i) acc[i] = fmaf(p, vrow[2 * i], acc[i]);
     }
   }
   l += __shfl_xor_sync(kFull, l, 1);
@@ -588,74 +620,83 @@ __global__ void __launch_bounds__(kF32Threads)
   if (lse != nullptr && par == 0 && q0 + r < S)
     lse[((long long)b * H + h) * S + q0 + r] = m + logf(l);
   if (q0 + r < S) {
-    float* orow = ob + (long long)(q0 + r) * q_stride + par;
+    float* orow = ob + (long long)(q0 + r) * H * DV + par;
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) orow[2 * i] = acc[i] / den;
+    for (int i = 0; i < DV / 2; ++i) orow[2 * i] = acc[i] / den;
   }
 }
 
-template <int HD>
+template <int DQK, int DV>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
                        int B, int S, int H, int KV, float scale, int causal,
                        cudaStream_t stream) {
-  constexpr size_t smem =
-      ((size_t)3 * kF32Rows * (HD + 1) + (size_t)kF32Rows * (kF32Rows + 1)) *
-      sizeof(float);
+  constexpr size_t smem = f32_smem<DQK, DV>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_f32<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((S + kF32Rows - 1) / kF32Rows, H, B);
-  flash_fwd_f32<HD><<<grid, kF32Threads, smem, stream>>>(
+  flash_fwd_f32<DQK, DV><<<grid, kF32Threads, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, S, H, KV, scale,
       causal, lse);
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int DQK, int DV>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
                      int B, int S, int H, int KV, float scale, int causal, int is_bf16,
                      cudaStream_t stream) {
-  if (!is_bf16) return launch_f32<HD>(q, k, v, o, lse, B, S, H, KV, scale, causal, stream);
+  if (!is_bf16)
+    return launch_f32<DQK, DV>(q, k, v, o, lse, B, S, H, KV, scale, causal, stream);
   if (lse != nullptr)
-    return launch_bf16<HD, true>(q, k, v, o, lse, B, S, H, KV, scale, causal, stream);
-  return launch_bf16<HD, false>(q, k, v, o, nullptr, B, S, H, KV, scale, causal, stream);
+    return launch_bf16<DQK, DV, true>(q, k, v, o, lse, B, S, H, KV, scale, causal,
+                                      stream);
+  return launch_bf16<DQK, DV, false>(q, k, v, o, nullptr, B, S, H, KV, scale, causal,
+                                     stream);
 }
+
+// the width pairs with an instance, as one key
+constexpr int width_key(int dqk, int dv) { return dqk * 1024 + dv; }
 
 }  // namespace
 
-// q (B, S, H, hd), k and v (B, S, KV, hd), out (B, S, H, hd): contiguous,
-// 16-byte aligned, bf16 (is_bf16) or fp32; hd 16, 64, 128 or 160; H % KV
-// == 0; B, S >= 1. scale is 1/sqrt(hd). lse: null (serving), or (B, H, S)
+// q (B, S, H, dqk), k (B, S, KV, dqk), v (B, S, KV, dv), out (B, S, H,
+// dv): contiguous, 16-byte aligned, bf16 (is_bf16) or fp32; (dqk, dv) one
+// of (16, 16), (64, 64), (128, 128), (160, 160), (96, 64), (24, 16); H % KV
+// == 0; B, S >= 1. scale is 1/sqrt(dqk). lse: null (serving), or (B, H, S)
 // fp32 that receives each row's log-sum-exp of the scaled scores
-// (training). Returns cudaGetLastError() (or cudaErrorInvalidValue for an
-// hd without an instance, or when a tensor map cannot be made).
+// (training). Returns cudaGetLastError() (or cudaErrorInvalidValue for a
+// width pair without an instance, or when a tensor map cannot be made).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
                                      void* out, float* lse, int B, int S, int H, int KV,
-                                     int hd, float scale, int causal, int is_bf16,
-                                     void* stream) {
+                                     int dqk, int dv, float scale, int causal,
+                                     int is_bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  switch (hd) {
-    case 16:
-      return (int)dispatch<16>(q, k, v, out, lse, B, S, H, KV, scale, causal, is_bf16, s);
-    case 64:
-      return (int)dispatch<64>(q, k, v, out, lse, B, S, H, KV, scale, causal, is_bf16, s);
-    case 128:
-      return (int)dispatch<128>(q, k, v, out, lse, B, S, H, KV, scale, causal, is_bf16, s);
-    case 160:
-      return (int)dispatch<160>(q, k, v, out, lse, B, S, H, KV, scale, causal, is_bf16, s);
+#define REPRO_FLASH_CASE(A, C) \
+  case width_key(A, C):        \
+    return (int)dispatch<A, C>(q, k, v, out, lse, B, S, H, KV, scale, causal, is_bf16, s);
+  switch (width_key(dqk, dv)) {
+    REPRO_FLASH_CASE(16, 16)
+    REPRO_FLASH_CASE(64, 64)
+    REPRO_FLASH_CASE(128, 128)
+    REPRO_FLASH_CASE(160, 160)
+    REPRO_FLASH_CASE(96, 64)
+    REPRO_FLASH_CASE(24, 16)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef REPRO_FLASH_CASE
 }
 
-// Dynamic shared memory a CTA of the bf16 kernel asks for at head dim hd
-// (0 for an hd without an instance).
-extern "C" int repro_flash_attention_smem(int hd) {
-  switch (hd) {
-    case 16: return Layout<16>::kSmem;
-    case 64: return Layout<64>::kSmem;
-    case 128: return Layout<128>::kSmem;
-    case 160: return Layout<160>::kSmem;
+// Dynamic shared memory a CTA of the bf16 kernel asks for at widths (dqk,
+// dv) (0 for a pair without an instance).
+extern "C" int repro_flash_attention_smem(int dqk, int dv) {
+  switch (width_key(dqk, dv)) {
+    case width_key(16, 16): return Layout<16, 16>::kSmem;
+    case width_key(64, 64): return Layout<64, 64>::kSmem;
+    case width_key(128, 128): return Layout<128, 128>::kSmem;
+    case width_key(160, 160): return Layout<160, 160>::kSmem;
+    case width_key(96, 64): return Layout<96, 64>::kSmem;
+    case width_key(24, 16): return Layout<24, 16>::kSmem;
     default: return 0;
   }
 }

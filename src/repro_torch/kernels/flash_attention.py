@@ -11,10 +11,13 @@ warpgroup streams K/V tiles in with TMA through an mbarrier ring, two
 consumer warpgroups run ``wgmma`` products (q k^T from shared memory, p v
 with p from registers). fp32 (tests only) runs FMA loops over 64-row
 tiles. The kernel is bound by operations at the serving shape. No atomics:
-the same inputs give the same bits on every run. Head dims 16, 64, 128 and
-160, every reference config's but MLA's (16 and 160 padded to whole
-64-column boxes in shared memory; 160 with a one-stage K/V ring). See the
-source's note.
+the same inputs give the same bits on every run. The q k width (q's and
+k's last dim) and the p v width (v's) are template parameters; the pairs
+with an instance are ``KERNEL_HEAD_DIMS``: 16, 64, 128 and 160 for both
+(the GQA configs), and MLA's (96, 64) for minicpm3-4b and (24, 16) for its
+TINY config (each width padded to whole 64-column boxes in shared memory;
+160 with a one-stage K/V ring). Any other pair raises ``TypeError`` on the
+card, with no fallback to the plain version. See the source's note.
 
 Training: the TPU kernel has no gradient (the reference trains through
 autodiff of its einsum attention). :func:`flash_attention_lse` is the
@@ -36,28 +39,34 @@ import torch
 from repro_torch.kernels import ref
 
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-# the head dims with a kernel instance (16: the reduced configs; 64:
-# granite-3-2b; 128: llama3-8b; 160: stablelm-12b); any other raises
-KERNEL_HEAD_DIMS = (16, 64, 128, 160)
+# the (q k width, p v width) pairs with a kernel instance: (16, 16) the
+# reduced GQA configs, (64, 64) granite-3-2b, (128, 128) llama3-8b and the
+# MoE archs, (160, 160) stablelm-12b; MLA's q and k are nope + rope wide, v
+# the value width: (96, 64) minicpm3-4b, (24, 16) its TINY config. Any
+# other pair raises
+KERNEL_HEAD_DIMS = ((16, 16), (64, 64), (128, 128), (160, 160), (96, 64),
+                    (24, 16))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """q (B, S, H, hd); k, v (B, S, KV, hd); H % KV == 0. Returns (B, S, H, hd)
-    in q's dtype: ``softmax(q k^T / sqrt(hd)) v``, causal or not, query head
-    h reading KV head ``h // (H // KV)``.
+    """q (B, S, H, hd); k (B, S, KV, hd); v (B, S, KV, dv); H % KV == 0.
+    Returns (B, S, H, dv) in q's dtype: ``softmax(q k^T / sqrt(hd)) v``,
+    causal or not, query head h reading KV head ``h // (H // KV)``; dv is
+    hd but for MLA's.
 
     A CPU tensor takes the plain version (:func:`ref.attention_ref`, any
-    head dim). A CUDA tensor launches the kernel (counted in
-    ``flash_attention.launches``) or raises: it takes bf16 or fp32, a head
-    dim of ``KERNEL_HEAD_DIMS`` (``TypeError`` otherwise, with no fallback to
-    the plain version), contiguous 16-byte-aligned tensors, and any S >= 1.
+    widths). A CUDA tensor launches the kernel (counted in
+    ``flash_attention.launches``) or raises: it takes bf16 or fp32, a
+    width pair (hd, dv) of ``KERNEL_HEAD_DIMS`` (``TypeError`` otherwise,
+    with no fallback to the plain version), contiguous 16-byte-aligned
+    tensors, and any S >= 1.
     """
     _check_shapes("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal)
     _check_card("flash_attention", q, k, v)
-    out = torch.empty_like(q)
+    out = _out_like(q, v)
     if out.numel() == 0:
         return out
     _forward(out, None, q, k, v, causal)
@@ -82,7 +91,7 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return ref.attention_lse_ref(q, k, v, causal=causal)
     _check_card("flash_attention_lse", q, k, v)
     b, s, h, _ = q.shape
-    out = torch.empty_like(q)
+    out = _out_like(q, v)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
@@ -99,17 +108,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dout: torch.Tensor, *, causal: bool = True
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv), the gradient of :func:`flash_attention`'s function for
-    the output gradient ``dout`` (B, S, H, hd), from the training forward's
+    the output gradient ``dout`` (B, S, H, dv), from the training forward's
     ``out`` and ``lse``; dk and dv sum over each KV head's query heads. A
     CPU tensor takes the plain version (:func:`ref.attention_bwd_ref`,
     autograd through ``attention_ref``). A CUDA tensor launches the kernels
     (three or four launches, counted once in
     ``flash_attention_bwd.launches``) or
     raises, on the inputs :func:`flash_attention` takes, with ``out`` and
-    ``dout`` shaped and typed as q and ``lse`` (B, H, S) fp32."""
+    ``dout`` shaped as its output and typed as q, and ``lse`` (B, H, S)
+    fp32."""
     _check_shapes("flash_attention_bwd", q, k, v)
     b, s, h, hd = q.shape
-    if out.shape != q.shape or dout.shape != q.shape or \
+    dvw = v.shape[3]
+    if out.shape != (b, s, h, dvw) or dout.shape != out.shape or \
             lse.shape != (b, h, s):
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)}, dout "
                          f"{tuple(dout.shape)}, lse {tuple(lse.shape)} do not "
@@ -131,13 +142,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # D = rowsum(dO o), the lse rows the kernels read and, where the dK/dV
     # launch splits a KV head's query heads, its fp32 partials
     workspace = torch.empty(
-        lib.repro_flash_attention_bwd_workspace(b, s, h, kv, hd, int(causal), bf16),
+        lib.repro_flash_attention_bwd_workspace(b, s, h, kv, hd, dvw,
+                                                int(causal), bf16),
         dtype=torch.float32, device=q.device)
     check("flash_attention_bwd", lib.repro_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), workspace.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, s, h, kv, hd, 1.0 / math.sqrt(hd),
-        int(causal), bf16, stream_ptr(q)))
+        dk.data_ptr(), dv.data_ptr(), b, s, h, kv, hd, dvw,
+        1.0 / math.sqrt(hd), int(causal), bf16, stream_ptr(q)))
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
@@ -166,7 +178,10 @@ class FlashAttentionFn(torch.autograd.Function):
 
 def _check_shapes(name: str, q: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor) -> None:
-    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+    """Self-attention shapes: k as q but its heads, v as k but its last dim
+    (MLA's value width may differ from the q k width)."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 or \
+            k.shape[:3] != v.shape[:3]:
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
     b, s, h, hd = q.shape
@@ -177,20 +192,26 @@ def _check_shapes(name: str, q: torch.Tensor, k: torch.Tensor,
 
 def _check_card(name: str, q: torch.Tensor, *others: torch.Tensor) -> None:
     """What the kernels take: one CUDA device, bf16 or fp32 of one dtype,
-    a head dim of ``KERNEL_HEAD_DIMS``, contiguous 16-byte-aligned
-    tensors."""
+    a (q k, p v) width pair of ``KERNEL_HEAD_DIMS`` (q's last dim and v's,
+    the second of ``others``), contiguous 16-byte-aligned tensors."""
     if q.device.type != "cuda" or any(t.device != q.device for t in others):
         raise ValueError(f"{name}: unsupported devices "
                          f"{[str(t.device) for t in (q, *others)]}")
     if q.dtype not in KERNEL_DTYPES or any(t.dtype != q.dtype for t in others):
         raise TypeError(f"{name} takes bf16 or fp32 tensors of one dtype, got "
                         f"{[t.dtype for t in (q, *others)]}")
-    if q.shape[3] not in KERNEL_HEAD_DIMS:
-        raise TypeError(f"{name} has kernels for head dims {KERNEL_HEAD_DIMS}, "
-                        f"got {q.shape[3]}")
+    widths = (q.shape[3], others[1].shape[3])
+    if widths not in KERNEL_HEAD_DIMS:
+        raise TypeError(f"{name} has kernels for head dims (q k, p v) "
+                        f"{KERNEL_HEAD_DIMS}, got {widths}")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
                for t in (q, *others)):
         raise ValueError(f"{name} takes contiguous, 16-byte-aligned tensors")
+
+
+def _out_like(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The output (B, S, H, dv) in q's dtype and device."""
+    return q.new_empty((*q.shape[:3], v.shape[3]))
 
 
 def _forward(out, lse, q, k, v, causal: bool) -> None:
@@ -200,5 +221,5 @@ def _forward(out, lse, q, k, v, causal: bool) -> None:
     check("flash_attention", library().repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), b, s, h, k.shape[2], hd,
-        1.0 / math.sqrt(hd), int(causal), int(q.dtype == torch.bfloat16),
-        stream_ptr(q)))
+        v.shape[3], 1.0 / math.sqrt(hd), int(causal),
+        int(q.dtype == torch.bfloat16), stream_ptr(q)))

@@ -233,7 +233,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True) -> torch.Tensor:
     """Self-attention (S == T) for the models' prefill and training: the
     flash kernel, or its plain version under :func:`oracle_scope` on
-    whatever device the tensors are. q (B, S, H, hd); k, v (B, S, KV, hd).
+    whatever device the tensors are. q, k (B, S, H or KV, hd); v (B, S, KV,
+    dv), dv = hd but for MLA's; the card takes the (hd, dv) pairs of
+    ``flash_attention.KERNEL_HEAD_DIMS`` and raises ``TypeError`` on any
+    other, with no fallback to the plain version.
 
     When autograd records through an input (training), a CUDA tensor goes
     through :class:`~repro_torch.kernels.flash_attention.FlashAttentionFn`

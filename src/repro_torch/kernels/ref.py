@@ -258,11 +258,14 @@ def segment_scan_ref(values: torch.Tensor, seg_ids: torch.Tensor,
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True) -> torch.Tensor:
-    """Materialized-softmax GQA attention. q (B,S,H,hd); k/v (B,T,KV,hd),
-    H % KV == 0; query head h reads KV head ``h // (H // KV)``. fp32
-    inside, output in q's dtype (``repro.kernels.ref.attention_ref``)."""
+    """Materialized-softmax GQA attention. q (B,S,H,hd); k (B,T,KV,hd); v
+    (B,T,KV,dv), dv = hd but for MLA's (q k over nope + rope, p v over the
+    value width); H % KV == 0; query head h reads KV head ``h // (H //
+    KV)``. Scores scaled by 1/sqrt(hd), q's width, as the reference's
+    ``_sdpa`` takes it. fp32 inside, output (B,S,H,dv) in q's dtype
+    (``repro.kernels.ref.attention_ref``)."""
     b, s, h, hd = q.shape
-    t, kv = k.shape[1], k.shape[2]
+    t, kv, dv = k.shape[1], k.shape[2], v.shape[3]
     g = h // kv
     qg = q.reshape(b, s, kv, g, hd).float()
     scores = torch.einsum("bskgh,btkh->bkgst", qg, k.float())
@@ -273,14 +276,14 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         scores = scores.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkh->bskgh", probs, v.float())
-    return out.reshape(b, s, h, hd).to(q.dtype)
+    return out.reshape(b, s, h, dv).to(q.dtype)
 
 
 def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`attention_ref`'s output and each row's log-sum-exp of the
     scaled, masked scores, (B, H, S) in fp32 (fp64 for fp64 inputs): the
-    training forward's function."""
+    training forward's function. v may be narrower than q and k (MLA)."""
     b, s, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
     dt = torch.promote_types(q.dtype, torch.float32)
@@ -298,7 +301,8 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       dout: torch.Tensor, *, causal: bool = True
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv): autograd through :func:`attention_ref` (fp32 inside)
-    for the output gradient ``dout``, in the inputs' dtypes."""
+    for the output gradient ``dout`` (B, S, H, dv), in the inputs' dtypes
+    and shapes (dv's last dim v's)."""
     with torch.enable_grad():
         leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
         out = attention_ref(*leaves, causal=causal)

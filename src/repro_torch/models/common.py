@@ -1,8 +1,8 @@
 """``ModelConfig``: the port's copy of ``repro/models/common.py``'s config.
 
 One dataclass covers every architecture family of the JAX package; the
-port builds the dense GQA and MoE families so far, but keeps every field so
-a config copies over value for value. The mesh and sharding helpers of the
+port builds the dense GQA and MLA models and the MoE family so far, but
+keeps every field so a config copies over value for value. The mesh and sharding helpers of the
 reference (``ShardingRules``, partition specs, ``fsdp_extend``, ``cast``)
 are multi-device machinery and are not carried over: the port runs on
 one card. ``remat`` applies in training (``models/transformer.py``);

@@ -1,5 +1,6 @@
 """Shared neural layers of the port (``repro/models/layers.py``): init
-helpers, RMSNorm, RoPE, embeddings, the SwiGLU/GELU MLP and GQA attention.
+helpers, RMSNorm, RoPE, embeddings, the SwiGLU/GELU MLP, GQA attention and
+MLA (multi-head latent attention, minicpm3-4b's).
 
 Layers are functional, as in the reference: ``init_*`` returns a dict of
 tensors (weights in the reference's ``(in, out)`` layout, applied as
@@ -10,9 +11,12 @@ softmax, in the reference's order of operations and rounding points.
 Attention modes: ``causal`` / ``bidir`` (prefill: self-attention with
 S == T, through the flash kernel behind ``kernels/ops.attention``) and
 ``decode`` (one new token against the KV cache, the reference's masked
-einsum math in plain torch). Left for later: MLA, the cross modes, the
-chunked paths for S > 8192, the multi-device flash-decode and
-``layer_norm``.
+einsum math in plain torch). MLA: prefill and training materialise
+per-head K and V (q k over nope + rope, p v over the value width) and run
+the same flash kernel; decode is the reference's absorbed attention over
+the latent cache, in plain torch. Left for later: the cross modes, the
+chunked paths for S > 8192, the multi-device flash-decode (GQA's and MLA's
+``mla_seq_shard``) and ``layer_norm``.
 """
 from __future__ import annotations
 
@@ -167,11 +171,12 @@ def _mask_scores(scores: torch.Tensor, *, causal: bool, q_offset: int,
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
           q_offset: int = 0, kv_len: int | None = None) -> torch.Tensor:
-    """q (B,S,H,hd), k/v (B,T,KV,hd) -> (B,S,H,hd). fp32 softmax.
+    """q (B,S,H,hd), k (B,T,KV,hd), v (B,T,KV,dv) -> (B,S,H,dv). fp32
+    softmax; scores scaled by 1/sqrt(hd), q's width (dv differs for MLA).
 
     Self-attention (S == T, no offset, no kv_len: every prefill) goes
     through ``kernels/ops.attention``, the flash kernel on the card, fp32
-    inside. Otherwise (decode against the cache) the reference's math: KV
+    inside, whatever v's width. Otherwise (decode against the cache) the reference's math: KV
     heads repeated to H, scores and probabilities rounded to q's dtype by
     the einsums, masked with -1e30 over the whole cache, fp32 softmax.
     """
@@ -230,3 +235,102 @@ def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, device,
     dtype = dtype or cfg.dtype
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MLA attention (minicpm3 / deepseek-style latent KV)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(cfg: ModelConfig, generator: torch.Generator
+             ) -> dict[str, torch.Tensor]:
+    """The reference's MLA leaves, in its order and distributions: the
+    query's down and up projections with an RMSNorm between, the joint KV
+    down projection (latent + the shared rope key) with an RMSNorm on the
+    latent, the latent's up projections to per-head k_nope and v, and wo."""
+    d, H = cfg.d_model, cfg.num_heads
+    ql, kvl = cfg.mla_q_lora, cfg.mla_kv_lora
+    nd, rd, vd = cfg.mla_nope_dim, cfg.mla_rope_dim, cfg.mla_v_dim
+    dt, dev = cfg.param_dtype, generator.device
+    return {"w_dq": _dense((d, ql), dt, generator),
+            "q_norm": init_norm(ql, dt, dev),
+            "w_uq": _dense((ql, H * (nd + rd)), dt, generator),
+            "w_dkv": _dense((d, kvl + rd), dt, generator),
+            "kv_norm": init_norm(kvl, dt, dev),
+            "w_uk": _dense((kvl, H * nd), dt, generator),
+            "w_uv": _dense((kvl, H * vd), dt, generator),
+            "wo": _dense((H * vd, d), dt, generator)}
+
+
+def mla_fwd(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str, rope,
+            cache=None, pos: int | None = None):
+    """MLA (``repro/models/layers.py::mla_fwd``). Returns (out, cache). The
+    cache holds the latents, {'c_kv' (B, S_max, kv_lora), 'k_rope' (B,
+    S_max, rope_dim)}, updated in place.
+
+    mode 'causal' (prefill, training; the reference's 'prefill' too):
+    per-head K = concat(c_kv W_uk, the shared k_rope) and V = c_kv W_uv are
+    materialised and go through ``_sdpa`` (the flash kernel, q k over nope
+    + rope, p v over the value width, scale 1/sqrt(nope + rope)); with a
+    cache, c_kv and k_rope are written to its first S rows. 'decode': the
+    reference's absorbed attention, W_uk folded into q (``q_lat``), scores
+    over the latent cache (two bf16 einsums added in bf16, then fp32 times
+    the scale), masked with -1e30 at ``t >= pos + S`` only (no causal mask
+    among the new tokens, as the reference's), an fp32 softmax rounded to
+    bf16, the context in latent space, then W_uv. No K or V is
+    materialised. The projections are matmuls on the (in, out) weights
+    reshaped as the reference's einsums read them, so K and V come out
+    contiguous for the kernel."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    nd, rd, vd = cfg.mla_nope_dim, cfg.mla_rope_dim, cfg.mla_v_dim
+    kvl = cfg.mla_kv_lora
+    dt = x.dtype
+    sin, cos = rope
+
+    cq = rms_norm(x @ p["w_dq"].to(dt), p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["w_uq"].to(dt)).reshape(B, S, H, nd + rd)
+    q_nope, q_rope = q[..., :nd], apply_rope(q[..., nd:], sin, cos)
+
+    dkv = x @ p["w_dkv"].to(dt)
+    c_kv = rms_norm(dkv[..., :kvl], p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(dkv[..., kvl:][:, :, None, :], sin, cos)[:, :, 0, :]
+    scale = 1.0 / math.sqrt(nd + rd)
+
+    if mode in ("causal", "prefill"):
+        k_nope = (c_kv @ p["w_uk"].to(dt)).reshape(B, S, H, nd)
+        v = (c_kv @ p["w_uv"].to(dt)).reshape(B, S, H, vd)
+        kr = k_rope[:, :, None, :].expand(B, S, H, rd)
+        k_full = torch.cat([k_nope, kr], -1)
+        q_full = torch.cat([q_nope, q_rope], -1)
+        ctx = _sdpa(q_full, k_full, v, causal=True)
+        if cache is not None:  # prefill into a bigger cache
+            cache["c_kv"][:, :S] = c_kv.to(cache["c_kv"].dtype)
+            cache["k_rope"][:, :S] = k_rope.to(cache["k_rope"].dtype)
+    elif mode == "decode":
+        cache["c_kv"][:, pos:pos + S] = c_kv.to(cache["c_kv"].dtype)
+        cache["k_rope"][:, pos:pos + S] = k_rope.to(cache["k_rope"].dtype)
+        ckv, kr = cache["c_kv"].to(dt), cache["k_rope"].to(dt)
+        w_uk = p["w_uk"].to(dt).reshape(kvl, H, nd)
+        q_lat = torch.einsum("bshn,khn->bshk", q_nope, w_uk)  # absorb W_uk
+        scores = (torch.einsum("bshk,btk->bhst", q_lat, ckv) +
+                  torch.einsum("bshr,btr->bhst", q_rope, kr))
+        scores = scores.float() * scale
+        tpos = torch.arange(ckv.shape[1], device=x.device)
+        scores = scores.masked_fill(tpos >= pos + S, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(dt)
+        ctx_lat = torch.einsum("bhst,btk->bshk", probs, ckv)
+        ctx = torch.einsum("bshk,khv->bshv", ctx_lat,
+                           p["w_uv"].to(dt).reshape(kvl, H, vd))
+    else:
+        raise NotImplementedError(f"MLA mode {mode!r} is not ported")
+    return ctx.reshape(B, S, H * vd) @ p["wo"].to(dt), cache
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, device,
+                   dtype=None) -> dict[str, torch.Tensor]:
+    dtype = dtype or cfg.dtype
+    return {"c_kv": torch.zeros((batch, max_len, cfg.mla_kv_lora),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, max_len, cfg.mla_rope_dim),
+                                  dtype=dtype, device=device)}

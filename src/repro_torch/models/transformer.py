@@ -1,8 +1,9 @@
 """The decoder-only transformer of the port (``repro/models/transformer.py``),
-dense GQA and MoE families: ``Block`` (RMSNorm, GQA attention, RMSNorm, a
-SwiGLU MLP or, with ``cfg.moe_num_experts``, the MoE layer of
-``models/moe.py``, two residual adds) and ``Transformer`` (embedding, the
-blocks, final norm, a tied or untied head), with ``init_cache``.
+dense GQA, dense MLA and MoE: ``Block`` (RMSNorm, GQA attention or, with
+``cfg.attn_kind == "mla"``, MLA, RMSNorm, a SwiGLU MLP or, with
+``cfg.moe_num_experts``, the MoE layer of ``models/moe.py``, two residual
+adds) and ``Transformer`` (embedding, the blocks, final norm, a tied or
+untied head), with ``init_cache``.
 
 The reference scans stacked layer parameters under ``jit``; here
 ``Transformer.forward`` (the reference's ``lm_forward``) is a Python loop
@@ -14,8 +15,9 @@ reference's ``_remat``: ``"full"`` runs each block under
 backward; an MoE block routes the same tokens the same way again), ``"none"``
 plainly. The forward's aux (``moe_aux``, ``moe_dropped``) is the sum over
 the layers, in order, of fp32 tensors on the device (zeros for the dense
-family), as the reference's scan sums them. Left for later: MLA, the vision
-front, and the ``"dots"`` policy (matmul outputs saved).
+family), as the reference's scan sums them. Left for later: MLA with
+experts, the vision front, and the ``"dots"`` policy (matmul outputs
+saved).
 """
 from __future__ import annotations
 
@@ -80,7 +82,9 @@ class Block(nn.Module):
         self.cfg = cfg
         dev = generator.device
         self.ln1 = _frozen(NN.init_norm(cfg.d_model, cfg.param_dtype, dev))
-        self.attn = FrozenTree(NN.init_attention(cfg, generator))
+        self.attn = FrozenTree(NN.init_mla(cfg, generator)
+                               if cfg.attn_kind == "mla" else
+                               NN.init_attention(cfg, generator))
         self.ln2 = _frozen(NN.init_norm(cfg.d_model, cfg.param_dtype, dev))
         if cfg.moe_num_experts:
             self.moe = FrozenTree(MOE.init_moe(cfg, generator))
@@ -94,8 +98,9 @@ class Block(nn.Module):
         None for a dense block."""
         cfg = self.cfg
         h = NN.rms_norm(x, self.ln1, cfg.norm_eps)
-        a, cache = NN.attention_fwd(self.attn, h, cfg, mode=mode, rope=rope,
-                                    cache=cache, pos=pos)
+        attend = NN.mla_fwd if cfg.attn_kind == "mla" else NN.attention_fwd
+        a, cache = attend(self.attn, h, cfg, mode=mode, rope=rope,
+                          cache=cache, pos=pos)
         x = x + a
         h = NN.rms_norm(x, self.ln2, cfg.norm_eps)
         if cfg.moe_num_experts:
@@ -112,11 +117,14 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator):
         super().__init__()
-        if cfg.family not in ("dense", "moe") or cfg.attn_kind != "gqa" or \
+        mla = cfg.attn_kind == "mla"
+        if cfg.family not in ("dense", "moe") or \
+                cfg.attn_kind not in ("gqa", "mla") or \
                 bool(cfg.moe_num_experts) != (cfg.family == "moe") or \
-                cfg.frontend != "none":
+                (mla and cfg.family != "dense") or cfg.frontend != "none":
             raise NotImplementedError(
-                f"{cfg.arch}: only the dense GQA and MoE families are ported")
+                f"{cfg.arch}: only the dense GQA, dense MLA and MoE (GQA) "
+                f"families are ported")
         self.cfg = cfg
         dev = generator.device
         self.embed = _frozen(NN.init_embed(cfg, generator))
@@ -133,14 +141,16 @@ class Transformer(nn.Module):
 
         tokens (B, S) int; mode 'causal' (prefill, training) or 'decode'
         (S new tokens at ``pos``, a Python int). cache: ``init_cache``'s
-        stacked {'k', 'v'}, written in place and returned.
+        stacked {'k', 'v'} (MLA: {'c_kv', 'k_rope'}), written in place and
+        returned. RoPE runs over the head dim, or MLA's rope dim.
         """
         cfg = self.cfg
         x = NN.embed_fwd(self.embed, tokens, cfg)
         s = x.shape[1]
         start = pos if mode == "decode" else 0
         positions = torch.arange(s, device=x.device) + start
-        rope = NN.rope_tables(positions, cfg.hd, cfg.rope_theta)
+        rope_dim = cfg.mla_rope_dim if cfg.attn_kind == "mla" else cfg.hd
+        rope = NN.rope_tables(positions, rope_dim, cfg.rope_theta)
         remat = cache is None and torch.is_grad_enabled() and x.requires_grad
         if remat and cfg.remat not in ("none", "full"):
             raise NotImplementedError(f"remat={cfg.remat!r}: the port has "
@@ -149,7 +159,7 @@ class Transformer(nn.Module):
                  for k in AUX_KEYS}
         for i, block in enumerate(self.layers):
             layer_cache = None if cache is None else \
-                {"k": cache["k"][i], "v": cache["v"][i]}
+                {name: t[i] for name, t in cache.items()}
             if remat and cfg.remat == "full":
                 x, _, aux = checkpoint(block, x, rope=rope, mode=mode,
                                        use_reentrant=False,
@@ -167,7 +177,13 @@ class Transformer(nn.Module):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device
                ) -> dict[str, torch.Tensor]:
-    """Stacked (L, B, max_len, KV, hd) decode cache in ``cfg.dtype``."""
+    """Stacked (L, B, max_len, KV, hd) decode cache in ``cfg.dtype``; for
+    MLA the stacked latents, {'c_kv' (L, B, max_len, kv_lora), 'k_rope'
+    (L, B, max_len, rope_dim)}."""
+    if cfg.attn_kind == "mla":
+        one = NN.init_mla_cache(cfg, batch, max_len, device)
+        return {name: t[None].repeat(cfg.num_layers, 1, 1, 1)
+                for name, t in one.items()}
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}

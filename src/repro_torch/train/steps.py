@@ -161,8 +161,9 @@ def make_eval_step(model: Model):
 
 def make_prefill_step(model: Model, max_len: int):
     """batch -> (last_logits (B, padded_vocab), cache): a causal pass over
-    ``batch['tokens']`` that writes a fresh (L, B, max_len, KV, hd) cache.
-    The logits keep the vocab padding, as the reference's prefill does."""
+    ``batch['tokens']`` that writes a fresh (L, B, max_len, KV, hd) cache
+    (MLA: the latents, ``models/transformer.init_cache``). The logits keep
+    the vocab padding, as the reference's prefill does."""
     def prefill_fn(batch):
         if batch.get("embeds") is not None:
             raise NotImplementedError("prefill with embeds (vlm, audio) is "

@@ -707,7 +707,7 @@ def test_cuda_segment_scan_float_sums_same_bits(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("hd", KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("hd", [hd for hd, dv in KERNEL_HEAD_DIMS if hd == dv])
 def test_cuda_flash_attention_matches_plain(cuda, dtype, tol, hd):
     # S at and around the bf16 kernel's 128-row tiles and the fp32 one's
     # 64-row tiles, group sizes 1 and 4, causal or not
@@ -720,6 +720,42 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, tol, hd):
                 want = tref.attention_ref(q, k, v, causal=causal)
                 torch.testing.assert_close(got, want, atol=tol, rtol=tol)
                 assert torch.equal(got, flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("hd,dv", [(96, 64), (24, 16)])
+def test_cuda_flash_mla_width_pairs_match_plain(cuda, dtype, tol, hd, dv):
+    # MLA's (q k, p v) width pairs: the serving and LSE entries against the
+    # plain version (the LSE's out bit-equal to the serving entry's), the
+    # backward against autograd through it by chip_smoke.py's per-tile
+    # check, at S around the tiles, group sizes 1 and 4, causal or not
+    import importlib.util
+
+    from repro_torch.kernels import flash_attention as fa
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    for s in (1, 63, 64, 65, 127, 128, 129, 1025):
+        for h, kv in ((4, 4), (8, 2)):
+            r = _rng(s + hd)
+            q, k, v, do = (torch.from_numpy(r.standard_normal(shape).astype(
+                np.float32)).to(cuda, dtype) for shape in (
+                (2, s, h, hd), (2, s, kv, hd), (2, s, kv, dv), (2, s, h, dv)))
+            for causal in (True, False):
+                got = flash_attention(q, k, v, causal=causal)
+                want = tref.attention_ref(q, k, v, causal=causal)
+                assert got.shape == (2, s, h, dv)
+                torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+                o, lse = fa.flash_attention_lse(q, k, v, causal=causal)
+                assert torch.equal(o, got)
+                grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+                errs = smoke.bwd_errors(grads, tref.attention_bwd_ref(
+                    q, k, v, do, causal=causal), dtype)
+                assert all(e["excess"] <= 1.0 for e in errs.values()), errs
 
 
 def test_library_path_follows_the_headers(tmp_path, monkeypatch):

@@ -44,6 +44,8 @@ from repro_torch.train.steps import make_decode_step, make_prefill_step  # noqa:
 ARCHS = ["llama3-8b", "granite-3-2b", "stablelm-12b"]
 # the MoE family's archs: tests/test_torch_moe.py holds their models
 MOE_ARCHS = ["qwen2-moe-a2.7b", "dbrx-132b"]
+# the MLA arch: tests/test_torch_mla.py holds its model
+MLA_ARCHS = ["minicpm3-4b"]
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"f32": 1e-5, "bf16": 3e-2}
@@ -88,7 +90,7 @@ def _tokens(cfg, b, s, seed=0):
 # --- configs ------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS + MLA_ARCHS)
 @pytest.mark.parametrize("which", ["get_config", "get_tiny"])
 def test_config_copies_the_reference_value_for_value(arch, which):
     j = getattr(jconfigs, which)(arch)
@@ -105,19 +107,22 @@ def test_config_copies_the_reference_value_for_value(arch, which):
 
 
 def test_every_ported_config_has_flash_kernel_instances():
-    """The card's attention has an instance for the head dim of every
-    ported arch, full size and TINY: a dim without one raises there."""
+    """The card's attention has an instance for the head dims of every
+    ported arch, full size and TINY: (hd, hd), or MLA's (nope + rope, v);
+    a pair without one raises there."""
     from repro_torch.kernels.flash_attention import KERNEL_HEAD_DIMS
 
-    assert sorted(tconfigs.PORTED) == sorted(ARCHS + MOE_ARCHS)
+    assert sorted(tconfigs.PORTED) == sorted(ARCHS + MOE_ARCHS + MLA_ARCHS)
     for arch in tconfigs.PORTED:
         for cfg in (tconfigs.get_config(arch), tconfigs.get_tiny(arch)):
-            assert cfg.hd in KERNEL_HEAD_DIMS, (arch, cfg.hd)
+            widths = ((cfg.mla_nope_dim + cfg.mla_rope_dim, cfg.mla_v_dim)
+                      if cfg.attn_kind == "mla" else (cfg.hd, cfg.hd))
+            assert widths in KERNEL_HEAD_DIMS, (arch, widths)
 
 
 def test_unported_arch_raises_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconfigs.get_config("minicpm3-4b")
+        tconfigs.get_config("zamba2-1.2b")
     with pytest.raises(KeyError):
         tconfigs.get_tiny("no-such-arch")
 

@@ -91,7 +91,7 @@ def _close(got, want, msg=""):
 def test_narrow_model_keeps_the_kernels_widest_head_dim():
     _, tcfg = _cfgs()
     assert tcfg.hd == 160 == tconfigs.get_config(ARCH).hd
-    assert tcfg.hd in fa.KERNEL_HEAD_DIMS and not tcfg.tie_embeddings
+    assert (tcfg.hd, tcfg.hd) in fa.KERNEL_HEAD_DIMS and not tcfg.tie_embeddings
 
 
 def test_narrow_logits_match_reference():
@@ -303,7 +303,7 @@ def _attention_rounding_p(q, k, v, *, causal=True):
     return (o / p.sum(-1).transpose(1, 2)[..., None]).to(q.dtype)
 
 
-@pytest.mark.parametrize("arch", ["granite-3-2b", "stablelm-12b"])
+@pytest.mark.parametrize("arch", ["granite-3-2b", "stablelm-12b", "minicpm3-4b"])
 def test_tiny_loss_tolerance_tells_a_wrong_mask_from_the_kernels_rounding(
         arch, monkeypatch):
     """Phase 18's ``TINY_LOSS_TOL`` on the command it checks (``launch.train

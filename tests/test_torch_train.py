@@ -325,7 +325,7 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", fa.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("hd", [hd for hd, dv in fa.KERNEL_HEAD_DIMS if hd == dv])
 def test_cuda_flash_backward_matches_autograd_through_plain(cuda, dtype, hd):
     # chip_smoke.py's check: each gradient, every 64-row tile against its
     # own plain norm (FLASH_BWD_TOL, FLASH_BWD_ATOL), at S around every tile
@@ -397,7 +397,8 @@ def _cu_constant(name):
 
 
 def test_flash_train_cases_straddle_every_tile_edge():
-    """chip_smoke.py's training cases: at every head dim, in bf16 and fp32,
+    """chip_smoke.py's training cases: at every (q k, p v) width pair, in
+    bf16 and fp32,
     causal or not, S one below, at and one above each row tile of the bf16
     backward (the 64-row key items and ring tiles, the 128-row query items
     and ring tiles), S 1 and a long S past a tile edge; in bf16 every group
@@ -408,16 +409,16 @@ def test_flash_train_cases_straddle_every_tile_edge():
     tiles = (_cu_constant("kKeyRows"), _cu_constant("kDqRows"))
     assert tiles == (64, 128)
     edges = {1} | {t + d for t in tiles for d in (-1, 0, 1)}
-    for hd in fa.KERNEL_HEAD_DIMS:
+    for hd, dv in fa.KERNEL_HEAD_DIMS:
         for dtype in (torch.bfloat16, torch.float32):
             for causal in (True, False):
-                seqs = {c[1] for c in cases
-                        if c[4] == hd and c[6] == dtype and c[5] == causal}
-                assert edges <= seqs, (hd, dtype, causal, sorted(seqs))
+                seqs = {c[1] for c in cases if c[4] == hd and c[7] == dv and
+                        c[6] == dtype and c[5] == causal}
+                assert edges <= seqs, (hd, dv, dtype, causal, sorted(seqs))
                 assert any(s > 4 * tiles[1] and s % tiles[0] for s in seqs)
         groups = {c[2] // c[3] for c in cases
-                  if c[4] == hd and c[6] == torch.bfloat16}
-        assert {1, 2, 4, 8} <= groups, (hd, groups)
+                  if c[4] == hd and c[7] == dv and c[6] == torch.bfloat16}
+        assert {1, 2, 4, 8} <= groups, (hd, dv, groups)
     first = {}
     for c in cases:
         first.setdefault(c[4], c)
@@ -427,12 +428,13 @@ def test_flash_train_cases_straddle_every_tile_edge():
 # what `nvcc -Xptxas -v` prints for some of the flash instances (mangled
 # names as nvcc 12 gives them; the anonymous namespace's name varies)
 _PTXAS_LOG = """\
-ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu_ae30f0d019flash_bwd_dkdv_bf16ILi160EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_Pfiiiiifi' for 'sm_90a'
-ptxas info    : Function properties for _ZN55_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu_ae30f0d019flash_bwd_dkdv_bf16ILi160EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_Pfiiiiifi
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu_ae30f0d019flash_bwd_dkdv_bf16ILi160ELi160EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_Pfiiiiifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN55_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu_ae30f0d019flash_bwd_dkdv_bf16ILi160ELi160EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_Pfiiiiifi
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 168 registers, used 1 barriers, 1024 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117flash_bwd_dq_bf16ILi64EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16iiiifi' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_117flash_bwd_dq_bf16ILi64EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16iiiifi
+ptxas info    : (C7520) Potential Performance Loss: wgmma.mma_async instructions are serialized due to program dependence on compiler-inserted WG.AR in divergent path in the function '_ZN12_GLOBAL__N_117flash_bwd_dq_bf16ILi96ELi64EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16iiiifi'
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117flash_bwd_dq_bf16ILi96ELi64EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16iiiifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_117flash_bwd_dq_bf16ILi96ELi64EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16iiiifi
     8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
 ptxas info    : Used 168 registers, used 1 barriers, 1024 bytes cmem[0]
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114flash_bwd_prepILi16EEEvPK13__nv_bfloat16S3_PKfPfS6_iiix' for 'sm_90a'
@@ -443,12 +445,12 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113flash_bwd_sumEPK6fl
 ptxas info    : Function properties for _ZN12_GLOBAL__N_113flash_bwd_sumEPK6float4P5uint2S4_xif
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 38 registers, 392 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118flash_bwd_dkdv_f32ILi160ELi1EEEvPKfS2_S2_S2_S2_S2_PfS3_iiiffi' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_118flash_bwd_dkdv_f32ILi160ELi1EEEvPKfS2_S2_S2_S2_S2_PfS3_iiiffi
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118flash_bwd_dkdv_f32ILi160ELi160ELi1EEEvPKfS2_S2_S2_S2_S2_PfS3_iiiffi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118flash_bwd_dkdv_f32ILi160ELi160ELi1EEEvPKfS2_S2_S2_S2_S2_PfS3_iiiffi
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 178 registers, 412 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114flash_fwd_bf16ILi128ELb1EEEv14CUtensorMap_stS1_S1_S1_iiiifiPf' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_114flash_fwd_bf16ILi128ELb1EEEv14CUtensorMap_stS1_S1_S1_iiiifiPf
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114flash_fwd_bf16ILi128ELi128ELb1EEEv14CUtensorMap_stS1_S1_S1_iiiifiPf' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_114flash_fwd_bf16ILi128ELi128ELb1EEEv14CUtensorMap_stS1_S1_S1_iiiifiPf
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 168 registers, used 1 barriers, 1024 bytes cmem[0]
 """
@@ -456,21 +458,26 @@ ptxas info    : Used 168 registers, used 1 barriers, 1024 bytes cmem[0]
 
 def test_ptxas_report_names_the_backward_instances(monkeypatch):
     """chip_smoke.py's phase 7 reads the build's ``-Xptxas -v`` output: each
-    bf16 backward instance by its head dim, the prep and sum passes, the
-    fp32 dK/dV launch by its gradients, with registers and spill bytes."""
+    bf16 backward instance by its (q k, p v) widths, the prep pass by its p
+    v width, the sum pass, the fp32 dK/dV launch by its gradients, with
+    registers, spill bytes and ptxas's wgmma serialization warning."""
     smoke = _load_smoke()
     monkeypatch.setattr(smoke._build, "LOGS",
                         {"flash_attention_bwd.cu": (1.0, _PTXAS_LOG)})
     got = {r["kernel"]: r for r in smoke.ptxas_report()}
-    assert list(got) == ["flash_bwd_dkdv_bf16<160>", "flash_bwd_dq_bf16<64>",
+    assert list(got) == ["flash_bwd_dkdv_bf16<160/160>", "flash_bwd_dq_bf16<96/64>",
                          "flash_bwd_prep<16>", "flash_bwd_sum",
-                         "flash_bwd_dkdv_f32<160, dV>", "flash_fwd_bf16<128, lse>"]
-    assert got["flash_bwd_dkdv_bf16<160>"]["registers"] == 168
-    assert got["flash_bwd_dkdv_bf16<160>"]["spill_store_bytes"] == 0
-    assert (got["flash_bwd_dq_bf16<64>"]["spill_store_bytes"],
-            got["flash_bwd_dq_bf16<64>"]["spill_load_bytes"],
-            got["flash_bwd_dq_bf16<64>"]["stack_frame_bytes"]) == (4, 4, 8)
+                         "flash_bwd_dkdv_f32<160/160, dV>",
+                         "flash_fwd_bf16<128/128, lse>"]
+    assert got["flash_bwd_dkdv_bf16<160/160>"]["registers"] == 168
+    assert got["flash_bwd_dkdv_bf16<160/160>"]["spill_store_bytes"] == 0
+    assert (got["flash_bwd_dq_bf16<96/64>"]["spill_store_bytes"],
+            got["flash_bwd_dq_bf16<96/64>"]["spill_load_bytes"],
+            got["flash_bwd_dq_bf16<96/64>"]["stack_frame_bytes"]) == (4, 4, 8)
     assert got["flash_bwd_sum"]["registers"] == 38
+    # ptxas's serialization warning names its instance, and only that one
+    assert [k for k, r in got.items() if r["wgmma_serialized"]] == \
+        ["flash_bwd_dq_bf16<96/64>"]
     assert all(any(k in r for k in smoke.PORTED_KERNELS) for r in got)
 
 
