@@ -1,8 +1,10 @@
 """Architecture registry of the port (``repro/configs/__init__.py``).
 
 The reference registers ten architectures; the port builds the dense GQA
-and MLA models and the MoE family, so six are registered here. Asking for another raises
-``NotImplementedError``: ROADMAP.md lists the order in which they come.
+and MLA models, the MoE family, the VLM backbone and the Mamba2 hybrid, so
+eight are registered here. Asking for another (xlstm-1.3b, whisper-base)
+raises ``NotImplementedError``: ROADMAP.md lists the order in which they
+come.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ ARCH_IDS = [
 ]
 
 PORTED = ("llama3-8b", "granite-3-2b", "stablelm-12b", "qwen2-moe-a2.7b",
-          "dbrx-132b", "minicpm3-4b")
+          "dbrx-132b", "minicpm3-4b", "internvl2-76b", "zamba2-1.2b")
 
 # grad-accumulation microbatch counts for the train_4k cell, copied from the
 # reference (its per-arch memory budget on a 16 GB v5e chip)

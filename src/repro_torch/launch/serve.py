@@ -8,6 +8,18 @@ Without ``--device`` it runs on ``cuda`` (and raises without a card). The
 weights are drawn on the host from ``--seed`` and moved to the device, so
 one command serves the same model on every device. The loop is
 :func:`generate`, which the tests and ``chip_smoke.py`` call too.
+
+A VLM's prompts carry ``num_frontend_tokens`` random front embeddings,
+drawn after the tokens from the same generator, as the reference launcher
+draws them. Prefill writes those front rows first, so the cache holds
+``n_front + prompt_len + gen`` rows and decode step i runs at ``n_front +
+prompt_len + i``. Here the port departs from the reference launcher, which
+sizes the cache ``prompt_len + gen`` and decodes at ``prompt_len + i``
+(``repro/launch/serve.py:47,72``): with the reference's TINY config at
+``--prompt-len 8 --gen 4`` its prefill overflows the cache and raises
+``TypeError``, and at its defaults decode overwrites the prompt's last
+K/V rows. The port follows the reference's serving test
+(``tests/test_serve.py``), which counts the front rows.
 """
 from __future__ import annotations
 
@@ -41,24 +53,30 @@ def _sync(device: torch.device) -> None:
 
 
 def generate(model: Model, tokens: torch.Tensor, gen: int, *,
+             embeds: torch.Tensor | None = None,
              forced: torch.Tensor | None = None,
              keep_logits: bool = False) -> Generation:
-    """Prefill ``tokens`` (B, S) into a cache of S + gen rows, then decode
-    greedily: ``gen`` tokens in all, the first from prefill's logits (argmax
-    over the padded vocab, as the reference), the rest from ``gen - 1``
-    decode steps. ``forced`` (B, gen) feeds its tokens to the decode steps
-    instead of the greedy ones (teacher forcing); the greedy tokens are
-    still returned. The cache positions are Python ints and the tokens stay
-    on the device: no host read inside the loop."""
+    """Prefill ``tokens`` (B, S), after ``embeds`` (B, n_front, d) for a
+    VLM, into a cache of n_front + S + gen rows, then decode greedily:
+    ``gen`` tokens in all, the first from prefill's logits (argmax over the
+    padded vocab, as the reference), the rest from ``gen - 1`` decode steps
+    at positions n_front + S + i. ``forced`` (B, gen) feeds its tokens to
+    the decode steps instead of the greedy ones (teacher forcing); the
+    greedy tokens are still returned. The cache positions are Python ints
+    and the tokens stay on the device: no host read inside the loop."""
     b, s = tokens.shape
-    prefill = make_prefill_step(model, s + gen)
+    front = 0 if embeds is None else embeds.shape[1]
+    prefill = make_prefill_step(model, front + s + gen)
     decode = make_decode_step(model)
     dev = tokens.device
     kept = []
+    batch = {"tokens": tokens}
+    if embeds is not None:
+        batch["embeds"] = embeds
     with torch.no_grad():
         _sync(dev)
         t0 = time.perf_counter()
-        logits, cache = prefill({"tokens": tokens})
+        logits, cache = prefill(batch)
         tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
         out = [tok]
         if keep_logits:
@@ -67,7 +85,7 @@ def generate(model: Model, tokens: torch.Tensor, gen: int, *,
         t1 = time.perf_counter()
         for i in range(gen - 1):
             fed = tok if forced is None else forced[:, i:i + 1]
-            logits, cache = decode(cache, fed, s + i)
+            logits, cache = decode(cache, fed, front + s + i)
             tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
             out.append(tok)
             if keep_logits:
@@ -77,11 +95,20 @@ def generate(model: Model, tokens: torch.Tensor, gen: int, *,
     return Generation(torch.cat(out, 1), kept, cache, t1 - t0, t2 - t1)
 
 
-def prompts(cfg, batch: int, prompt_len: int, seed: int, device) -> torch.Tensor:
-    """Synthetic prompts as the reference launcher makes them."""
+def prompt_inputs(cfg, batch: int, prompt_len: int, seed: int, device
+                  ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Synthetic prompts as the reference launcher makes them: (tokens (B,
+    prompt_len) int32, and for a VLM embeds (B, num_frontend_tokens,
+    d_model) float32 standard normals drawn next from the same generator,
+    else None)."""
     rng = np.random.default_rng(seed)
     ids = rng.integers(1, cfg.vocab_size, (batch, prompt_len))
-    return torch.from_numpy(ids.astype(np.int32)).to(device)
+    tokens = torch.from_numpy(ids.astype(np.int32)).to(device)
+    if cfg.family != "vlm":
+        return tokens, None
+    e = rng.standard_normal((batch, cfg.num_frontend_tokens, cfg.d_model))
+    return tokens, torch.from_numpy(e.astype(np.float32)).to(device)
+
 
 
 def main(argv=None) -> Generation:
@@ -101,8 +128,9 @@ def main(argv=None) -> Generation:
     dev = resolve_device(args.device)
     model = build_model(cfg, dev,
                         generator=torch.Generator().manual_seed(args.seed))
-    tokens = prompts(cfg, args.batch, args.prompt_len, args.seed, dev)
-    res = generate(model, tokens, args.gen, keep_logits=True)
+    tokens, embeds = prompt_inputs(cfg, args.batch, args.prompt_len,
+                                   args.seed, dev)
+    res = generate(model, tokens, args.gen, embeds=embeds, keep_logits=True)
     steps = max(args.gen - 1, 1)
     print(f"prefill: {res.prefill_s:.3f}s  decode: "
           f"{res.decode_s / steps * 1e3:.1f} ms/tok  throughput: "

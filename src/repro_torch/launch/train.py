@@ -11,13 +11,16 @@ steps are logged and returned.
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
         --tiny --steps 3 --batch 8 --seq 64 --device cpu
 
-The multi-device flags (``--devices``, ``--model-axis``, ``--pod-axis``,
+A VLM trains its text path (the pipeline's batches carry no front
+embeddings), with the reference launcher's note on stderr. The
+multi-device flags (``--devices``, ``--model-axis``, ``--pod-axis``,
 ``--compress-pod``) need the port's mesh, which ROADMAP.md keeps queued:
 asking for more than one device raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import argparse
+import sys
 
 import torch
 
@@ -62,6 +65,10 @@ def main(argv=None) -> list[dict]:
     dev = resolve_device(args.device)
     model = build_model(cfg, dev,
                         generator=torch.Generator().manual_seed(args.seed))
+    if cfg.family in ("vlm", "audio"):
+        print(f"note: {cfg.family} frontend is a stub; launcher trains the "
+              "text path (tokens only) — use examples/ for full-batch runs",
+              file=sys.stderr)
     pipe = RelationalTokenPipeline(PipelineConfig(
         seq_len=args.seq, global_batch=args.batch,
         vocab_size=cfg.vocab_size, seed=args.seed), device=dev)

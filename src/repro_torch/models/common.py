@@ -1,16 +1,16 @@
 """``ModelConfig``: the port's copy of ``repro/models/common.py``'s config.
 
 One dataclass covers every architecture family of the JAX package; the
-port builds the dense GQA and MLA models and the MoE family so far, but
-keeps every field so a config copies over value for value. The mesh and sharding helpers of the
-reference (``ShardingRules``, partition specs, ``fsdp_extend``, ``cast``)
+port builds the dense GQA and MLA models, the MoE family, the VLM backbone
+and the Mamba2 hybrid so far, but keeps every field so a config copies
+over value for value. The mesh and sharding helpers of the reference (``ShardingRules``, partition specs, ``fsdp_extend``, ``cast``)
 are multi-device machinery and are not carried over: the port runs on
 one card. ``remat`` applies in training (``models/transformer.py``);
 ``ep_shuffle``, ``layout`` and the MoE shuffle's ``moe_shuffle_stages`` and
 ``moe_shuffle_mode`` choose ``models/moe.moe_fwd``'s path over a
 ``VirtualMesh``; the other compile knobs (``scan_layers``, ``fsdp``, the
 seq-shard flags, ``time_unroll``) are kept as fields and ignored: PyTorch
-runs eagerly, layer by layer.
+runs eagerly, layer by layer, and loops over chunks in Python.
 """
 from __future__ import annotations
 
@@ -91,6 +91,14 @@ class ModelConfig:
         """The vocab rounded up to a multiple of 128, as the reference pads
         its embedding tables; the logical vocab stays ``vocab_size``."""
         return -(-self.vocab_size // 128) * 128
+
+    @property
+    def d_inner(self) -> int:       # mamba2 inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.ssm_heads or max(1, self.d_inner // 64)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -1,10 +1,13 @@
 """The JAX package's parameter tree -> the port's module state.
 
-``params_from_jax`` takes the reference's LM parameter tree with numpy
+``params_from_jax`` takes the reference's parameter tree with numpy
 leaves (``jax.tree.map(np.asarray, params)``; layers stacked on a leading
-L dim) and returns the state dict of
-:class:`~repro_torch.models.transformer.Transformer`, unstacked per layer
-(nested groups, the MoE's ``shared`` expert, as dotted names), in
+L dim) and returns the state dict of the port's network, unstacked per
+layer (nested groups, the MoE's ``shared`` expert, as dotted names): the
+:class:`~repro_torch.models.transformer.Transformer`'s (a VLM's with its
+``front_proj``), or the :class:`~repro_torch.models.zamba.Hybrid`'s
+(``embed``, ``mamba.<i>.<leaf>`` from the stacked Mamba blocks, the one
+``shared`` block's leaves, ``final_norm``, ``lm_head``), in
 ``cfg.param_dtype`` but the MoE router, which stays fp32 as the reference
 keeps it (a bf16 router would round the logits that pick the routes).
 Loaded with ``load_state_dict``, the port computes the same function as the
@@ -49,8 +52,17 @@ def params_from_jax(tree, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     dt = cfg.param_dtype
     sd = {"embed": _tensor(tree["embed"]["table"], dt),
           "final_norm": _tensor(tree["final_norm"], dt)}
-    if not cfg.tie_embeddings:
+    if not cfg.tie_embeddings or cfg.family == "hybrid":
         sd["lm_head"] = _tensor(tree["lm_head"], dt)
+    if "front_proj" in tree:
+        sd["front_proj"] = _tensor(tree["front_proj"], dt)
+    if cfg.family == "hybrid":
+        for name, leaf in _layer_leaves(tree["shared"], "shared."):
+            sd[name] = _tensor(leaf, dt)
+        for i in range(cfg.num_layers):
+            for name, leaf in tree["mamba"].items():
+                sd[f"mamba.{i}.{name}"] = _tensor(leaf[i], dt)
+        return sd
     layers = tree["layers"]
     for i in range(cfg.num_layers):
         sd[f"layers.{i}.ln1"] = _tensor(layers["ln1"][i], dt)

@@ -1,12 +1,13 @@
-"""Model factory of the port (``repro/models/factory.py``), dense and MoE
-families.
+"""Model factory of the port (``repro/models/factory.py``): the dense, MoE
+and VLM families (``transformer.Transformer``) and the Mamba2 hybrid
+(``zamba.Hybrid``).
 
 ``build_model(cfg, device)`` returns a :class:`Model`: an ``nn.Module``
-holding a :class:`~repro_torch.models.transformer.Transformer` drawn from
-a ``torch.Generator``, with ``loss_fn``, ``forward``, ``init_cache`` and
-``decode_step``. The parameters live in the module, so the step functions
-take none (the reference passes its parameter tree to every call). Left for
-later: the other families.
+holding the family's network drawn from a ``torch.Generator``, with
+``loss_fn``, ``forward``, ``init_cache`` and ``decode_step``. The
+parameters live in the module, so the step functions take none (the
+reference passes its parameter tree to every call). Left for later: the
+``ssm`` (xLSTM) and ``audio`` (encoder-decoder) families.
 """
 from __future__ import annotations
 
@@ -14,15 +15,31 @@ import torch
 from torch import nn
 
 from repro_torch.models import transformer as TF
+from repro_torch.models import zamba as ZB
 from repro_torch.models.common import ModelConfig
 from repro_torch.utils import resolve_device
+
+# the families the port builds (``network``); the others raise
+PORTED_FAMILIES = ("dense", "moe", "vlm", "hybrid")
+
+
+def network(cfg: ModelConfig, generator: torch.Generator) -> nn.Module:
+    """The family's network, its weights drawn from ``generator``."""
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.arch}: family {cfg.family!r} is not ported (ported: "
+            f"{', '.join(PORTED_FAMILIES)}); ROADMAP.md queue 1 item 12 keeps "
+            f"it queued")
+    if cfg.family == "hybrid":
+        return ZB.Hybrid(cfg, generator)
+    return TF.Transformer(cfg, generator)
 
 
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, generator: torch.Generator):
         super().__init__()
         self.cfg = cfg
-        self.lm = TF.Transformer(cfg, generator)
+        self.lm = network(cfg, generator)
 
     @property
     def device(self) -> torch.device:
@@ -39,11 +56,15 @@ class Model(nn.Module):
         the label's logit is the same function. An MoE model adds
         ``0.01 * moe_aux / num_layers``. Metrics: ``loss``, ``tokens`` (the
         sum of the mask) and the forward's aux (summed over the layers;
-        zero for the dense family), as the reference's."""
-        if batch.get("embeds") is not None:
-            raise NotImplementedError("loss with embeds (vlm) is not ported")
+        zero for the dense family), as the reference's. With ``embeds``
+        (B, n_front, d), a VLM's logits of the front rows are dropped and
+        the same loss taken over the text tokens."""
         tokens = batch["tokens"]
-        logits, _, aux = self.forward(tokens=tokens, mode="causal")
+        embeds = batch.get("embeds")
+        logits, _, aux = self.forward(tokens=tokens, embeds=embeds,
+                                      mode="causal")
+        if self.cfg.family == "vlm" and embeds is not None:
+            logits = logits[:, embeds.shape[1]:]
         lg = logits[:, :-1].float()
         labels = tokens[:, 1:].long()
         mask = (labels != 0).float()
@@ -58,12 +79,16 @@ class Model(nn.Module):
         metrics = {"loss": loss, "tokens": tokens_n, **aux}
         return loss, metrics
 
-    def forward(self, *, tokens: torch.Tensor, mode: str = "causal",
-                cache=None, pos: int | None = None):
-        """(logits (B, S, padded_vocab), cache, aux)."""
-        return self.lm(tokens, mode=mode, cache=cache, pos=pos)
+    def forward(self, *, tokens: torch.Tensor, embeds=None,
+                mode: str = "causal", cache=None, pos: int | None = None):
+        """(logits (B, S_total, padded_vocab), cache, aux)."""
+        return self.lm(tokens, embeds=embeds, mode=mode, cache=cache, pos=pos)
 
     def init_cache(self, batch: int, max_len: int):
+        """The family's decode cache, zeros: the stacked KV (or MLA latent)
+        cache, or the hybrid's Mamba states and shared-block KV slots."""
+        if self.cfg.family == "hybrid":
+            return ZB.init_hybrid_cache(self.cfg, batch, max_len, self.device)
         return TF.init_cache(self.cfg, batch, max_len, self.device)
 
     def decode_step(self, cache, tokens: torch.Tensor, pos: int):
@@ -81,10 +106,6 @@ def build_model(cfg: ModelConfig, device: str | torch.device = "cuda", *,
     on the host, whose weights are then moved to ``device``, so that a seed
     gives the same model on every device (as the reference's key does)."""
     dev = resolve_device(device)
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"{cfg.arch}: family {cfg.family!r} is not ported (dense and moe "
-            f"only)")
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     elif generator.device.type not in (dev.type, "cpu"):

@@ -1,5 +1,5 @@
 """The decoder-only transformer of the port (``repro/models/transformer.py``),
-dense GQA, dense MLA and MoE: ``Block`` (RMSNorm, GQA attention or, with
+dense GQA, dense MLA, MoE and the VLM backbone: ``Block`` (RMSNorm, GQA attention or, with
 ``cfg.attn_kind == "mla"``, MLA, RMSNorm, a SwiGLU MLP or, with
 ``cfg.moe_num_experts``, the MoE layer of ``models/moe.py``, two residual
 adds) and ``Transformer`` (embedding, the blocks, final norm, a tied or
@@ -15,9 +15,12 @@ reference's ``_remat``: ``"full"`` runs each block under
 backward; an MoE block routes the same tokens the same way again), ``"none"``
 plainly. The forward's aux (``moe_aux``, ``moe_dropped``) is the sum over
 the layers, in order, of fp32 tensors on the device (zeros for the dense
-family), as the reference's scan sums them. Left for later: MLA with
-experts, the vision front, and the ``"dots"`` policy (matmul outputs
-saved).
+family), as the reference's scan sums them. The VLM front is the
+reference's stub: ``embeds`` (B, n_front, d), precomputed patch
+embeddings, are cast to the activation dtype, projected by ``front_proj``
+(d, d) and put before the token embeddings; positions run over the whole
+row, front rows first. Left for later: MLA with experts or a front, the
+audio front, and the ``"dots"`` policy (matmul outputs saved).
 """
 from __future__ import annotations
 
@@ -118,13 +121,17 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, generator: torch.Generator):
         super().__init__()
         mla = cfg.attn_kind == "mla"
-        if cfg.family not in ("dense", "moe") or \
+        if cfg.family not in ("dense", "moe", "vlm") or \
                 cfg.attn_kind not in ("gqa", "mla") or \
                 bool(cfg.moe_num_experts) != (cfg.family == "moe") or \
-                (mla and cfg.family != "dense") or cfg.frontend != "none":
+                (mla and cfg.family != "dense") or \
+                cfg.frontend not in ("none", "vision_stub") or \
+                (mla and cfg.frontend != "none"):
             raise NotImplementedError(
-                f"{cfg.arch}: only the dense GQA, dense MLA and MoE (GQA) "
-                f"families are ported")
+                f"{cfg.arch}: only the dense GQA, dense MLA, MoE (GQA) and "
+                f"VLM (GQA, vision_stub front) families are ported; MLA "
+                f"takes no front and the audio front is queued in "
+                f"ROADMAP.md")
         self.cfg = cfg
         dev = generator.device
         self.embed = _frozen(NN.init_embed(cfg, generator))
@@ -134,18 +141,30 @@ class Transformer(nn.Module):
                                                dev))
         self.lm_head = None if cfg.tie_embeddings else _frozen(NN._dense(
             (cfg.padded_vocab, cfg.d_model), cfg.param_dtype, generator))
+        self.front_proj = _frozen(NN._dense(
+            (cfg.d_model, cfg.d_model), cfg.param_dtype, generator)) \
+            if cfg.frontend == "vision_stub" else None
 
-    def forward(self, tokens: torch.Tensor, *, mode: str = "causal",
-                cache=None, pos: int | None = None):
-        """Returns (logits (B, S, padded_vocab), cache, aux).
+    def forward(self, tokens: torch.Tensor, *, embeds=None,
+                mode: str = "causal", cache=None, pos: int | None = None):
+        """Returns (logits (B, S_total, padded_vocab), cache, aux).
 
-        tokens (B, S) int; mode 'causal' (prefill, training) or 'decode'
-        (S new tokens at ``pos``, a Python int). cache: ``init_cache``'s
-        stacked {'k', 'v'} (MLA: {'c_kv', 'k_rope'}), written in place and
-        returned. RoPE runs over the head dim, or MLA's rope dim.
+        tokens (B, S) int; embeds (B, n_front, d) or None, projected and
+        put first (S_total = n_front + S; a VLM's prefill and training);
+        mode 'causal' (prefill, training) or 'decode' (S new tokens at
+        ``pos``, a Python int, which counts the front rows). cache:
+        ``init_cache``'s stacked {'k', 'v'} (MLA: {'c_kv', 'k_rope'}),
+        written in place and returned. RoPE runs over the head dim, or
+        MLA's rope dim.
         """
         cfg = self.cfg
         x = NN.embed_fwd(self.embed, tokens, cfg)
+        if embeds is not None:
+            if self.front_proj is None:
+                raise ValueError(f"{cfg.arch} has no front (frontend "
+                                 f"{cfg.frontend!r}) to take embeds")
+            e = embeds.to(cfg.dtype) @ self.front_proj.to(cfg.dtype)
+            x = torch.cat([e, x], 1)
         s = x.shape[1]
         start = pos if mode == "decode" else 0
         positions = torch.arange(s, device=x.device) + start

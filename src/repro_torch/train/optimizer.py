@@ -2,7 +2,7 @@
 ``repro/train/optimizer.py``.
 
 The state mirrors the parameters, keyed by the module's parameter names
-(``Transformer.named_parameters()``): fp32 master weights and the moments
+(the network's ``named_parameters()``): fp32 master weights and the moments
 ``m`` and ``v``, and an int32 step ``count``. The update is plain torch, as
 the reference's is plain XLA (no Pallas kernel), one leaf at a time, so its
 temporaries stay the size of one leaf; it writes the masters, the moments
@@ -65,10 +65,11 @@ def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
 
 def reference_rank(name: str, p: torch.Tensor) -> int:
     """The rank of ``p``'s leaf in the reference's tree: the reference
-    stacks every per-layer leaf on a leading L dim, so a ``layers.*``
-    parameter has one more dim there (the per-layer norms, (d,) here, are
-    (L, d) there)."""
-    return p.ndim + (1 if name.startswith("layers.") else 0)
+    stacks every per-layer leaf on a leading L dim, so a ``layers.*`` (or
+    a hybrid's ``mamba.*``) parameter has one more dim there (the per-layer
+    norms, (d,) here, are (L, d) there; the hybrid's one shared block is
+    not stacked)."""
+    return p.ndim + (1 if name.startswith(("layers.", "mamba.")) else 0)
 
 
 @torch.no_grad()

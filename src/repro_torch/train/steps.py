@@ -4,7 +4,7 @@ and decode.
 
 The model holds its parameters, so the serving steps close over it and
 take none. A :class:`TrainState`'s ``params`` are the model's own parameter
-tensors (keyed by ``Transformer.named_parameters()``); the train step
+tensors (keyed by the network's ``named_parameters()``); the train step
 computes the loss through the model and updates those tensors, the fp32
 masters and the moments in place (the reference donates its state). The
 parameters stay frozen (``requires_grad`` False) outside the step's
@@ -19,8 +19,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.models import transformer as TF
-from repro_torch.models.factory import Model
+from repro_torch.models.factory import Model, network
 from repro_torch.train.optimizer import OptConfig, OptState, apply_updates, init_opt
 
 _POD_TODO = ("compress_pod needs a multi-pod mesh, which the port does not "
@@ -41,8 +40,8 @@ def init_train_state(model: Model, seed: int = 0, *,
     return the state over them: fp32 masters, zero moments, step 0."""
     if compress_pod:
         raise NotImplementedError(_POD_TODO)
-    fresh = TF.Transformer(model.cfg,
-                           torch.Generator(device=model.device).manual_seed(seed))
+    fresh = network(model.cfg,
+                    torch.Generator(device=model.device).manual_seed(seed))
     model.lm.load_state_dict(fresh.state_dict())
     del fresh
     return bind_state(model)
@@ -106,7 +105,10 @@ def _accumulate_grads(model: Model, params: dict[str, torch.Tensor],
         for k in range(num):
             mb = batch if num == 1 else _microbatch(batch, k, num)
             loss, metrics = model.loss_fn(mb)
-            grads = torch.autograd.grad(loss, leaves)
+            # a leaf the loss does not reach (a VLM's front_proj on a batch
+            # without embeds) has a zero gradient, as jax.grad gives it
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+                leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
             metrics = {n: m.detach().float() for n, m in metrics.items()}
             if acc is None:
                 acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
@@ -130,8 +132,9 @@ def make_train_step(model: Model, ocfg: OptConfig, *, microbatches: int = 1,
                     compress_pod: bool = False):
     """Returns step_fn(state, batch) -> (state, metrics). ``state.params``
     must be the model's parameters (``init_train_state``/``bind_state``);
-    ``batch`` holds ``tokens`` (B, S) and ``weight`` (B,) on the model's
-    device, B a multiple of ``microbatches``."""
+    ``batch`` holds ``tokens`` (B, S), ``weight`` (B,) and, for a VLM,
+    ``embeds`` (B, n_front, d) on the model's device, B a multiple of
+    ``microbatches``."""
     if compress_pod:
         raise NotImplementedError(_POD_TODO)
     own = dict(model.lm.named_parameters())
@@ -161,17 +164,18 @@ def make_eval_step(model: Model):
 
 def make_prefill_step(model: Model, max_len: int):
     """batch -> (last_logits (B, padded_vocab), cache): a causal pass over
-    ``batch['tokens']`` that writes a fresh (L, B, max_len, KV, hd) cache
-    (MLA: the latents, ``models/transformer.init_cache``). The logits keep
-    the vocab padding, as the reference's prefill does."""
+    ``batch['tokens']`` (after a VLM's ``batch['embeds']``, its front rows)
+    that writes a fresh cache of ``max_len`` rows, the model's own
+    (``Model.init_cache``: the stacked KV cache, MLA's latents, or the
+    hybrid's Mamba states and shared-block KV slots). ``max_len`` counts
+    the front rows. The logits keep the vocab padding, as the reference's
+    prefill does."""
     def prefill_fn(batch):
-        if batch.get("embeds") is not None:
-            raise NotImplementedError("prefill with embeds (vlm, audio) is "
-                                      "not ported")
         tokens = batch["tokens"]
         cache = model.init_cache(tokens.shape[0], max_len)
-        logits, cache, _ = model.forward(tokens=tokens, mode="causal",
-                                         cache=cache)
+        logits, cache, _ = model.forward(tokens=tokens,
+                                         embeds=batch.get("embeds"),
+                                         mode="causal", cache=cache)
         return logits[:, -1], cache
     return prefill_fn
 

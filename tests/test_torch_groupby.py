@@ -20,6 +20,17 @@ from repro_torch.core import ops_agg as TA  # noqa: E402
 from repro_torch.core import ops_local as TL  # noqa: E402
 from repro_torch.core.table import Table as TTable  # noqa: E402
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's tensors, restored after it:
+    the port's many small CPU ops spin in the thread pool's barriers when
+    test workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 AGGS = {"v": ["sum", "count", "min", "max", "mean", "var", "first"],
         "w": ["sum", "min", "max"]}
 

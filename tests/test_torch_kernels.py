@@ -41,6 +41,17 @@ from repro_torch.kernels.segment_scan import segment_scan_tiles  # noqa: E402
 from repro_torch.utils import resolve_device  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's tensors, restored after it:
+    the port's many small CPU ops spin in the thread pool's barriers when
+    test workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rng(seed):
     return np.random.default_rng(seed)
 

@@ -560,7 +560,7 @@ def test_chip_smoke_mla_phase_rehearses_on_the_cpu(monkeypatch):
     cpu = torch.device("cpu")
     serve = smoke.phase_big_serve(cpu, profile=True, arch=smoke.MLA_ARCH,
                                   causal_tol=smoke.MLA_DECODE_TOL)
-    smoke.say_mla_serve(serve, "card", 1.0)
+    smoke.say_big_serve(20, serve, "card", 1.0, "MLA, ")
     assert serve["arch"] == smoke.MLA_ARCH and serve["widths"] == [24, 16]
     assert serve["launches"]["flash_attention"] == 2
     assert serve["plain_max_abs_err"] == 0.0  # the same plain math twice
@@ -568,7 +568,7 @@ def test_chip_smoke_mla_phase_rehearses_on_the_cpu(monkeypatch):
     assert serve["wrong_mask_max_abs_err"] > 3 * smoke.MLA_DECODE_TOL
     train = smoke.phase_big_train(cpu, profiled, smoke.MLA_ARCH,
                                   smoke.MLA_TRAIN_LAYERS)
-    smoke.say_mla_train(train, "card", 1.0)
+    smoke.say_big_train(20, train, "card", 1.0)
     k = tconfigs.train_microbatches(smoke.MLA_ARCH)
     assert k == 8 and train["microbatches"] == k
     assert train["launches_per_step"]["flash_attention_lse"] == 2 * 2 * k

@@ -46,6 +46,9 @@ ARCHS = ["llama3-8b", "granite-3-2b", "stablelm-12b"]
 MOE_ARCHS = ["qwen2-moe-a2.7b", "dbrx-132b"]
 # the MLA arch: tests/test_torch_mla.py holds its model
 MLA_ARCHS = ["minicpm3-4b"]
+# the VLM and the Mamba2 hybrid: tests/test_torch_vlm.py and
+# tests/test_torch_hybrid.py hold their models
+VLM_HYBRID_ARCHS = ["internvl2-76b", "zamba2-1.2b"]
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"f32": 1e-5, "bf16": 3e-2}
@@ -90,7 +93,8 @@ def _tokens(cfg, b, s, seed=0):
 # --- configs ------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS + MLA_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS + MLA_ARCHS +
+                         VLM_HYBRID_ARCHS)
 @pytest.mark.parametrize("which", ["get_config", "get_tiny"])
 def test_config_copies_the_reference_value_for_value(arch, which):
     j = getattr(jconfigs, which)(arch)
@@ -112,7 +116,8 @@ def test_every_ported_config_has_flash_kernel_instances():
     a pair without one raises there."""
     from repro_torch.kernels.flash_attention import KERNEL_HEAD_DIMS
 
-    assert sorted(tconfigs.PORTED) == sorted(ARCHS + MOE_ARCHS + MLA_ARCHS)
+    assert sorted(tconfigs.PORTED) == sorted(ARCHS + MOE_ARCHS + MLA_ARCHS +
+                                             VLM_HYBRID_ARCHS)
     for arch in tconfigs.PORTED:
         for cfg in (tconfigs.get_config(arch), tconfigs.get_tiny(arch)):
             widths = ((cfg.mla_nope_dim + cfg.mla_rope_dim, cfg.mla_v_dim)
@@ -122,7 +127,7 @@ def test_every_ported_config_has_flash_kernel_instances():
 
 def test_unported_arch_raises_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconfigs.get_config("zamba2-1.2b")
+        tconfigs.get_config("xlstm-1.3b")
     with pytest.raises(KeyError):
         tconfigs.get_tiny("no-such-arch")
 
@@ -291,7 +296,7 @@ def test_build_model_needs_a_card_unless_asked_for_the_cpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_model(cfg)
     with pytest.raises(NotImplementedError):
-        build_model(cfg.replace(family="hybrid"), "cpu")
+        build_model(cfg.replace(family="ssm"), "cpu")
 
 
 # --- the whole model ------------------------------------------------------------

@@ -22,6 +22,17 @@ from repro_torch.core.table import Table as TTable  # noqa: E402
 from repro_torch.core.table import concat_tables as t_concat  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's tensors, restored after it:
+    the port's many small CPU ops spin in the thread pool's barriers when
+    test workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def both(cols: dict, n_valid: int):
     j = JTable({k: jnp.asarray(v) for k, v in cols.items()},
                jnp.asarray(n_valid, jnp.int32))

@@ -23,6 +23,17 @@ from repro_torch.core import ops_local as TL  # noqa: E402
 from repro_torch.core.mesh import VirtualMesh  # noqa: E402
 from repro_torch.core.table import Table as TTable  # noqa: E402
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's tensors, restored after it:
+    the port's many small CPU ops spin in the thread pool's barriers when
+    test workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ALL_FUNCS = ["rank", "dense_rank", "row_number",
              ("lag", "d0"), ("lead", "d0"), ("lag", "d1", 3),
              ("lead", "d1", 2), ("cumsum", "d0"), ("cumsum", "d1"),
