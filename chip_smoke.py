@@ -64,8 +64,9 @@ Phases (any failed check raises, and the script exits nonzero):
    bytes, one SM's operations and the network's dependent chain, timed by
    a one-warp probe in this run (``bitonic_bound``). Before them, each
    instance of the kernels redesigned in the last rounds (flash_fwd_bf16
-   and the backward's flash_bwd_prep, flash_bwd_dkdv_bf16, flash_bwd_sum
-   and flash_bwd_dq_bf16 at every head dim, seg_fill, seg_pass1, seg_pass2, scan_lookback, hist_regs,
+   and the backward's flash_bwd_prep, flash_bwd_dkdv_bf16, flash_bwd_sum,
+   flash_bwd_dq_bf16, flash_bwd_key_sums and flash_bwd_key_centres at
+   every head dim, seg_fill, seg_pass1, seg_pass2, scan_lookback, hist_regs,
    hash32_partition_kernel, bitonic_tile, bitonic_perm) as the build's
    ``-Xptxas -v`` reported it: registers, stack frame, spill bytes, static
    shared memory (flash's dynamic shared memory from the library), and
@@ -203,10 +204,12 @@ Then, with the serving model freed, the training path:
 18. The reference's ``--tiny`` commands on the card, in process through
    the launchers' ``main``: ``launch.serve --arch {llama3-8b,
    stablelm-12b, qwen2-moe-a2.7b, dbrx-132b, minicpm3-4b, zamba2-1.2b,
-   internvl2-76b} --tiny`` and ``launch.train --arch {granite-3-2b,
-   stablelm-12b, qwen2-moe-a2.7b, dbrx-132b, minicpm3-4b, zamba2-1.2b}
-   --tiny --steps 3`` (head dim 16; minicpm3-4b's MLA widths 24/16; the
-   VLM's 8 random front embeddings drawn as the launcher draws them), each
+   internvl2-76b, xlstm-1.3b, whisper-base} --tiny`` and ``launch.train
+   --arch {granite-3-2b, stablelm-12b, qwen2-moe-a2.7b, dbrx-132b,
+   minicpm3-4b, zamba2-1.2b, xlstm-1.3b} --tiny --steps 3`` (head dim 16;
+   minicpm3-4b's MLA widths 24/16; the VLM's 8 random front embeddings and
+   whisper's 32 audio frames drawn as the launcher draws them; whisper's
+   train launcher raises, phase 24 trains it), each
    against the same command with
    ``--device cpu`` (the MoE archs' CPU runs on the card runs' routes,
    ``RouteTap``): flash and the histogram launched (counted), the
@@ -255,18 +258,22 @@ Then, with the serving model freed, the training path:
    chunk 256; the shared 32/32-head block of hd 64 after every 6th; 1.17 B
    parameters) served as phase 17 serves stablelm-12b: flash once a
    shared-block invocation in the prefill (6), none in a decode step;
-   logits within ``HYBRID_PLAIN_TOL`` of the plain run, a bidirectional
-   mask or the Mamba states zeroed after the prefill moving them by more
-   than 3 times that; the serving invariant on the same weights in fp32
+   logits within ``HYBRID_PLAIN_TOL`` of the plain run and of the plain
+   run with the kernel's P rounding (``ref.attention_rounding_p``; the
+   three distances printed), each prefill call's kernel output equal to
+   that emulation on all but ``KERNEL_EMULATION_SHARE`` of its outputs, a
+   bidirectional mask or the Mamba states zeroed after the prefill moving
+   them by more than 3 times that; the serving invariant on the same
+   weights in fp32
    (prefill + decode within ``HYBRID_F32_TOL`` of one causal forward) and
    in bf16 against the bf16 forward's own rounding
    (``HYBRID_NOISE_RATIO``); times, peak, one traced prefill and 8 decode
    steps.
    Then trained uncut, 8 x 1024 tokens a step in its 4 microbatches,
    ``remat="full"`` a period: 2 periods (12 blocks) against
-   ``oracle_scope()`` with phase 16's tolerances, a warm-up step and 2
-   steps of 48 LSE forwards and 24 backwards each, finite losses, one
-   profiled step.
+   ``oracle_scope()`` and against the P-rounded plain attention with phase
+   16's tolerances, a warm-up step and 2 steps of 48 LSE forwards and 24
+   backwards each, finite losses, one profiled step.
 22. The VLM front: internvl2-76b at full width and ``VLM_LAYERS`` (8) of
    its 80 layers (64/8 heads of 128: flash at group size 8; 9.0 B
    parameters, ``front_proj`` (8192, 8192) among them) serves
@@ -279,6 +286,36 @@ Then, with the serving model freed, the training path:
    dropped), every gradient leaf (``front_proj``'s included) and one train
    step through the kernels against ``oracle_scope()``, phase 16's
    tolerances, in its 16 microbatches.
+23. xLSTM, with every earlier model freed: xlstm-1.3b uncut (48 blocks, 6
+   periods of 7 mLSTM + 1 sLSTM, d 2048, mLSTM 4 heads of 1024 with the
+   normalizer as a 1025th value column, chunk 256; 1.82 B parameters)
+   serves ``LM_BATCH`` x ``LM_PROMPT`` prompts and ``LM_GEN`` greedy
+   tokens (no kernel launched: xLSTM has no attention); its serving
+   invariant as the hybrid's (fp32 within ``XLSTM_F32_TOL``, the bf16
+   path within ``HYBRID_NOISE_RATIO`` of its forward's own rounding), the
+   states zeroed after the prefill moving the logits by more than 3
+   ``LM_TOL``; times, peak, one traced prefill and 8 decode steps. Then
+   trained uncut, 8 x 1024 tokens a step in its 4 microbatches
+   (``remat="full"`` a period), a warm-up step and 2 steps, its first loss
+   near ln 50304, one profiled step.
+24. The encoder-decoder: whisper-base uncut (6 + 6 blocks, d 512, 8/8
+   heads of 64, tied vocab 51865, LayerNorm, GELU) serves ``LM_BATCH`` x
+   (``LM_PROMPT`` random audio frames + ``LM_PROMPT`` prompt ids) and
+   ``LM_GEN`` greedy tokens as phase 17 serves stablelm-12b: flash 18
+   times a prefill (6 non-causal in the encoder, 6 causal in the decoder,
+   6 non-causal cross, as many queries as frames), none in decode; logits
+   within ``LM_TOL`` of the plain run and of one causal forward, a
+   bidirectional mask and, apart, a causal mask in the encoder each moving
+   them by more than 3 ``LM_TOL``; then one prefill at Whisper's own
+   shape, 1500 frames and a 448-token prompt (the encoder's flash over a
+   partial tail tile, the cross-attention plain), against the plain run.
+   Trained uncut, 8 x 1024 tokens with 8 x 1024 frames in its 1
+   microbatch: 2 + 2 blocks against ``oracle_scope()`` with phase 16's
+   tolerances; at 6 + 6 blocks the gradients through the kernels, the
+   plain attention, the plain attention with the kernel's P rounding and
+   the same weights in fp32, the kernel run at most ``GRAD_NOISE_RATIO``
+   times as far from the fp32 run as the plain run is; a warm-up step and
+   2 steps of 36 LSE forwards and 18 backwards each, one profiled step.
 Phase 2 also holds flash_attention against its plain version (S 1 to
 4096, around the 64-row fp32 and 128-row bf16 tiles, causal or not, group
 size 1, 4 and 6, every (q·k, p·v) width pair of ``KERNEL_HEAD_DIMS``
@@ -320,6 +357,10 @@ and phase 21's and 22's: flash at zamba2-1.2b's shared block (B 4, S
 entries at one microbatch (B 2; ``flash_attention_lse@zamba``,
 ``flash_attention_bwd@zamba``), and at internvl2-76b's prefill layer (B 4,
 S 1280 = 256 front + 1024 text, 64/8 heads of 128, ``flash_attention@g8``)
+beside SDPA; and phase 24's, non-causal (every (query, key) pair): flash at
+whisper-base's encoder layer (B 4, S 1024, 8/8 heads of 64,
+``flash_attention@whisper``) and its training entries at its microbatch
+(B 8; ``flash_attention_lse@whisper``, ``flash_attention_bwd@whisper``)
 beside SDPA.
 Phase 7's ptxas report fails a flash bf16 instance that spills or whose
 ``wgmma`` products ptxas serialized (C7520).
@@ -331,11 +372,12 @@ one with phase 16's (``{"train": ...}``), one with phase 17's
 (``{"stablelm": ...}``), one with phase 18's (``{"tiny": ...}``), one
 with phase 19's (``{"moe": ...}``), one with phase 20's (``{"mla":
 ...}``), one with phases 21-22's (``{"hybrid": ..., "vlm": ...}``), one
-with every kernel's (the flash entries' other head dims as
+with phases 23-24's (``{"xlstm": ..., "whisper": ...}``), one with every
+kernel's (the flash entries' other head dims as
 ``<entry>@hd160`` and ``@hd16``, phase 19's shapes as
 ``bucket_histogram@moe``, ``flash_attention@g1`` and ``@g6``, phase 20's
 as ``<entry>@mla``, phase 21's as ``<entry>@zamba``, phase 22's as
-``flash_attention@g8``),
+``flash_attention@g8``, phase 24's as ``<entry>@whisper``),
 then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line. Without a card it exits
 2 and prints no result.
@@ -440,9 +482,12 @@ BIG_ARCH, BIG_TRAIN_LAYERS, BIG_TRAIN_STEPS = "stablelm-12b", 4, 2
 # tokens) and 3 training steps (batch 16, seq 256); the MoE archs' CPU runs
 # follow the card runs' routes (``RouteTap``)
 TINY_SERVE_ARCHS = ("llama3-8b", "stablelm-12b", "qwen2-moe-a2.7b",
-                    "dbrx-132b", "minicpm3-4b", "zamba2-1.2b", "internvl2-76b")
+                    "dbrx-132b", "minicpm3-4b", "zamba2-1.2b", "internvl2-76b",
+                    "xlstm-1.3b", "whisper-base")
+# whisper-base's train launcher raises (its encoder needs audio frames, the
+# token pipeline makes none): phase 24 trains it through make_train_step
 TINY_TRAIN_ARCHS = ("granite-3-2b", "stablelm-12b", "qwen2-moe-a2.7b",
-                    "dbrx-132b", "minicpm3-4b", "zamba2-1.2b")
+                    "dbrx-132b", "minicpm3-4b", "zamba2-1.2b", "xlstm-1.3b")
 TINY_TRAIN_STEPS = 3
 # Each step's loss of the card's tiny run against the CPU's, absolute. The
 # card rounds P to bf16 in the kernel (the CPU's plain attention keeps fp32)
@@ -514,13 +559,20 @@ MLA_DECODE_TOL = 8e-2
 # parameters; ~23 GB of training state)
 HYBRID_ARCH = "zamba2-1.2b"
 # The hybrid's logits through the kernel against its plain-attention run,
-# teacher-forced: the kernel rounds P to bf16 and 38 Mamba2 blocks carry
-# that rounding further than a transformer's layers (0.057 at full size on
-# an H100, where LM_TOL is 0.05). The premise, that a bidirectional prefill
-# mask or the Mamba states zeroed after the prefill move the logits by more
-# than 3 times this, is checked at full size on the card (and at TINY on
-# the CPU, tests/test_torch_hybrid.py: 0.95 and 1.43).
+# and against the plain run with the kernel's rounding of P emulated
+# (ref.attention_rounding_p), teacher-forced. Per prefill call the kernel
+# equals its emulation on all but 0.053-0.072% of the outputs (one or two
+# bf16 ulps), where the emulation differs from the plain version on
+# 16-22%; yet end to end the three runs stand 0.0488-0.0581 apart (an
+# H100, PERF.md, PR 26): 38 Mamba2 blocks carry any rounding change in the
+# prefill to ~0.05 in the decode logits, however few outputs it touches,
+# so no two bf16 runs of it hold to LM_TOL. A bidirectional prefill mask
+# or the Mamba states zeroed after the prefill move them by 1.4-1.6 (0.95
+# and 1.43 at TINY on the CPU, tests/test_torch_hybrid.py), more than 3
+# times this bound; the per-call share below tells a wrong mask, head or
+# cache slot (nearly every output) from the rounding.
 HYBRID_PLAIN_TOL = 0.1
+KERNEL_EMULATION_SHARE = 0.01
 # Prefill + decode against one causal forward, for the hybrid. In bf16 the
 # causal forward runs the chunked GLA (bf16 intra-chunk products) over all
 # S + gen - 1 tokens, the serving path over the prompt's chunks and then
@@ -536,6 +588,13 @@ HYBRID_PLAIN_TOL = 0.1
 # times the bf16 causal forward's.
 HYBRID_F32_TOL = 1e-3
 HYBRID_NOISE_RATIO = 3.0
+# phase 24's gradient account at whisper-base's full depth (6 + 6 blocks,
+# where the 2-layer check's tolerance is not argued): the kernel run's
+# gradients at most GRAD_NOISE_RATIO times as far from the gradients of
+# the same weights in fp32 (plain attention) as the bf16 plain run's are,
+# leaf for leaf at its worst, as HYBRID_NOISE_RATIO holds the hybrid's
+# serving logits; a wrong dq, dk or dv moves its leaves by their own size
+GRAD_NOISE_RATIO = 3.0
 # phase 22: internvl2-76b at full width and VLM_LAYERS of its 80 layers
 # (~0.86 B parameters a layer; the untied head and the embedding 1.05 B
 # each, front_proj 67 M: 8 layers are 9.0 B, all 80 ~76 B); its loss over
@@ -545,6 +604,25 @@ VLM_ARCH, VLM_LAYERS = "internvl2-76b", 8
 # the VLM's TINY training check: 16 rows (its 16 microbatches of 1) of
 # VLM_TINY_SEQ tokens after its 8 front rows
 VLM_TINY_BATCH, VLM_TINY_SEQ = 16, 64
+# phase 23: xlstm-1.3b uncut (48 blocks: 6 periods of 7 mLSTM blocks and 1
+# sLSTM block; d 2048, mLSTM 4 heads of 1024; 1.82 B parameters), served
+# at the serving path's shape and trained at the training path's in its 4
+# microbatches, a warm-up step and XLSTM_TRAIN_STEPS steps
+XLSTM_ARCH, XLSTM_TRAIN_STEPS = "xlstm-1.3b", 2
+# Its prefill + decode against one causal forward on the same weights in
+# fp32, as the hybrid's (HYBRID_F32_TOL's note): the chunked GLA's fp32
+# inter-chunk products at head dim 1024 and the decode step's fp32 state
+# sum in another order (1.4e-4 at full size on an H100, 5.5e-7 at TINY on
+# the CPU; the states zeroed after the prefill move it by 1.3 and 1.8)
+XLSTM_F32_TOL = 1e-3
+# phase 24: whisper-base uncut (6 encoder + 6 decoder blocks, d 512, 8/8
+# heads of 64, tied vocab 51865; 72.6 M parameters and the 32768-row
+# learned position table), served with LM_PROMPT audio frames beside the
+# LM_PROMPT-token prompts, then one prefill at Whisper's own shape: 30 s of
+# audio, 1500 encoder frames (arXiv:2212.04356 section 2.2), and a 448-token
+# prompt (its decoder's context); trained at the training path's shape
+# with as many random frames, in its 1 microbatch
+WHISPER_ARCH, WHISPER_FRAMES, WHISPER_TEXT = "whisper-base", 1500, 448
 
 # segment_reduce's pass-1 tile (csrc/segment_reduce.cu), whose edges phase 2
 # probes
@@ -647,7 +725,7 @@ PORTED_KERNELS = ("hash32_kernel", "hash32_partition_kernel", "hist_regs",
                   "seg_fill", "seg_pass1", "seg_pass2",
                   "scan_lookback", "flash_fwd_bf16", "flash_fwd_f32",
                   "flash_bwd_prep", "flash_bwd_dot", "flash_bwd_dkdv",
-                  "flash_bwd_sum", "flash_bwd_dq")
+                  "flash_bwd_sum", "flash_bwd_dq", "flash_bwd_key")
 
 
 class CheckFailed(RuntimeError):
@@ -748,7 +826,8 @@ def nvidia_smi() -> str:
 # last rounds, and flash's fp32 instances, which phase 2 checks), and the
 # op codes of the segment kernels
 REPORTED_KERNELS = ("flash_fwd_bf16", "flash_bwd_prep", "flash_bwd_dkdv_bf16",
-                    "flash_bwd_sum", "flash_bwd_dq_bf16", "flash_fwd_f32",
+                    "flash_bwd_sum", "flash_bwd_dq_bf16", "flash_bwd_key_sums",
+                    "flash_bwd_key_centres", "flash_fwd_f32",
                     "flash_bwd_dkdv_f32", "flash_bwd_dq_f32", "seg_fill",
                     "seg_pass1", "seg_pass2",
                     "scan_lookback", "hist_regs", "hash32_partition_kernel",
@@ -852,11 +931,19 @@ def bound_ms(nbytes: float, ops: float,
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
-def attn_layers(cfg) -> int:
-    """The attention layers a forward runs: the hybrid's shared block once
-    a period, every other arch's blocks once each."""
+def attn_layers(cfg, cross: bool = True) -> int:
+    """The flash launches of a forward: the hybrid's shared block once a
+    period, xLSTM none, the encoder-decoder's encoder and decoder blocks
+    once each and its cross-attention once a decoder block where it takes
+    the kernel (``cross``: the decoder's rows as many as the encoder's, as
+    on the serving and training paths), every other arch's blocks once
+    each."""
     if cfg.family == "hybrid":
         return cfg.num_layers // cfg.attn_every
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "audio":
+        return cfg.encoder_layers + cfg.num_layers * (2 if cross else 1)
     return cfg.num_layers
 
 
@@ -2917,6 +3004,25 @@ def phase_timing(dev, rows: int) -> dict[str, dict]:
     out.update(moe_timing(dev, timer, rng))
     out.update(mla_timing(dev, timer))
     out.update(hybrid_vlm_timing(dev, timer))
+    out.update(whisper_timing(dev, timer))
+    return out
+
+
+def whisper_timing(dev, timer) -> dict[str, dict]:
+    """The flash entries non-causal, at phase 24's shapes: whisper-base's
+    encoder (or cross) layer at a prefill (B 4, S 1024, 8/8 heads of 64;
+    ``flash_attention@whisper``) and its training entries at its one
+    microbatch of the training path (B 8; ``flash_attention_lse@whisper``,
+    ``flash_attention_bwd@whisper``), every (query, key) pair computed.
+    Beside SDPA, as every flash row."""
+    cfg = get_config(WHISPER_ARCH)
+    out = {"flash_attention@whisper": flash_fwd_timing(
+        dev, timer, LM_BATCH, LM_PROMPT, cfg.num_heads, cfg.num_kv_heads,
+        cfg.hd, causal=False)}
+    train = flash_train_timing(
+        dev, timer, TRAIN_BATCH // train_microbatches(WHISPER_ARCH), TRAIN_SEQ,
+        cfg.num_heads, cfg.num_kv_heads, cfg.hd, causal=False)
+    out.update({f"{k}@whisper": v for k, v in train.items()})
     return out
 
 
@@ -3037,48 +3143,57 @@ def sdpa_backend(call) -> str:
                  if any(op in n for n in names)), "unknown")
 
 
-def flash_fwd_timing(dev, timer, b, s, h, kv, hd, dv=None) -> dict:
+def attn_pairs(s: int, causal: bool) -> float:
+    """The (query, key) pairs a head of self-attention over s rows
+    computes: s (s + 1) / 2 unmasked ones where causal, s^2 where not."""
+    return s * (s + 1) / 2 if causal else float(s * s)
+
+
+def flash_fwd_timing(dev, timer, b, s, h, kv, hd, dv=None,
+                     causal: bool = True) -> dict:
     """The serving entry at (B, S, H, KV, hd) (v ``dv`` wide, hd unless
-    given), bf16, causal, beside its plain version and
+    given), bf16, causal or not, beside its plain version and
     ``F.scaled_dot_product_attention`` (``library_ms``, the backend it
     picked; ``None`` and ``library_error`` where it refuses the widths)."""
     dv = hd if dv is None else dv
     g = torch.Generator(device=dev).manual_seed(12)
     q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
                for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, dv)))
-    ms = timer(lambda: flash_attention(q, k, v))
-    plain = timer(lambda: ref.attention_ref(q, k, v))
+    ms = timer(lambda: flash_attention(q, k, v, causal=causal))
+    plain = timer(lambda: ref.attention_ref(q, k, v, causal=causal))
     # the port never calls SDPA: it is timed here as the yardstick
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
     def lib_fwd():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                               enable_gqa=True)
 
-    # q, k, v read once and out written once; the products of the
-    # s (s + 1) / 2 unmasked (query, key) pairs: 2 hd for q k and 2 dv for
-    # p v each, on the bf16 tensor cores
+    # q, k, v read once and out written once; the products of the unmasked
+    # (query, key) pairs: 2 hd for q k and 2 dv for p v each, on the bf16
+    # tensor cores
     bms, by = bound_ms(2 * (q.numel() + k.numel() + v.numel() + b * s * h * dv),
-                       2 * b * h * (hd + dv) * s * (s + 1) / 2,
+                       2 * b * h * (hd + dv) * attn_pairs(s, causal),
                        TENSOR_BF16_OPS_PER_S)
-    want = ref.attention_ref(q, k, v)
+    want = ref.attention_ref(q, k, v, causal=causal)
     lib_out, lib_error = library_call(lib_fwd)
     res = dict(
         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
         library_ms=None if lib_out is None else timer(lib_fwd),
         library_backend=None if lib_out is None else sdpa_backend(lib_fwd),
-        max_abs_err=float((flash_attention(q, k, v) - want).float().abs().max()),
+        max_abs_err=float((flash_attention(q, k, v, causal=causal)
+                           - want).float().abs().max()),
         library_max_abs_err=None if lib_out is None else float(
             (lib_out.transpose(1, 2) - want).float().abs().max()),
-        shape=dict(B=b, S=s, H=h, KV=kv, hd=hd, dv=dv))
+        shape=dict(B=b, S=s, H=h, KV=kv, hd=hd, dv=dv, causal=causal))
     if lib_error is not None:
         res["library_error"] = lib_error
     return res
 
 
-def flash_train_timing(dev, timer, b, s, h, kv, hd, dv=None) -> dict[str, dict]:
+def flash_train_timing(dev, timer, b, s, h, kv, hd, dv=None,
+                       causal: bool = True) -> dict[str, dict]:
     """The training entries at (B, S, H, KV, hd) (v ``dv`` wide, hd unless
-    given), bf16, causal (for hd 64: one layer of one microbatch of
+    given), bf16, causal or not (for hd 64: one layer of one microbatch of
     granite-3-2b, B 2), each beside its plain version and beside the
     library. At equal widths that is the call SDPA's flash backend makes
     for the same function on the same (transposed, GQA) inputs:
@@ -3092,25 +3207,25 @@ def flash_train_timing(dev, timer, b, s, h, kv, hd, dv=None) -> dict[str, dict]:
     the backend SDPA picks (``library_backend``). The library's results
     must agree with the plain versions (``LIBRARY_SAME_FN``). Bounds: each
     input read and output written once; the forward's s(s+1)/2 products
-    (2 hd + 2 dv FLOPs a pair) and the backward's five (q k^T again, dO
-    v^T, P^T dO, dS^T q, dS k: 2 (3 hd + 2 dv) a pair, 2.5 times the
-    forward's at equal widths), at 989 TFLOP/s."""
+    (s^2 where not causal; 2 hd + 2 dv FLOPs a pair) and the backward's
+    five (q k^T again, dO v^T, P^T dO, dS^T q, dS k: 2 (3 hd + 2 dv) a
+    pair, 2.5 times the forward's at equal widths), at 989 TFLOP/s."""
     dv = hd if dv is None else dv
     g = torch.Generator(device=dev).manual_seed(13)
     q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
                    for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, dv),
                                  (b, s, h, dv)))
-    shape = dict(B=b, S=s, H=h, KV=kv, hd=hd, dv=dv)
-    pairs = b * h * s * (s + 1) / 2
+    shape = dict(B=b, S=s, H=h, KV=kv, hd=hd, dv=dv, causal=causal)
+    pairs = b * h * attn_pairs(s, causal)
     fwd_ops = 2 * (hd + dv) * pairs
     io = 2 * (q.numel() + k.numel() + v.numel() + do.numel())  # q, k, v in, out
     lse_bytes = 4 * b * h * s
-    out, lse = flash_attention_lse(q, k, v)
+    out, lse = flash_attention_lse(q, k, v, causal=causal)
     for _ in range(100):  # load the card before the first reading
-        flash_attention_bwd(q, k, v, out, lse, do)
-    ms = timer(lambda: flash_attention_lse(q, k, v))
-    serving = timer(lambda: flash_attention(q, k, v))
-    plain = timer(lambda: ref.attention_lse_ref(q, k, v))
+        flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    ms = timer(lambda: flash_attention_lse(q, k, v, causal=causal))
+    serving = timer(lambda: flash_attention(q, k, v, causal=causal))
+    plain = timer(lambda: ref.attention_lse_ref(q, k, v, causal=causal))
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
     aten = torch.ops.aten
     sdpa = hd != dv  # the flash backend refuses unequal widths
@@ -3120,11 +3235,12 @@ def flash_train_timing(dev, timer, b, s, h, kv, hd, dv=None) -> dict[str, dict]:
         if sdpa:
             with torch.enable_grad():
                 return (F.scaled_dot_product_attention(
-                    *leaves, is_causal=True, enable_gqa=True),)
-        return aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, True)
+                    *leaves, is_causal=causal, enable_gqa=True),)
+        return aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0,
+                                                        causal)
 
     bms, by = bound_ms(io + lse_bytes, fwd_ops, TENSOR_BF16_OPS_PER_S)
-    want_out, want_lse = ref.attention_lse_ref(q, k, v)
+    want_out, want_lse = ref.attention_lse_ref(q, k, v, causal=causal)
     fwd, lib_error = library_call(lib_fwd)
     lib = lib_err = backend = None
     if fwd is not None:
@@ -3149,18 +3265,19 @@ def flash_train_timing(dev, timer, b, s, h, kv, hd, dv=None) -> dict[str, dict]:
         if sdpa:
             return torch.autograd.grad(fwd[0], leaves, dot, retain_graph=True)
         return aten._scaled_dot_product_flash_attention_backward(
-            dot, qt, kt, vt, fwd[0], fwd[1], *fwd[2:6], 0.0, True,
+            dot, qt, kt, vt, fwd[0], fwd[1], *fwd[2:6], 0.0, causal,
             *fwd[6:8])
 
-    bwd = timer(lambda: flash_attention_bwd(q, k, v, out, lse, do))
-    plain = timer(lambda: ref.attention_bwd_ref(q, k, v, do))
+    bwd = timer(lambda: flash_attention_bwd(q, k, v, out, lse, do,
+                                            causal=causal))
+    plain = timer(lambda: ref.attention_bwd_ref(q, k, v, do, causal=causal))
     # dq, dk, dv written; q, k, v, o, dO read (and lse, a row each)
     bwd_ops = 2 * (3 * hd + 2 * dv) * pairs
     bms, by = bound_ms(2 * (2 * q.numel() + 2 * do.numel() + 2 * k.numel()
                             + 2 * v.numel()) + lse_bytes, bwd_ops,
                        TENSOR_BF16_OPS_PER_S)
-    got = flash_attention_bwd(q, k, v, out, lse, do)
-    want = ref.attention_bwd_ref(q, k, v, do)
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    want = ref.attention_bwd_ref(q, k, v, do, causal=causal)
     lib = lib_rel = None
     if fwd is not None:
         grads, lib_error = library_call(lib_bwd)
@@ -3174,7 +3291,8 @@ def flash_train_timing(dev, timer, b, s, h, kv, hd, dv=None) -> dict[str, dict]:
     # the launches' own device times, a call's mean over 10 (the Timer's
     # reading also holds the host's work between them)
     prof = profiled("flash_attention_bwd", lambda: [
-        flash_attention_bwd(q, k, v, out, lse, do) for _ in range(10)])
+        flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+        for _ in range(10)])
     launch_ms = {}
     for kname, ms in prof["top"]:
         m = re.search(r"flash_bwd\w*(<[^>]*>)?", kname)
@@ -3191,7 +3309,7 @@ def flash_train_timing(dev, timer, b, s, h, kv, hd, dv=None) -> dict[str, dict]:
         library_tile_rel_err=lib_rel,
         tflops=bwd_ops / (bwd * 1e-3) / 1e12, shape=shape,
         dkdv_splits=_build.library().repro_flash_attention_bwd_splits(
-            b, s, h, kv, 1))
+            b, s, h, kv, int(causal)))
     if lib_error is not None:
         res["flash_attention_bwd"]["library_error"] = lib_error
     return res
@@ -3206,8 +3324,34 @@ def logit_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def front_rows(embeds) -> int:
-    return 0 if embeds is None else embeds.shape[1]
+@contextlib.contextmanager
+def attention_as(fn):
+    """Every model's self-attention seam (``kops.attention``) replaced by
+    ``fn(q, k, v, causal=...)`` inside (the kernel's recompute under remat
+    included)."""
+    real = kops.attention
+    kops.attention = fn
+    try:
+        yield real
+    finally:
+        kops.attention = real
+
+
+def rounded_p_scope():
+    """Attention as the plain version with the kernel's one extra rounding,
+    P to bf16 before p v (``ref.attention_rounding_p``), on the card."""
+    return attention_as(ref.attention_rounding_p)
+
+
+def front_rows(cfg, embeds) -> int:
+    """A VLM's front rows, which its cache and decode positions count (the
+    encoder-decoder's embeds are audio frames: none)."""
+    return 0 if embeds is None or cfg.family == "audio" else embeds.shape[1]
+
+
+def enc_rows(cfg, embeds) -> int:
+    """The encoder-decoder's cross-cache rows: its audio frames."""
+    return embeds.shape[1] if cfg.family == "audio" else 0
 
 
 def serve_inputs(cfg, dev):
@@ -3257,7 +3401,7 @@ def phase_serve(dev, arch: str = LM_ARCH, layers: int | None = None):
     with torch.no_grad():
         last, _ = make_decode_step(model)(
             gen.cache, gen.tokens[:, -1:],
-            front_rows(embeds) + LM_PROMPT + LM_GEN - 1)
+            front_rows(cfg, embeds) + LM_PROMPT + LM_GEN - 1)
     check(launches()["flash_attention"] == 0, "a decode step launched flash")
     check(bool(torch.isfinite(last).all()), "non-finite decode logits")
     gen.cache = None
@@ -3265,16 +3409,18 @@ def phase_serve(dev, arch: str = LM_ARCH, layers: int | None = None):
 
 
 def phase_serve_plain(model, tokens, gen, causal_tol: float | None = LM_TOL,
-                      embeds=None, plain_tol: float = LM_TOL) -> dict:
+                      embeds=None, plain_tol: float = LM_TOL,
+                      keep_plain: bool = False) -> dict:
     """Phase 9: the plain run teacher-forced with the kernel run's tokens
     (within ``plain_tol``; the hybrid's Mamba2 blocks carry the attention's
     rounding further, ``HYBRID_PLAIN_TOL``), and the serving invariant
     against one causal forward (within ``causal_tol``: MLA's decode takes
     another path, ``MLA_DECODE_TOL``; ``None`` only reports it, for the
     hybrid, which ``hybrid_invariant`` holds); a VLM's front rows first in
-    both."""
+    both. With ``keep_plain`` the plain run's logits come back under
+    ``plain_logits`` (``hybrid_rounding`` reads them)."""
     cfg = model.cfg
-    nf = front_rows(embeds)
+    nf = front_rows(cfg, embeds)
     set_launches(0)
     with kops.oracle_scope():
         plain = generate(model, tokens, LM_GEN, embeds=embeds,
@@ -3296,13 +3442,15 @@ def phase_serve_plain(model, tokens, gen, causal_tol: float | None = LM_TOL,
           f"a greedy token differs from the plain run where the margin "
           f"exceeds {plain_tol}")
     same_plain = int((gen.tokens == plain.tokens).sum())
+    kept = {"plain_logits": plain.logits} if keep_plain else {}
     del plain
 
     seq = torch.cat([tokens, gen.tokens[:, :LM_GEN - 1]], 1)
     set_launches(0)
     with torch.no_grad():
         full, _, _ = model.forward(tokens=seq, embeds=embeds)
-    check(launches()["flash_attention"] == attn_layers(cfg),
+    cross = embeds is None or seq.shape[1] == embeds.shape[1]
+    check(launches()["flash_attention"] == attn_layers(cfg, cross),
           "the causal forward did not run flash once an attention layer")
     rows = full[:, nf + LM_PROMPT - 1:, :cfg.vocab_size]
     del full
@@ -3319,13 +3467,15 @@ def phase_serve_plain(model, tokens, gen, causal_tol: float | None = LM_TOL,
             "plain_same_greedy_tokens": same_plain,
             "causal_max_abs_err": max(inv_errs),
             "causal_err_by_step": inv_errs,
-            "causal_same_greedy_tokens": same}
+            "causal_same_greedy_tokens": same, **kept}
 
 
 def phase_serve_times(model, tokens, reps: int = 5, embeds=None) -> dict:
     """Phase 10: prefill median ms (host clock around a synchronised call),
     decode ms a token and tokens/s (medians of three ``generate`` runs)."""
-    prefill = make_prefill_step(model, front_rows(embeds) + LM_PROMPT + LM_GEN)
+    cfg = model.cfg
+    prefill = make_prefill_step(model, front_rows(cfg, embeds) + LM_PROMPT
+                                + LM_GEN, enc_rows(cfg, embeds))
     batch = {"tokens": tokens} if embeds is None else \
         {"tokens": tokens, "embeds": embeds}
     walls = []
@@ -3352,8 +3502,9 @@ def phase_serve_times(model, tokens, reps: int = 5, embeds=None) -> dict:
 
 def phase_serve_profile(model, tokens, steps: int = 8, embeds=None) -> dict:
     """Phase 10's traces: one prefill, then ``steps`` decode steps."""
-    nf = front_rows(embeds)
-    prefill = make_prefill_step(model, nf + LM_PROMPT + LM_GEN)
+    nf = front_rows(model.cfg, embeds)
+    prefill = make_prefill_step(model, nf + LM_PROMPT + LM_GEN,
+                                enc_rows(model.cfg, embeds))
     decode = make_decode_step(model)
     batch = {"tokens": tokens} if embeds is None else \
         {"tokens": tokens, "embeds": embeds}
@@ -3479,6 +3630,24 @@ def phase_train_plain(dev, batch, arch: str = TRAIN_ARCH, cfg=None) -> dict:
         check(errs[name] <= TRAIN_GRAD_TOL,
               f"{cfg.num_layers}-layer gradient {name}: kernel run "
               f"differs from plain attention by {errs[name]:.4g} of its max")
+    rounded = {}
+    if cfg.family == "hybrid":
+        # the hybrid's account: the same gradients through the plain
+        # attention with the kernel's P rounding, each leaf held to the
+        # kernel run's within the same tolerance
+        set_launches(0)
+        with rounded_p_scope():
+            rgrads, _ = TS._accumulate_grads(model, state.params, batch, k)
+        check(all(v == 0 for v in launches().values()),
+              f"the rounded-P gradient run launched {launches()}")
+        for name, g in grads.items():
+            rounded[name] = float((g - rgrads[name]).abs().max()) / max(
+                scales[name], 1e-30)
+            check(rounded[name] <= TRAIN_GRAD_TOL,
+                  f"{cfg.num_layers}-layer gradient {name}: kernel run differs "
+                  f"from the rounded-P plain run by {rounded[name]:.4g} of its "
+                  f"max")
+        del rgrads
     del grads, plain
     step = TS.make_train_step(model, OptConfig(**TRAIN_OPT), microbatches=k)
     set_launches(0)
@@ -3499,12 +3668,76 @@ def phase_train_plain(dev, batch, arch: str = TRAIN_ARCH, cfg=None) -> dict:
           f"{cfg.num_layers}-layer step: loss {mk['loss']} vs plain "
           f"{mp['loss']}, grad norm {mk['grad_norm']} vs {mp['grad_norm']}")
     worst = max(errs, key=errs.get)
-    return {"layers": cfg.num_layers, "loss": mk["loss"],
+    extra = {}
+    if rounded:
+        rworst = max(rounded, key=rounded.get)
+        extra = {"rounded_worst_grad_leaf": rworst,
+                 "rounded_worst_grad_rel_err": rounded[rworst],
+                 "dt_bias_grad_rel_err": max(v for n, v in errs.items()
+                                             if n.endswith("dt_bias")),
+                 "dt_bias_rounded_grad_rel_err": max(
+                     v for n, v in rounded.items() if n.endswith("dt_bias"))}
+    return {**extra, "layers": cfg.num_layers, "loss": mk["loss"],
             "plain_loss": mp["loss"], "grad_norm": mk["grad_norm"],
             "plain_grad_norm": mp["grad_norm"], "loss_rel_err": dl,
             "grad_norm_rel_err": dg, "worst_grad_leaf": worst,
             "worst_grad_rel_err": errs[worst], "route_flips": tap.flips,
             "routes": tap.routes, "step_route_flips": step_tap.flips}
+
+
+def grad_rounding_account(dev, batch, arch: str) -> dict:
+    """Phase 24's account of the kernel-vs-plain gradient distance at the
+    arch's full depth: every gradient leaf of one batch through the
+    kernels, through the plain attention (``oracle_scope``), through the
+    plain attention with the kernel's P rounding (``rounded_p_scope``) and
+    through the plain attention on the same weights cast to fp32; each
+    pair's distance per leaf over the fp32 run's ``grad_scales``, the worst
+    leaf of each pair named. The kernel run's worst distance from the fp32
+    run must be at most ``GRAD_NOISE_RATIO`` times the bf16 plain run's."""
+    cfg = get_config(arch)
+    k = train_microbatches(arch)
+    model = build_model(cfg, dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    params = TS.bind_state(model).params
+    runs = {}
+    set_launches(0)
+    runs["kernel"], _ = TS._accumulate_grads(model, params, batch, k)
+    check(launches() == train_launches(cfg, k),
+          f"{arch}'s gradients launched {launches()}, want "
+          f"{train_launches(cfg, k)}")
+    for name, scope in (("plain", kops.oracle_scope),
+                        ("rounded", rounded_p_scope)):
+        set_launches(0)
+        with scope():
+            runs[name], _ = TS._accumulate_grads(model, params, batch, k)
+        check(all(v == 0 for v in launches().values()),
+              f"the {name} gradient run launched {launches()}")
+    m32 = build_model(cfg.replace(dtype=torch.float32,
+                                  param_dtype=torch.float32), dev,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+    m32.lm.load_state_dict({n: t.float()
+                            for n, t in model.lm.state_dict().items()})
+    del model, params
+    with kops.oracle_scope():
+        runs["f32"], _ = TS._accumulate_grads(
+            m32, TS.bind_state(m32).params, batch, k)
+    del m32
+    scales = grad_scales(runs["f32"])
+    out = {"layers": [cfg.encoder_layers, cfg.num_layers],
+           "noise_ratio": GRAD_NOISE_RATIO}
+    for a, b in (("kernel", "plain"), ("kernel", "rounded"),
+                 ("rounded", "plain"), ("kernel", "f32"), ("plain", "f32")):
+        errs = {n: float((g.float() - runs[b][n].float()).abs().max())
+                / max(scales[n], 1e-30) for n, g in runs[a].items()}
+        worst = max(errs, key=errs.get)
+        out[f"{a}_vs_{b}"] = {"worst_leaf": worst, "rel_err": errs[worst]}
+    del runs
+    torch.cuda.empty_cache()
+    kf, pf = out["kernel_vs_f32"]["rel_err"], out["plain_vs_f32"]["rel_err"]
+    check(kf <= GRAD_NOISE_RATIO * pf,
+          f"{arch}'s kernel gradients are {kf:.4g} from the fp32 run's, over "
+          f"{GRAD_NOISE_RATIO} x the plain run's {pf:.4g}")
+    return out
 
 
 def phase_train(dev, batches, profile=None, arch: str = TRAIN_ARCH,
@@ -3570,6 +3803,9 @@ def phase_train(dev, batches, profile=None, arch: str = TRAIN_ARCH,
     # invocation, and its Mamba blocks' chunked GLA: per head a token, q k
     # over (Q + 1) / 2 keys of a chunk (2 N each) and w v (2 P each), its
     # state contribution and its inter-chunk product (2 N P each), times 3;
+    # xLSTM's mLSTM blocks the same GLA at N = hd, P = hd + 1 (the
+    # normalizer's column); the encoder-decoder's learned positions a
+    # gather (not counted), its encoder and cross attention over all S keys;
     # the remat recompute and the capacity's vacant slots are not counted
     n_matmul = n_params - (0 if cfg.tie_embeddings else model.lm.embed.numel())
     if cfg.moe_num_experts:
@@ -3583,12 +3819,21 @@ def phase_train(dev, batches, profile=None, arch: str = TRAIN_ARCH,
         h, n = cfg.n_ssm_heads, cfg.ssm_state
         pd, q = cfg.d_inner // h, min(cfg.ssm_chunk, TRAIN_SEQ)
         gla = 3 * cfg.num_layers * 2 * h * ((q + 1) / 2 * (n + pd) + 2 * n * pd)
+    if cfg.family == "ssm":
+        h, hd = cfg.num_heads, 2 * cfg.d_model // cfg.num_heads
+        q = min(cfg.ssm_chunk, TRAIN_SEQ)
+        gla = 3 * len(model.lm.mlstm) * 2 * h * (
+            (q + 1) / 2 * (2 * hd + 1) + 2 * hd * (hd + 1))
+    dqk, dv = attn_widths(cfg)
+    keys = attn_layers(cfg) * (TRAIN_SEQ + 1)
+    if cfg.family == "audio":
+        n_matmul -= model.lm.dec_pos.numel()
+        keys = cfg.num_layers * (TRAIN_SEQ + 1) + \
+            (cfg.encoder_layers + cfg.num_layers) * 2 * TRAIN_SEQ
     del state, step, model
     med = statistics.median(walls)
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    dqk, dv = attn_widths(cfg)
-    flops_tok = 6 * n_matmul + 3 * attn_layers(cfg) * cfg.num_heads * \
-        (dqk + dv) * (TRAIN_SEQ + 1) + gla
+    flops_tok = 6 * n_matmul + 3 * cfg.num_heads * (dqk + dv) * keys + gla
     tok_s = tokens / (med / 1e3)
     return {"arch": arch, "layers": cfg.num_layers, "parameters": n_params,
             "microbatches": k,
@@ -3707,13 +3952,9 @@ def phase_big_serve(dev, profile: bool = False, arch: str | None = None,
     first = {"prefill_ms": gen.prefill_s * 1e3,
              "decode_ms_per_token": gen.decode_s / (LM_GEN - 1) * 1e3}
     real_attention = kops.attention
-    kops.attention = lambda q, k, v, causal=True: real_attention(
-        q, k, v, causal=False)
-    try:
-        with torch.no_grad(), kops.oracle_scope():
-            wrong, _, _ = model.forward(tokens=tokens, embeds=embeds)
-    finally:
-        kops.attention = real_attention
+    with attention_as(lambda q, k, v, causal=True: real_attention(
+            q, k, v, causal=False)), torch.no_grad(), kops.oracle_scope():
+        wrong, _, _ = model.forward(tokens=tokens, embeds=embeds)
     with torch.no_grad():
         causal, _, _ = model.forward(tokens=tokens, embeds=embeds)
     wrong_err = logit_err(wrong, causal)
@@ -3721,16 +3962,24 @@ def phase_big_serve(dev, profile: bool = False, arch: str | None = None,
     check(wrong_err > 3 * causal_tol, f"{arch}: a bidirectional mask moves the "
           f"prefill logits by only {wrong_err}, too little for the tolerance "
           f"{causal_tol} to tell a wrong attention")
-    lost = None
+    lost = enc_causal = None
     if cfg.family == "hybrid":
         lost = lost_carry_err(model, tokens, gen.tokens)
         check(lost > 3 * causal_tol, f"{arch}: the Mamba states zeroed after "
               f"the prefill move the decode logits by only {lost}, too little "
               f"for the tolerance {causal_tol} to tell a lost state carry")
+    if cfg.family == "audio":
+        enc_causal = causal_encoder_err(model, tokens, embeds)
+        check(enc_causal > 3 * LM_TOL, f"{arch}: a causal mask in the encoder "
+              f"moves the prefill logits by only {enc_causal}, too little for "
+              f"the tolerance {LM_TOL} to tell it")
     hybrid = cfg.family == "hybrid"
     agree = phase_serve_plain(model, tokens, gen, None if hybrid else causal_tol,
-                              embeds, causal_tol if hybrid else LM_TOL)
+                              embeds, causal_tol if hybrid else LM_TOL,
+                              keep_plain=hybrid)
     if hybrid:
+        agree.update(hybrid_rounding(model, tokens, gen,
+                                     agree.pop("plain_logits")))
         agree.update(hybrid_invariant(model, tokens, gen))
     del gen
     times = phase_serve_times(model, tokens, embeds=embeds)
@@ -3745,19 +3994,115 @@ def phase_big_serve(dev, profile: bool = False, arch: str | None = None,
             "gen": LM_GEN, "peak_bytes": peak, "launches": counts,
             "prefill_logit_std": std, "wrong_mask_max_abs_err": wrong_err,
             "lost_carry_max_abs_err": lost,
+            "causal_encoder_max_abs_err": enc_causal,
             "causal_tolerance": None if hybrid else causal_tol,
             "first_run": first, **times, **agree, "profile": prof}
 
 
-def hybrid_invariant(model, tokens, gen) -> dict:
-    """Phase 21's serving invariant: the served bf16 model's weights cast to
-    fp32 (a second model), one causal forward of each over the prompt and
-    the fed tokens, and the fp32 model's ``generate`` teacher-forced with
-    the bf16 run's tokens. The fp32 prefill + decode must be within
-    ``HYBRID_F32_TOL`` of the fp32 causal forward, and the Mamba states
-    zeroed after its prefill must move it by more than 3 times that; the
-    bf16 serving logits' distance from the fp32 causal forward must be at
-    most ``HYBRID_NOISE_RATIO`` times the bf16 causal forward's."""
+def attention_calls(model, tokens) -> list[tuple]:
+    """The (q, k, v, causal) of each attention call of one prefill of
+    ``tokens`` through the kernel."""
+    calls = []
+    real = kops.attention
+
+    def record(q, k, v, causal=True):
+        calls.append((q.clone(), k.clone(), v.clone(), causal))
+        return real(q, k, v, causal=causal)
+    with attention_as(record), torch.no_grad():
+        make_prefill_step(model, tokens.shape[1])({"tokens": tokens})
+    return calls
+
+
+def hybrid_rounding(model, tokens, gen, plain_logits) -> dict:
+    """Phase 21's account of the hybrid's kernel-vs-plain distance. The
+    served model teacher-forced with the kernel run's tokens through the
+    plain attention with the kernel's P rounding (``rounded_p_scope``), no
+    kernel launched; the largest |logit| difference over every step of
+    each pair of three runs: the kernel run ``gen``, the plain run
+    (``phase_serve_plain``'s ``plain_logits``) and the P-rounded run. Per
+    attention call of the prefill, on the same inputs: the kernel against
+    the P-rounded plain version and that against the plain version (the
+    largest difference and the share of outputs that differ). The kernel
+    run and the plain run must each be within ``HYBRID_PLAIN_TOL`` of the
+    P-rounded run, and each call's kernel output may differ from its
+    emulation on at most ``KERNEL_EMULATION_SHARE`` of its outputs (a wrong
+    mask, head or cache slot moves nearly all of them)."""
+    runs = {"plain": plain_logits}
+    set_launches(0)
+    with rounded_p_scope():
+        runs["rounded"] = generate(model, tokens, LM_GEN, forced=gen.tokens,
+                                   keep_logits=True).logits
+    check(all(v == 0 for v in launches().values()),
+          f"the rounded serving run launched {launches()}")
+
+    def dist(a, b):
+        return max(logit_err(x, y) for x, y in zip(a, b))
+    out = {"kernel_vs_plain": dist(gen.logits, runs["plain"]),
+           "rounded_vs_plain": dist(runs["rounded"], runs["plain"]),
+           "kernel_vs_rounded": dist(gen.logits, runs["rounded"]),
+           "rounded_tolerance": HYBRID_PLAIN_TOL,
+           "emulation_share_bound": KERNEL_EMULATION_SHARE}
+    del runs
+    per_call = []
+    with torch.no_grad():
+        for q, k, v, causal in attention_calls(model, tokens):
+            got = flash_attention(q, k, v, causal=causal).float()
+            emu = ref.attention_rounding_p(q, k, v, causal=causal).float()
+            plain = ref.attention_ref(q, k, v, causal=causal).float()
+            per_call.append({
+                "kernel_vs_rounded": float((got - emu).abs().max()),
+                "kernel_vs_rounded_share": float((got != emu).float().mean()),
+                "rounded_vs_plain": float((emu - plain).abs().max()),
+                "rounded_vs_plain_share": float((emu != plain).float().mean())})
+    out["per_call"] = per_call
+    say(f"[21] teacher-forced distances: kernel vs plain "
+        f"{out['kernel_vs_plain']:.4g}, P-rounded plain vs plain "
+        f"{out['rounded_vs_plain']:.4g}, kernel vs P-rounded plain "
+        f"{out['kernel_vs_rounded']:.4g}; per prefill call, kernel vs P-rounded "
+        f"plain {[round(c['kernel_vs_rounded'], 5) for c in per_call]} "
+        f"({[round(c['kernel_vs_rounded_share'], 5) for c in per_call]} of "
+        f"outputs), P-rounded plain vs plain "
+        f"{[round(c['rounded_vs_plain'], 5) for c in per_call]} "
+        f"({[round(c['rounded_vs_plain_share'], 5) for c in per_call]})")
+    for name in ("kernel_vs_rounded", "rounded_vs_plain"):
+        check(out[name] <= HYBRID_PLAIN_TOL,
+              f"the hybrid's {name.replace('_', ' ')} distance is "
+              f"{out[name]} (tolerance {HYBRID_PLAIN_TOL})")
+    check(all(c["kernel_vs_rounded_share"] <= KERNEL_EMULATION_SHARE
+              for c in per_call),
+          f"a prefill attention call's kernel output differs from its "
+          f"P-rounded emulation on more than {KERNEL_EMULATION_SHARE} of its "
+          f"outputs: {per_call}")
+    return out
+
+
+def causal_encoder_err(model, tokens, embeds) -> float:
+    """The encoder-decoder's prefill logits with a causal mask in its
+    encoder against the right (bidirectional) encoder, both through the
+    kernel: the largest |logit| difference."""
+    lm = model.lm
+    real = kops.attention
+    with torch.no_grad():
+        with attention_as(lambda q, k, v, causal=True: real(q, k, v,
+                                                            causal=True)):
+            wrong_enc = lm.encode(embeds)
+        enc = lm.encode(embeds)
+        wrong = lm.decode(tokens, lm.build_cross_kv(wrong_enc), mode="causal")
+        right = lm.decode(tokens, lm.build_cross_kv(enc), mode="causal")
+    return logit_err(wrong, right)
+
+
+def hybrid_invariant(model, tokens, gen, f32_tol: float = HYBRID_F32_TOL
+                     ) -> dict:
+    """Phase 21's (and 23's) serving invariant: the served bf16 model's
+    weights cast to fp32 (a second model), one causal forward of each over
+    the prompt and the fed tokens, and the fp32 model's ``generate``
+    teacher-forced with the bf16 run's tokens. The fp32 prefill + decode
+    must be within ``f32_tol`` of the fp32 causal forward, and the
+    recurrent states zeroed after its prefill must move it by more than 3
+    times that; the bf16 serving logits' distance from the fp32 causal
+    forward must be at most ``HYBRID_NOISE_RATIO`` times the bf16 causal
+    forward's."""
     cfg, dev, v = model.cfg, tokens.device, model.cfg.vocab_size
     m32 = build_model(cfg.replace(dtype=torch.float32, param_dtype=torch.float32),
                       dev, generator=torch.Generator(device=dev).manual_seed(0))
@@ -3767,6 +4112,8 @@ def hybrid_invariant(model, tokens, gen) -> dict:
         full32 = m32.forward(tokens=seq)[0][:, LM_PROMPT - 1:, :v]
         full16 = model.forward(tokens=seq)[0][:, LM_PROMPT - 1:, :v]
     causal_noise = logit_err(full16, full32)
+    serve_vs_causal = max(logit_err(g[:, :v], full16[:, i])
+                          for i, g in enumerate(gen.logits))
     del full16
     serve_noise = max(logit_err(g[:, :v], full32[:, i])
                       for i, g in enumerate(gen.logits))
@@ -3777,24 +4124,37 @@ def hybrid_invariant(model, tokens, gen) -> dict:
     g32 = generate(m32, tokens, LM_GEN, forced=gen.tokens, keep_logits=True)
     errs32 = [logit_err(g[:, :v], full32[:, i]) for i, g in enumerate(g32.logits)]
     del g32, full32
-    check(max(errs32) <= HYBRID_F32_TOL,
+    check(max(errs32) <= f32_tol,
           f"fp32 prefill + decode differ from the fp32 causal forward by "
-          f"{max(errs32)} (tolerance {HYBRID_F32_TOL})")
+          f"{max(errs32)} (tolerance {f32_tol})")
     lost32 = lost_carry_err(m32, tokens, gen.tokens)
-    check(lost32 > 3 * HYBRID_F32_TOL, f"the Mamba states zeroed after an fp32 "
+    check(lost32 > 3 * f32_tol, f"the recurrent states zeroed after an fp32 "
           f"prefill move its decode logits by only {lost32}")
     del m32
     torch.cuda.empty_cache()
     return {"f32_causal_max_abs_err": max(errs32), "f32_causal_err_by_step": errs32,
-            "f32_tolerance": HYBRID_F32_TOL, "f32_lost_carry_max_abs_err": lost32,
+            "f32_tolerance": f32_tol, "f32_lost_carry_max_abs_err": lost32,
             "bf16_causal_vs_f32": causal_noise, "bf16_serving_vs_f32": serve_noise,
+            "bf16_serving_vs_bf16_causal": serve_vs_causal,
             "noise_ratio": HYBRID_NOISE_RATIO}
 
 
+def zero_states(cache) -> None:
+    """A recurrent model's states zeroed in its cache: the hybrid's Mamba2
+    SSM states, or xLSTM's mLSTM states and sLSTM (c, n)."""
+    if "mamba" in cache:
+        cache["mamba"]["ssm"].zero_()
+        return
+    cache["mlstm"]["state"].zero_()
+    cache["slstm"]["c"].zero_()
+    cache["slstm"]["n"].zero_()
+
+
 def lost_carry_err(model, tokens, forced, steps: int = 4) -> float:
-    """The hybrid's prefill, its Mamba states then zeroed (the carry lost),
-    and ``steps`` decode steps fed ``forced``'s tokens: the largest
-    |logit| difference from one causal forward over the same tokens."""
+    """A recurrent model's prefill (the hybrid's or xLSTM's), its states
+    then zeroed (the carry lost, ``zero_states``), and ``steps`` decode
+    steps fed ``forced``'s tokens: the largest |logit| difference from one
+    causal forward over the same tokens."""
     cfg = model.cfg
     seq = torch.cat([tokens, forced[:, :steps]], 1)
     with torch.no_grad():
@@ -3803,7 +4163,7 @@ def lost_carry_err(model, tokens, forced, steps: int = 4) -> float:
         del full
         _, cache = make_prefill_step(model, LM_PROMPT + steps)(
             {"tokens": tokens})
-        cache["mamba"]["ssm"].zero_()
+        zero_states(cache)
         decode = make_decode_step(model)
         errs = []
         for i in range(steps):
@@ -4181,6 +4541,9 @@ def say_big_serve(tag: int, r: dict, card: str, secs: float,
         f"within {r['causal_max_abs_err']:.4g} (tolerance "
         f"{r['causal_tolerance']}; by step "
         f"{[round(x, 4) for x in r['causal_err_by_step']]})")
+    if r.get("causal_encoder_max_abs_err") is not None:
+        say(f"[{tag}] a causal mask in the encoder moves the prefill logits "
+            f"by {r['causal_encoder_max_abs_err']:.4g}")
     if "f32_causal_max_abs_err" in r:
         say(f"[{tag}] the same weights in fp32: prefill + decode vs one causal "
             f"forward within {r['f32_causal_max_abs_err']:.4g} (tolerance "
@@ -4216,6 +4579,13 @@ def say_big_train(tag: int, r: dict, card: str, secs: float) -> None:
         f"{p['worst_grad_leaf']}, tolerance {TRAIN_GRAD_TOL:g}); one step's "
         f"loss {p['loss']:.6f} vs {p['plain_loss']:.6f}, grad norm "
         f"{p['grad_norm']:.5f} vs {p['plain_grad_norm']:.5f}")
+    if "rounded_worst_grad_leaf" in p:
+        say(f"[{tag}] kernels vs the plain attention with the kernel's P "
+            f"rounding: every gradient leaf within "
+            f"{p['rounded_worst_grad_rel_err']:.4g} of its largest (worst "
+            f"{p['rounded_worst_grad_leaf']}); dt_bias "
+            f"{p['dt_bias_rounded_grad_rel_err']:.4g} (against plain "
+            f"{p['dt_bias_grad_rel_err']:.4g})")
     say(f"[{tag}] {arch} at {r['layers']} of "
         f"{get_config(arch).num_layers} layers: {r['parameters']} "
         f"parameters; {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step in "
@@ -4241,6 +4611,209 @@ def say_big_train(tag: int, r: dict, card: str, secs: float) -> None:
         "wall_ms", "device_ms", "busy_share", "ported_kernels_ms", "host_ops",
         "top")}
     say(f"[{tag}] training {secs:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 23: xLSTM (xlstm-1.3b) uncut; phase 24: the encoder-decoder
+# (whisper-base) uncut
+# ---------------------------------------------------------------------------
+
+
+def phase_xlstm(dev, profile) -> dict:
+    """Phase 23: xlstm-1.3b at full width and depth serves ``LM_BATCH`` x
+    ``LM_PROMPT`` prompts and ``LM_GEN`` greedy tokens through ``generate``
+    (``phase_serve``: no kernel launched, finite logits), its serving
+    invariant held as the hybrid's (``hybrid_invariant`` at
+    ``XLSTM_F32_TOL``), the recurrent states zeroed after the prefill
+    moving the bf16 logits by more than 3 ``LM_TOL``; times, peak, one
+    traced prefill and 8 traced decode steps. Then trained uncut on the
+    pipeline's batches (``phase_train``: a warm-up step and
+    ``XLSTM_TRAIN_STEPS`` steps of 8 x 1024 tokens in its 4 microbatches,
+    no launch), its first loss within 0.5 of ln(padded vocab), one profiled
+    step."""
+    walls, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        walls[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    model, tokens, gen, counts, peak, init_s, n_params = phase_serve(
+        dev, XLSTM_ARCH)
+    cfg = model.cfg
+    std = float(gen.logits[0][:, :cfg.vocab_size].float().std())
+    lost = lost_carry_err(model, tokens, gen.tokens)
+    check(lost > 3 * LM_TOL, f"{XLSTM_ARCH}: the states zeroed after the "
+          f"prefill move the decode logits by only {lost}")
+    lap("serve")
+    inv = hybrid_invariant(model, tokens, gen, XLSTM_F32_TOL)
+    lap("invariant")
+    first = {"prefill_ms": gen.prefill_s * 1e3,
+             "decode_ms_per_token": gen.decode_s / (LM_GEN - 1) * 1e3}
+    del gen
+    times = phase_serve_times(model, tokens)
+    lap("times")
+    prof = phase_serve_profile(model, tokens)
+    del model, tokens
+    torch.cuda.empty_cache()
+    lap("profile")
+    serve = {"arch": XLSTM_ARCH, "layers": cfg.num_layers,
+             "parameters": n_params, "init_s": init_s, "batch": LM_BATCH,
+             "prompt_len": LM_PROMPT, "gen": LM_GEN, "peak_bytes": peak,
+             "launches": counts, "prefill_logit_std": std,
+             "lost_carry_max_abs_err": lost, "first_run": first, **inv,
+             **times, "profile": prof}
+    batches, pipe_ms = train_batches(dev, cfg, XLSTM_TRAIN_STEPS + 2)
+    train = phase_train(dev, batches, profile, XLSTM_ARCH, None,
+                        XLSTM_TRAIN_STEPS)
+    del batches
+    torch.cuda.empty_cache()
+    lap("train")
+    serve["phase_s"] = walls
+    want = math.log(cfg.padded_vocab)
+    check(abs(train["loss"][0] - want) < 0.5,
+          f"{XLSTM_ARCH}'s first loss {train['loss'][0]}, want near {want}")
+    return {"serve": serve, "train": {**train, "pipeline_ms": pipe_ms}}
+
+
+def say_xlstm(r: dict, card: str, secs: float) -> None:
+    s, t = r["serve"], r["train"]
+    say(f"[23] {XLSTM_ARCH} uncut ({s['layers']} blocks): {s['parameters']} "
+        f"parameters drawn in {s['init_s']:.1f} s; {LM_BATCH} x {LM_PROMPT}-"
+        f"token prompts, {LM_GEN} greedy tokens; launches {s['launches']}; "
+        f"peak {s['peak_bytes'] / 2**30:.2f} GiB; prefill logits' std "
+        f"{s['prefill_logit_std']:.4f}, moved {s['lost_carry_max_abs_err']:.4g} "
+        f"by the states zeroed after the prefill")
+    say(f"[23] bf16 prefill + decode vs one bf16 causal forward "
+        f"{s['bf16_serving_vs_bf16_causal']:.4g}; the same weights in fp32: "
+        f"prefill + decode vs one causal forward within "
+        f"{s['f32_causal_max_abs_err']:.4g} (tolerance {s['f32_tolerance']:g}),"
+        f" moved {s['f32_lost_carry_max_abs_err']:.4g} by the states zeroed; "
+        f"bf16 serving logits {s['bf16_serving_vs_f32']:.4g} from the fp32 "
+        f"causal forward, the bf16 causal forward {s['bf16_causal_vs_f32']:.4g}"
+        f" (ratio bound {s['noise_ratio']:g})")
+    say(f"[23] first run: prefill {s['first_run']['prefill_ms']:.1f} ms, decode "
+        f"{s['first_run']['decode_ms_per_token']:.2f} ms a token; then prefill "
+        f"median {s['prefill_ms']:.2f} ms, decode {s['decode_ms_per_token']:.3f}"
+        f" ms a token, {s['decode_tokens_per_s']:.1f} tokens/s decoding, "
+        f"{s['end_to_end_tokens_per_s']:.1f} tokens/s end to end on {card}")
+    for name, pr in s["profile"].items():
+        say(f"[23] {name}: profiled wall {pr['wall_ms']:.1f} ms, GPU kernels "
+            f"{pr['device_ms']:.2f} ms, busy share {pr['busy_share']:.2f}, "
+            f"{pr['host_ops']} torch ops dispatched by the host, on {card}")
+        for kname, ms in pr["top"]:
+            say(f"      {ms:8.3f} ms  {kname[:110]}")
+        s["profile"][name] = {k: pr[k] for k in (
+            "wall_ms", "device_ms", "busy_share", "host_ops", "top")}
+    say(f"[23] trained uncut: {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step in "
+        f"{t['microbatches']} microbatches; warm-up {t['warmup_step_ms']:.1f} "
+        f"ms, then {[round(x, 1) for x in t['step_ms']]} ms, "
+        f"{t['tokens_per_s']:.0f} tokens/s, {100 * t['bf16_peak_share']:.1f}% "
+        f"of the dense bf16 peak ({t['flops_per_token'] / 1e9:.2f} GFLOP a "
+        f"token), peak {t['peak_bytes'] / 2**30:.2f} GiB on {card}; loss "
+        f"{[round(x, 4) for x in t['loss']]}, grad norm "
+        f"{[round(x, 4) for x in t['grad_norm']]}; launches {t['launches']}")
+    pr = t["profile"]
+    say(f"[23] one profiled step: wall {pr['wall_ms']:.1f} ms, GPU kernels "
+        f"{pr['device_ms']:.1f} ms, busy share {pr['busy_share']:.2f}, "
+        f"{pr['host_ops']} torch ops")
+    for kname, ms in pr["top"]:
+        say(f"      {ms:8.2f} ms  {kname[:110]}")
+    t["profile"] = {k: pr[k] for k in (
+        "wall_ms", "device_ms", "busy_share", "host_ops", "top")}
+    say(f"[23] phase 23 {secs:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in s["phase_s"].items()) + ")")
+
+
+def whisper_long_prefill(dev) -> dict:
+    """Phase 24's prefill at Whisper's own shape: ``LM_BATCH`` x
+    ``WHISPER_FRAMES`` random frames and ``WHISPER_TEXT``-token prompts.
+    Flash runs the encoder at S 1500 (a partial tail tile) and the
+    decoder's self-attention (6 + 6 launches); the cross-attention (448
+    queries over 1500 keys) takes the plain einsums. Every logit against
+    the plain run (``oracle_scope()``) within ``LM_TOL``; the prefill's
+    median ms."""
+    cfg = get_config(WHISPER_ARCH)
+    model = build_model(cfg, dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    tokens, _ = prompt_inputs(cfg, LM_BATCH, WHISPER_TEXT, 1, dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    frames = torch.randn((LM_BATCH, WHISPER_FRAMES, cfg.d_model),
+                         generator=g, device=dev)
+
+    def prefill():
+        cache = model.init_cache(LM_BATCH, WHISPER_TEXT + LM_GEN,
+                                 WHISPER_FRAMES)
+        with torch.no_grad():
+            return model.forward(tokens=tokens, embeds=frames, cache=cache)[0]
+
+    set_launches(0)
+    got = prefill()
+    counts = launches()
+    want_n = cfg.encoder_layers + cfg.num_layers
+    check(counts["flash_attention"] == want_n,
+          f"whisper's 1500-frame prefill launched {counts}, want flash "
+          f"{want_n} (encoder and decoder self-attention; cross plain)")
+    with kops.oracle_scope():
+        plain = prefill()
+    err = logit_err(got, plain)
+    check(bool(torch.isfinite(got).all()) and err <= LM_TOL,
+          f"whisper's 1500-frame prefill differs from the plain run by {err}")
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        del got
+        got = prefill()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    del model, got, plain
+    torch.cuda.empty_cache()
+    return {"frames": WHISPER_FRAMES, "prompt_len": WHISPER_TEXT,
+            "launches": counts, "plain_max_abs_err": err,
+            "prefill_ms": statistics.median(walls)}
+
+
+def phase_whisper(dev, profile) -> dict:
+    """Phase 24: whisper-base uncut served as phase 17 serves stablelm-12b
+    (``phase_big_serve``: ``LM_BATCH`` x (``LM_PROMPT`` audio frames +
+    ``LM_PROMPT``-token prompts), ``LM_GEN`` greedy tokens; flash a prefill
+    6 times non-causal in the encoder, 6 causal in the decoder and 6
+    non-causal in the cross-attention (as many queries as frames), none in
+    a decode step; logits within ``LM_TOL`` of the plain run and of one
+    causal forward; a bidirectional mask and, apart, a causal mask in the
+    encoder each moving the prefill logits by more than 3 ``LM_TOL``);
+    the prefill at Whisper's own shape (``whisper_long_prefill``); then
+    trained uncut, 8 x 1024 tokens with 8 x 1024 random frames a step in
+    its 1 microbatch: kernels against ``oracle_scope()`` at 2 encoder and 2
+    decoder blocks with phase 16's tolerances (argued for 2 layers, as
+    every arch's), the gradients' rounding account at 6 + 6 blocks
+    (``grad_rounding_account``), a warm-up step and 2 steps of 36 LSE forwards
+    and 18 backwards each (the flash launches a step are a gate), finite
+    losses, one profiled step."""
+    t0 = time.perf_counter()
+    serve = phase_big_serve(dev, profile=True, arch=WHISPER_ARCH)
+    serve_s = time.perf_counter() - t0
+    long = whisper_long_prefill(dev)
+    t0 = time.perf_counter()
+    cfg = get_config(WHISPER_ARCH)
+    batches, pipe_ms = train_batches(dev, cfg, BIG_TRAIN_STEPS + 2)
+    g = torch.Generator(device=dev).manual_seed(2)
+    for b in batches:
+        b["embeds"] = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model),
+                                  generator=g, device=dev)
+    plain = phase_train_plain(dev, batches[0], WHISPER_ARCH, cfg.replace(
+        num_layers=TRAIN_PLAIN_LAYERS, encoder_layers=TRAIN_PLAIN_LAYERS))
+    torch.cuda.empty_cache()
+    account = grad_rounding_account(dev, batches[0], WHISPER_ARCH)
+    train = phase_train(dev, batches, profile, WHISPER_ARCH, None,
+                        BIG_TRAIN_STEPS)
+    del batches
+    torch.cuda.empty_cache()
+    return {"serve": serve, "long_prefill": long, "serve_s": serve_s,
+            "train_s": time.perf_counter() - t0,
+            "train": {**train, "pipeline_ms": pipe_ms, "plain": plain},
+            "grad_account": account}
 
 
 # ---------------------------------------------------------------------------
@@ -4453,7 +5026,8 @@ def main() -> None:
         f"ms on {card}")
     for key in ("flash_attention", "flash_attention@hd160", "flash_attention@hd16",
                 "flash_attention@g1", "flash_attention@g6", "flash_attention@mla",
-                "flash_attention@zamba", "flash_attention@g8"):
+                "flash_attention@zamba", "flash_attention@g8",
+                "flash_attention@whisper"):
         t = times[key]
         say(f"[7] {key} at {t['shape']}: " + (
             f"SDPA ({t['library_backend']} backend) differs from the plain "
@@ -4736,8 +5310,32 @@ def main() -> None:
     say(f"[22] phase 22 {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    xl = phase_xlstm(dev, profiled)
+    say_xlstm(xl, card, time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    wh = phase_whisper(dev, profiled)
+    say_big_serve(24, wh["serve"], card, wh["serve_s"],
+                  f"encoder-decoder, {LM_PROMPT} audio frames a prompt; ")
+    lp = wh["long_prefill"]
+    say(f"[24] prefill at Whisper's shape, {LM_BATCH} x ({lp['frames']} frames "
+        f"+ {lp['prompt_len']} tokens): launches {lp['launches']}; logits "
+        f"within {lp['plain_max_abs_err']:.4g} of the plain run (tolerance "
+        f"{LM_TOL}); median {lp['prefill_ms']:.2f} ms on {card}")
+    say_big_train(24, wh["train"], card, wh["train_s"])
+    ga = wh["grad_account"]
+    say(f"[24] gradients at {ga['layers'][0]} + {ga['layers'][1]} blocks, the "
+        f"worst leaf's distance over its fp32 scale: " + ", ".join(
+            f"{pair.replace('_', ' ')} {v['rel_err']:.4g} ({v['worst_leaf']})"
+            for pair, v in ga.items() if isinstance(v, dict))
+        + f"; kernel vs fp32 at most {ga['noise_ratio']} x plain vs fp32")
+    say(f"[24] phase 24 {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
     for name in ("flash_attention_lse", "flash_attention_bwd"):
-        for suffix in ("", "@hd160", "@hd16", "@mla", "@zamba"):
+        for suffix in ("", "@hd160", "@hd16", "@mla", "@zamba", "@whisper"):
             t = times[name + suffix]
             sh = t["shape"]
             if "library_error" in t:
@@ -4786,11 +5384,16 @@ def main() -> None:
         # (group size 8 over 256 front + 1024 text rows)
         "flash_attention@zamba": hyb_serve["launches"]["flash_attention"],
         **{f"{n}@zamba": hyb_train["launches"][n] for n in LM_KERNELS[1:]},
-        "flash_attention@g8": vlm_serve["launches"]["flash_attention"]}
+        "flash_attention@g8": vlm_serve["launches"]["flash_attention"],
+        # phase 24: whisper-base's generate (the encoder, the decoder and
+        # the cross-attention at hd 64, non-causal but the decoder's) and
+        # its training steps; xlstm-1.3b (phase 23) launches no kernel
+        "flash_attention@whisper": wh["serve"]["launches"]["flash_attention"],
+        **{f"{n}@whisper": wh["train"]["launches"][n] for n in LM_KERNELS[1:]}}
     kernels = []
     entries = [(name, name) for name in KERNELS] + [
         (f"{name}{suffix}", name) for suffix in ("@hd160", "@hd16", "@mla",
-                                                 "@zamba")
+                                                 "@zamba", "@whisper")
         for name in LM_KERNELS] + [
         ("bucket_histogram@moe", "bucket_histogram"),
         ("flash_attention@g1", "flash_attention"),
@@ -4862,6 +5465,7 @@ def main() -> None:
     say(json.dumps({"hybrid": {"serve": hyb_serve, "train": hyb_train},
                     "vlm": {"serve": vlm_serve, "train": vlm_train},
                     "card": card}))
+    say(json.dumps({"xlstm": xl, "whisper": wh, "card": card}))
     say(json.dumps({"kernels": kernels}))
     say(nvidia_smi())
     say(json.dumps({"ok": True, "device": {

@@ -1,10 +1,8 @@
 """Architecture registry of the port (``repro/configs/__init__.py``).
 
-The reference registers ten architectures; the port builds the dense GQA
-and MLA models, the MoE family, the VLM backbone and the Mamba2 hybrid, so
-eight are registered here. Asking for another (xlstm-1.3b, whisper-base)
-raises ``NotImplementedError``: ROADMAP.md lists the order in which they
-come.
+The reference registers ten architectures and the port builds all ten:
+the dense GQA and MLA models, the MoE family, the VLM backbone, the Mamba2
+hybrid, xLSTM (``ssm``) and the Whisper-style encoder-decoder (``audio``).
 """
 from __future__ import annotations
 
@@ -25,9 +23,6 @@ ARCH_IDS = [
     "xlstm-1.3b",
 ]
 
-PORTED = ("llama3-8b", "granite-3-2b", "stablelm-12b", "qwen2-moe-a2.7b",
-          "dbrx-132b", "minicpm3-4b", "internvl2-76b", "zamba2-1.2b")
-
 # grad-accumulation microbatch counts for the train_4k cell, copied from the
 # reference (its per-arch memory budget on a 16 GB v5e chip)
 TRAIN_MICROBATCHES = {
@@ -47,10 +42,6 @@ TRAIN_MICROBATCHES = {
 def _module(arch: str):
     if arch not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
-    if arch not in PORTED:
-        raise NotImplementedError(
-            f"{arch} is not ported to repro_torch yet (ported: {list(PORTED)});"
-            " ROADMAP.md queue 1 item 12 lists what the LM side still needs")
     return importlib.import_module(
         "repro_torch.configs." + arch.replace("-", "_").replace(".", "_"))
 

@@ -21,7 +21,7 @@
 // seven products in all.
 //
 // Design, bf16 (the training path): the forward's machinery (sm90.cuh:
-// TMA, mbarrier rings, wgmma, setmaxnreg), three launches (four where dK/dV
+// TMA, mbarrier rings, wgmma, setmaxnreg), five launches (six where dK/dV
 // is split).
 //   1. flash_bwd_prep: D = rowsum(dO o) and lse log2 e, fp32, (B, H, Sp),
 //      Sp = S rounded up to 64, plus 64: D 0 and lse +inf past S, so a query
@@ -80,6 +80,30 @@
 //      K-major), dS = P (dP - D) in registers (keys past S and above the
 //      diagonal masked, only on the tiles that hold them), dQ += dS K
 //      (register A, K MN-major). dQ is written times scale, in bf16.
+//   5. A consistent D. D comes from the bf16 o, which the forward took
+//      from bf16 P, so sum_j dS_ij, zero in exact arithmetic, is not: D is
+//      ~2^-8 off, relative, and the sums over a row (dQ_i = sum_j dS_ij
+//      k_j) or a column (dK_j = sum_i dS_ij q_i) carry that error times
+//      the keys' or the queries' common component, which the true
+//      gradients do not see (softmax ignores a shift of every key, and the
+//      dK of a row sum to zero). At whisper-base's random initialisation,
+//      where the attention is nearly flat over 1024 keys, that was 10-20
+//      times the plain backward's dQ error, and the last decoder block's
+//      wk gradient 0.22 of its largest from the fp32 run's where the plain
+//      attention's is 0.03. So the dQ launch runs before the dK/dV launch
+//      and, at its end, adds each row's fp32 sum of dS to D (the D that
+//      makes sum_j P_ij (dP_ij - D_i) zero, in this P and dP), which the
+//      dK/dV launch then reads. dQ itself was taken with the old D: since
+//      sum_j dS_ij k_j = sum_j dS_ij (k_j - c_i) for any c_i while the row
+//      sums to zero, it also sums each row's bf16 dS (r_i, what the
+//      product took) and writes dQ = scale (dS K - r_i c_i), c_i the mean
+//      of the keys row i sees: the prefix mean under causal, all S keys
+//      else. Two small launches make the centres first, fp32 (B, S, KV,
+//      dqk): flash_bwd_key_sums, each 16-row key chunk's column sums, then
+//      flash_bwd_key_centres, the prefix means (under no mask only the
+//      last row's), a block a (chunk, KV head, batch) and a thread a column
+//      in both. Under causal they read K twice and write 4 bytes a key
+//      element; else they read K once.
 // The consumers release a ring stage with one mbarrier arrival a warp. No
 // atomics: every output element is written by one CTA, and every sum's
 // order is fixed by the item, the loops and wgmma, so a run gives the same
@@ -262,6 +286,22 @@ __device__ __forceinline__ void pack_a(uint32_t (&fa)[N / 16][4], const float (&
   for (int kk = 0; kk < N / 16; ++kk)
 #pragma unroll
     for (int e = 0; e < 4; ++e) fa[kk][e] = pack_f32(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1]);
+}
+
+// rs[h] += the sum of the bf16 values a pack_a tile holds in row r0 + 8 h
+// (four partial sums, so the adds are four short chains)
+template <int N>
+__device__ __forceinline__ void add_row_sums(float (&rs)[2], const uint32_t (&fa)[N / 16][4]) {
+  float p[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&fa[kk][e]));
+      p[e] += f.x + f.y;
+    }
+  rs[0] += p[0] + p[2];
+  rs[1] += p[1] + p[3];
 }
 
 // d (64 x N) = a b^T over a width of STEPS 16-column steps: a 64 rows and
@@ -648,6 +688,51 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// 5. dQ's key centres (launched before dQ): each kKeyChunk-row key chunk's
+// column sums into (B, nch, KV, DQK), then the prefix means into (B, S,
+// KV, DQK), fp32. A block a (chunk, KV head, batch), a thread a column: a
+// warp's loads take a row's DQK contiguous bf16.
+constexpr int kKeyChunk = 16;
+template <int DQK>
+__global__ void __launch_bounds__((DQK + 31) / 32 * 32)
+    flash_bwd_key_sums(const bf16* __restrict__ k, float* __restrict__ sums, int S, int KV) {
+  const int d = threadIdx.x, ch = blockIdx.x, kv = blockIdx.y, b = blockIdx.z;
+  if (d >= DQK) return;
+  const int t0 = ch * kKeyChunk, t1 = min(t0 + kKeyChunk, S);
+  const long long step = (long long)KV * DQK;
+  const bf16* col = k + ((long long)b * S * KV + kv) * DQK + d;
+  float acc = 0.f;
+#pragma unroll
+  for (int t = t0; t < t1; ++t) acc += __bfloat162float(col[t * step]);
+  sums[(((long long)b * gridDim.x + ch) * KV + kv) * DQK + d] = acc;
+}
+template <int DQK>
+__global__ void __launch_bounds__((DQK + 31) / 32 * 32)
+    flash_bwd_key_centres(const bf16* __restrict__ k, const float* __restrict__ sums,
+                          float* __restrict__ cent, int S, int KV, int causal) {
+  const int d = threadIdx.x, ch = blockIdx.x, kv = blockIdx.y, b = blockIdx.z;
+  if (d >= DQK) return;
+  const int t0 = ch * kKeyChunk, t1 = min(t0 + kKeyChunk, S);
+  const long long step = (long long)KV * DQK;
+  const long long at = ((long long)b * S * KV + kv) * DQK + d;
+  float acc = 0.f;
+  if (!causal) {  // every row's centre is row S - 1's: the last chunk's block alone
+    if (ch != (int)gridDim.x - 1) return;
+#pragma unroll 8
+    for (int c = 0; c <= ch; ++c)
+      acc += sums[(((long long)b * gridDim.x + c) * KV + kv) * DQK + d];
+    cent[at + (S - 1) * step] = acc / (float)S;
+    return;
+  }
+#pragma unroll 8
+  for (int c = 0; c < ch; ++c) acc += sums[(((long long)b * gridDim.x + c) * KV + kv) * DQK + d];
+#pragma unroll
+  for (int t = t0; t < t1; ++t) {
+    acc += __bfloat162float(k[at + t * step]);
+    cent[at + t * step] = acc / (float)(t + 1);
+  }
+}
+
 // 4. dQ. Consumer c holds dQ (DQK wide) of query rows q0 + 64 c .. + 63;
 // the ring's key tiles (N rows) pass both.
 template <int DQK, int DV>
@@ -656,9 +741,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
                       const __grid_constant__ CUtensorMap tdo,
-                      const float* __restrict__ lse2, const float* __restrict__ delta,
-                      bf16* __restrict__ dq, int B, int S, int H, int KV, float scale,
-                      int causal) {
+                      const float* __restrict__ lse2, float* __restrict__ delta,
+                      const float* __restrict__ cent, bf16* __restrict__ dq, int B, int S,
+                      int H, int KV, float scale, int causal) {
   using L = DqLayout<DQK, DV>;
   using T = Tiles<DQK, DV>;
   constexpr int kCols = T::kQkCols, N = L::kN;
@@ -738,6 +823,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   const float sl2 = scale * kLog2e;
 
   float acc[kCols / 2];    // dQ, DQK padded
+  float rs[2], rf[2];      // rows r0 and r0 + 8's sums of the bf16 and fp32 dS
   float x[N / 2], y[N / 2];  // S then P then dS; dP
   uint32_t fa[N / 16][4];  // dS in bf16, the A operand of dQ += dS K
   int it = 0, j = 0;
@@ -764,6 +850,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     const float dd[2] = {delta[vec], delta[vec + 8]};
 #pragma unroll
     for (int i = 0; i < kCols / 2; ++i) acc[i] = 0.f;
+    rs[0] = rs[1] = rf[0] = rf[1] = 0.f;
     mbar_wait(q_full, j & 1);
 
     // dS of key tile n from S and dP: scores past S and above the diagonal
@@ -777,11 +864,15 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
           if (col >= S || (causal && col > row0 + 8 * ((i >> 1) & 1))) x[i] = -INFINITY;
         }
       }
+      float p[4] = {0.f, 0.f, 0.f, 0.f};  // x[i] is row r0 + 8 ((i >> 1) & 1)
 #pragma unroll
       for (int i = 0; i < N / 2; ++i) {
         const int hf = (i >> 1) & 1;
         x[i] = ex2(fmaf(x[i], sl2, -l2[hf])) * (y[i] - dd[hf]);
+        p[i & 3] += x[i];
       }
+      rf[0] += p[0] + p[1];
+      rf[1] += p[2] + p[3];
     };
 
     const int first = it;
@@ -797,6 +888,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     if (nkt == 1) warp_arrive(q_empty);  // Q and dO's last use in this item
     middle(0);
     pack_a<N>(fa, x);
+    add_row_sums<N>(rs, fa);
 
     for (int n = 1; n < nkt; ++n) {
       const int cur = first + n, prev = cur - 1;
@@ -820,6 +912,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       fence_all(fa);
       warp_arrive(empty(prev % L::kStages));
       pack_a<N>(fa, x);
+      add_row_sums<N>(rs, fa);
     }
     const int last = first + nkt - 1;
     fence_all(acc);
@@ -833,7 +926,27 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     it += nkt;
     ++j;
 
-    // epilogue: dQ times scale, rows past S not written
+    // epilogue: D += the row's fp32 dS sum, for the dK/dV launch; dQ =
+    // scale (dS K - r c), r the row's bf16 dS sum, c its key centre (the
+    // sums over the quad that holds the row; rows past S have both 0)
+    const int kvh = h / (H / KV);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      rs[hf] += __shfl_xor_sync(kFull, rs[hf], 1);
+      rs[hf] += __shfl_xor_sync(kFull, rs[hf], 2);
+      rf[hf] += __shfl_xor_sync(kFull, rf[hf], 1);
+      rf[hf] += __shfl_xor_sync(kFull, rf[hf], 2);
+      if (lane % 4 == 0 && row0 + 8 * hf < S) delta[vec + 8 * hf] = dd[hf] + rf[hf];
+      const int crow = causal ? min(row0 + 8 * hf, S - 1) : S - 1;
+      const float* cr = cent + (((long long)b * S + crow) * KV + kvh) * DQK + c2;
+#pragma unroll
+      for (int jj = 0; jj < DQK / 8; ++jj) {
+        const float2 cc = *reinterpret_cast<const float2*>(cr + 8 * jj);
+        acc[4 * jj + 2 * hf] -= rs[hf] * cc.x;
+        acc[4 * jj + 2 * hf + 1] -= rs[hf] * cc.y;
+      }
+    }
+    // dQ times scale, rows past S not written
     store_rows<DQK>(dq + ((long long)b * S * H + h) * DQK, acc, (long long)H * DQK, row0,
                     S, c2, scale);
   }
@@ -1074,14 +1187,19 @@ int dkdv_splits(int B, int S, int KV, int G, int causal) {
   return ns;
 }
 
-// floats of workspace the backward takes: D and lse log2 e (B, H, Sp) and,
-// where dK/dV is split, its partials (dV's then dK's); D (B, H, S) in fp32
+// floats of workspace the backward takes: D and lse log2 e (B, H, Sp),
+// where dK/dV is split its partials (dV's then dK's), then dQ's key centres
+// (B, S, KV, dqk) and chunk sums (B, ceil(S / 16), KV, dqk); D (B, H, S) in
+// fp32
+long long split_floats(int B, int S, int KV, int dqk, int dv, int ns) {
+  return ns > 1 ? (long long)ns * B * S * KV * (dqk + dv) : 0;
+}
 long long bwd_workspace(int B, int S, int H, int KV, int dqk, int dv, int causal,
                         int is_bf16) {
   if (!is_bf16) return (long long)B * H * S;
   const int ns = dkdv_splits(B, S, KV, H / KV, causal);
-  return 2LL * B * H * padded_rows(S) +
-         (ns > 1 ? (long long)ns * B * S * KV * (dqk + dv) : 0);
+  return 2LL * B * H * padded_rows(S) + split_floats(B, S, KV, dqk, dv, ns) +
+         (long long)B * KV * dqk * (S + (S + kKeyChunk - 1) / kKeyChunk);
 }
 
 int grid_of(long long works) { return (int)(works < sm_count() ? works : sm_count()); }
@@ -1104,9 +1222,12 @@ cudaError_t launch_bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const b
   }();
   if (attr != cudaSuccess) return attr;
   const long long rows = (long long)B * H * padded_rows(S);
+  const int ns = dkdv_splits(B, S, KV, H / KV, causal);
   float* delta = ws;
   float* lse2 = ws + rows;
   float* part = lse2 + rows;
+  float* cent = part + split_floats(B, S, KV, DQK, DV, ns);
+  float* sums = cent + (long long)B * S * KV * DQK;
   // 16 rows a warp, 128 a block
   const long long prep_blocks = ((long long)B * S * H + 127) / 128;
   flash_bwd_prep<DV><<<(unsigned)(prep_blocks < 16LL * sm_count() ? prep_blocks
@@ -1114,6 +1235,14 @@ cudaError_t launch_bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const b
                        256, 0, stream>>>(o, dout, lse, delta, lse2, B, S, H,
                                          (long long)B * S * H);
   cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const dim3 chunks((S + kKeyChunk - 1) / kKeyChunk, KV, B);
+  constexpr int kKeyThreads = (DQK + 31) / 32 * 32;
+  flash_bwd_key_sums<DQK><<<chunks, kKeyThreads, 0, stream>>>(k, sums, S, KV);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  flash_bwd_key_centres<DQK><<<chunks, kKeyThreads, 0, stream>>>(k, sums, cent, S, KV, causal);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
   // dK/dV: K and V 64 rows a box, Q and dO N; dQ: Q and dO 128, K and V N.
@@ -1126,7 +1255,12 @@ cudaError_t launch_bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const b
       !make_map(&tv2, v, B, S, KV, DV, N) || !make_map(&tdo2, dout, B, S, H, DV, kDqRows))
     return cudaErrorInvalidValue;
 
-  const int ns = dkdv_splits(B, S, KV, H / KV, causal);
+  // dQ first: it leaves the consistent D for the dK/dV launch
+  const long long q_works = (long long)((S + kDqRows - 1) / kDqRows) * H * B;
+  flash_bwd_dq_bf16<DQK, DV><<<grid_of(q_works), kBwdThreads, LQ::kSmem, stream>>>(
+      tq2, tk2, tv2, tdo2, lse2, delta, cent, dq, B, S, H, KV, scale, causal);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
   const long long kv_works = (long long)((S + kKeyRows - 1) / kKeyRows) * KV * B * ns;
   flash_bwd_dkdv_bf16<DQK, DV><<<grid_of(kv_works), kBwdThreads, LK::kSmem, stream>>>(
       tq, tk, tv, tdo, lse2, delta, dk, dv, part, B, S, H, KV, ns, scale, causal);
@@ -1141,9 +1275,6 @@ cudaError_t launch_bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const b
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
-  const long long q_works = (long long)((S + kDqRows - 1) / kDqRows) * H * B;
-  flash_bwd_dq_bf16<DQK, DV><<<grid_of(q_works), kBwdThreads, LQ::kSmem, stream>>>(
-      tq2, tk2, tv2, tdo2, lse2, delta, dq, B, S, H, KV, scale, causal);
   return cudaGetLastError();
 }
 
@@ -1224,7 +1355,7 @@ constexpr int width_key(int dqk, int dv) { return dqk * 1024 + dv; }
 // of repro_flash_attention_bwd_workspace floats. Contiguous, 16-byte
 // aligned, all bf16 (is_bf16) or all fp32; (dqk, dv) one of (16, 16), (64,
 // 64), (128, 128), (160, 160), (96, 64), (24, 16); H % KV == 0; B, S >= 1.
-// bf16: three launches on `stream` (four where dK/dV is split); fp32: three
+// bf16: five launches on `stream` (six where dK/dV is split); fp32: three
 // (four where dK and dV take a launch each). Returns cudaGetLastError()
 // after the first that fails (cudaErrorInvalidValue for a width pair
 // without an instance, or when a tensor map cannot be made).

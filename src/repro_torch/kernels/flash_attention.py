@@ -112,7 +112,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``out`` and ``lse``; dk and dv sum over each KV head's query heads. A
     CPU tensor takes the plain version (:func:`ref.attention_bwd_ref`,
     autograd through ``attention_ref``). A CUDA tensor launches the kernels
-    (three or four launches, counted once in
+    (five or six launches, counted once in
     ``flash_attention_bwd.launches``) or
     raises, on the inputs :func:`flash_attention` takes, with ``out`` and
     ``dout`` shaped as its output and typed as q, and ``lse`` (B, H, S)

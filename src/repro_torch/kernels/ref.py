@@ -279,6 +279,45 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, s, h, dv).to(q.dtype)
 
 
+def attention_rounding_p(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, block: int = 128
+                         ) -> torch.Tensor:
+    """The plain attention with the bf16 flash kernel's one extra rounding:
+    its probabilities rounded to bf16 before p v, which the tensor cores
+    take (the plain version keeps them fp32), at the points where the
+    kernel rounds them. The kernel's online softmax walks the keys in
+    ``block``-column tiles (``csrc/flash_attention.cu``): per tile the
+    running max m (log2 units) takes the tile's, p = exp2(s log2(e) scale -
+    m) in fp32, the row sum and the accumulator are rescaled by exp2(m_old
+    - m) and take p's fp32 sum and bf16(p) v. So each P is rounded relative
+    to the max so far, not the row's. Masked scores are -1e30, as there.
+    Self-attention (S == T). For comparisons (the tests and
+    ``chip_smoke.py``): no model path calls it."""
+    b, s, h, hd = q.shape
+    t = k.shape[1]
+    kr, vr = (x.repeat_interleave(h // k.shape[2], 2).float() for x in (k, v))
+    sl2 = (1.0 / math.sqrt(hd)) * 1.4426950408889634
+    sc = torch.einsum("bshd,bthd->bhst", q.float(), kr)
+    if causal:
+        sc = sc.masked_fill(torch.ones(s, t, dtype=torch.bool,
+                                       device=q.device).triu(1), -1e30)
+    m = torch.full((b, h, s), -1e30, dtype=torch.float32, device=q.device)
+    lsum = torch.zeros_like(m)
+    acc = torch.zeros((b, h, s, v.shape[3]), dtype=torch.float32,
+                      device=q.device)
+    for j in range(0, t, block):
+        sb = sc[..., j:j + block] * sl2
+        mn = torch.maximum(m, sb.amax(-1))
+        corr = torch.exp2(m - mn)
+        p = torch.exp2(sb - mn[..., None])
+        lsum = lsum * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhst,bthd->bhsd", p.to(torch.bfloat16).float(), vr[:, j:j + block])
+        m = mn
+    out = acc / torch.clamp(lsum, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
 def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`attention_ref`'s output and each row's log-sum-exp of the

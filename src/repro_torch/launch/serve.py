@@ -9,6 +9,10 @@ weights are drawn on the host from ``--seed`` and moved to the device, so
 one command serves the same model on every device. The loop is
 :func:`generate`, which the tests and ``chip_smoke.py`` call too.
 
+The encoder-decoder (whisper-base) serves as the reference launcher does:
+``prompt_len`` random audio frames, drawn after the tokens, go through the
+encoder; the cross cache holds ``prompt_len`` rows.
+
 A VLM's prompts carry ``num_frontend_tokens`` random front embeddings,
 drawn after the tokens from the same generator, as the reference launcher
 draws them. Prefill writes those front rows first, so the cache holds
@@ -60,13 +64,18 @@ def generate(model: Model, tokens: torch.Tensor, gen: int, *,
     VLM, into a cache of n_front + S + gen rows, then decode greedily:
     ``gen`` tokens in all, the first from prefill's logits (argmax over the
     padded vocab, as the reference), the rest from ``gen - 1`` decode steps
-    at positions n_front + S + i. ``forced`` (B, gen) feeds its tokens to
-    the decode steps instead of the greedy ones (teacher forcing); the
-    greedy tokens are still returned. The cache positions are Python ints
-    and the tokens stay on the device: no host read inside the loop."""
+    at positions n_front + S + i. The encoder-decoder's ``embeds`` are its
+    audio frames (B, S_enc, d): the encoder's input and the cross cache's
+    S_enc rows, not front rows (n_front 0). ``forced`` (B, gen) feeds its
+    tokens to the decode steps instead of the greedy ones (teacher
+    forcing); the greedy tokens are still returned. The cache positions
+    are Python ints and the tokens stay on the device: no host read inside
+    the loop."""
     b, s = tokens.shape
-    front = 0 if embeds is None else embeds.shape[1]
-    prefill = make_prefill_step(model, front + s + gen)
+    audio = model.cfg.family == "audio"
+    front = 0 if embeds is None or audio else embeds.shape[1]
+    enc_len = embeds.shape[1] if audio and embeds is not None else 0
+    prefill = make_prefill_step(model, front + s + gen, enc_len)
     decode = make_decode_step(model)
     dev = tokens.device
     kept = []
@@ -98,15 +107,16 @@ def generate(model: Model, tokens: torch.Tensor, gen: int, *,
 def prompt_inputs(cfg, batch: int, prompt_len: int, seed: int, device
                   ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Synthetic prompts as the reference launcher makes them: (tokens (B,
-    prompt_len) int32, and for a VLM embeds (B, num_frontend_tokens,
-    d_model) float32 standard normals drawn next from the same generator,
-    else None)."""
+    prompt_len) int32, and embeds float32 standard normals drawn next from
+    the same generator: a VLM's (B, num_frontend_tokens, d_model), the
+    encoder-decoder's audio frames (B, prompt_len, d_model); else None)."""
     rng = np.random.default_rng(seed)
     ids = rng.integers(1, cfg.vocab_size, (batch, prompt_len))
     tokens = torch.from_numpy(ids.astype(np.int32)).to(device)
-    if cfg.family != "vlm":
+    if cfg.family not in ("vlm", "audio"):
         return tokens, None
-    e = rng.standard_normal((batch, cfg.num_frontend_tokens, cfg.d_model))
+    rows = cfg.num_frontend_tokens if cfg.family == "vlm" else prompt_len
+    e = rng.standard_normal((batch, rows, cfg.d_model))
     return tokens, torch.from_numpy(e.astype(np.float32)).to(device)
 
 

@@ -13,6 +13,11 @@ steps are logged and returned.
 
 A VLM trains its text path (the pipeline's batches carry no front
 embeddings), with the reference launcher's note on stderr. The
+encoder-decoder (whisper-base) raises ``ValueError`` before any step: its
+encoder needs audio frames, which the pipeline does not make (the
+reference launcher starts and then fails in its encoder, ``AttributeError``
+on the missing embeds); ``train.steps.make_train_step`` trains it on a
+batch that holds ``embeds``. The
 multi-device flags (``--devices``, ``--model-axis``, ``--pod-axis``,
 ``--compress-pod``) need the port's mesh, which ROADMAP.md keeps queued:
 asking for more than one device raises ``NotImplementedError``.
@@ -62,10 +67,16 @@ def main(argv=None) -> list[dict]:
             "--devices, --model-axis, --pod-axis and --compress-pod need the "
             "port's mesh; ROADMAP.md queue 1 item 12.7 keeps them queued")
     cfg = get_tiny(args.arch) if args.tiny else get_config(args.arch)
+    if cfg.family == "audio":
+        raise ValueError(
+            f"{args.arch}: the encoder-decoder trains on audio frames with "
+            f"its tokens, and the token pipeline feeds tokens only; train it "
+            f"through train.steps.make_train_step with a batch holding "
+            f"'embeds' (B, S_enc, {cfg.d_model})")
     dev = resolve_device(args.device)
     model = build_model(cfg, dev,
                         generator=torch.Generator().manual_seed(args.seed))
-    if cfg.family in ("vlm", "audio"):
+    if cfg.family == "vlm":
         print(f"note: {cfg.family} frontend is a stub; launcher trains the "
               "text path (tokens only) — use examples/ for full-batch runs",
               file=sys.stderr)

@@ -5,9 +5,13 @@ leaves (``jax.tree.map(np.asarray, params)``; layers stacked on a leading
 L dim) and returns the state dict of the port's network, unstacked per
 layer (nested groups, the MoE's ``shared`` expert, as dotted names): the
 :class:`~repro_torch.models.transformer.Transformer`'s (a VLM's with its
-``front_proj``), or the :class:`~repro_torch.models.zamba.Hybrid`'s
+``front_proj``), the :class:`~repro_torch.models.zamba.Hybrid`'s
 (``embed``, ``mamba.<i>.<leaf>`` from the stacked Mamba blocks, the one
-``shared`` block's leaves, ``final_norm``, ``lm_head``), in
+``shared`` block's leaves, ``final_norm``, ``lm_head``), the
+:class:`~repro_torch.models.xlstm.XLSTM`'s (``mlstm.<j>`` from the
+reference's stacked index j, ``slstm.<i>`` by period) or the
+:class:`~repro_torch.models.encdec.EncDec`'s (``embed``, ``dec_pos``,
+``enc_layers.<i>``, ``dec_layers.<i>``, ``enc_norm``, ``dec_norm``), in
 ``cfg.param_dtype`` but the MoE router, which stays fp32 as the reference
 keeps it (a bf16 router would round the logits that pick the routes).
 Loaded with ``load_state_dict``, the port computes the same function as the
@@ -48,20 +52,39 @@ def _layer_leaves(group, prefix: str):
             yield prefix + name, leaf
 
 
+def _unstack(sd: dict, group, prefix: str, dt) -> None:
+    """A stacked group's leaves into ``sd`` as ``<prefix>.<i>.<leaf>``, one
+    entry a layer of the leading dim."""
+    for name, leaf in _layer_leaves(group, ""):
+        for i in range(leaf.shape[0]):
+            sd[f"{prefix}.{i}.{name}"] = _tensor(leaf[i], dt)
+
+
 def params_from_jax(tree, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     dt = cfg.param_dtype
-    sd = {"embed": _tensor(tree["embed"]["table"], dt),
-          "final_norm": _tensor(tree["final_norm"], dt)}
-    if not cfg.tie_embeddings or cfg.family == "hybrid":
+    sd = {"embed": _tensor(tree["embed"]["table"], dt)}
+    if cfg.family == "audio":
+        sd["dec_pos"] = _tensor(tree["dec_pos"], dt)
+        sd["enc_norm"] = _tensor(tree["enc_norm"], dt)
+        sd["dec_norm"] = _tensor(tree["dec_norm"], dt)
+        _unstack(sd, tree["enc_layers"], "enc_layers", dt)
+        _unstack(sd, tree["dec_layers"], "dec_layers", dt)
+        return sd
+    sd["final_norm"] = _tensor(tree["final_norm"], dt)
+    if not cfg.tie_embeddings or cfg.family in ("hybrid", "ssm"):
         sd["lm_head"] = _tensor(tree["lm_head"], dt)
     if "front_proj" in tree:
         sd["front_proj"] = _tensor(tree["front_proj"], dt)
     if cfg.family == "hybrid":
         for name, leaf in _layer_leaves(tree["shared"], "shared."):
             sd[name] = _tensor(leaf, dt)
-        for i in range(cfg.num_layers):
-            for name, leaf in tree["mamba"].items():
-                sd[f"mamba.{i}.{name}"] = _tensor(leaf[i], dt)
+        _unstack(sd, tree["mamba"], "mamba", dt)
+        return sd
+    if cfg.family == "ssm":
+        # the mLSTM stack in the reference's order (period by period, the
+        # trailing blocks last), as the port's ``mlstm`` list holds it
+        _unstack(sd, tree["mlstm"], "mlstm", dt)
+        _unstack(sd, tree["slstm"], "slstm", dt)
         return sd
     layers = tree["layers"]
     for i in range(cfg.num_layers):

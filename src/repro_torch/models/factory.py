@@ -1,38 +1,37 @@
 """Model factory of the port (``repro/models/factory.py``): the dense, MoE
-and VLM families (``transformer.Transformer``) and the Mamba2 hybrid
-(``zamba.Hybrid``).
+and VLM families (``transformer.Transformer``), the Mamba2 hybrid
+(``zamba.Hybrid``), xLSTM (``ssm``, ``xlstm.XLSTM``) and the
+encoder-decoder (``audio``, ``encdec.EncDec``).
 
 ``build_model(cfg, device)`` returns a :class:`Model`: an ``nn.Module``
 holding the family's network drawn from a ``torch.Generator``, with
 ``loss_fn``, ``forward``, ``init_cache`` and ``decode_step``. The
 parameters live in the module, so the step functions take none (the
-reference passes its parameter tree to every call). Left for later: the
-``ssm`` (xLSTM) and ``audio`` (encoder-decoder) families.
+reference passes its parameter tree to every call).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as TF
+from repro_torch.models import xlstm as XL
 from repro_torch.models import zamba as ZB
 from repro_torch.models.common import ModelConfig
 from repro_torch.utils import resolve_device
 
-# the families the port builds (``network``); the others raise
-PORTED_FAMILIES = ("dense", "moe", "vlm", "hybrid")
-
-
 def network(cfg: ModelConfig, generator: torch.Generator) -> nn.Module:
     """The family's network, its weights drawn from ``generator``."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.arch}: family {cfg.family!r} is not ported (ported: "
-            f"{', '.join(PORTED_FAMILIES)}); ROADMAP.md queue 1 item 12 keeps "
-            f"it queued")
+    if cfg.family in ("dense", "moe", "vlm"):
+        return TF.Transformer(cfg, generator)
     if cfg.family == "hybrid":
         return ZB.Hybrid(cfg, generator)
-    return TF.Transformer(cfg, generator)
+    if cfg.family == "ssm":
+        return XL.XLSTM(cfg, generator)
+    if cfg.family == "audio":
+        return ED.EncDec(cfg, generator)
+    raise ValueError(f"{cfg.arch}: unknown family {cfg.family!r}")
 
 
 class Model(nn.Module):
@@ -58,7 +57,9 @@ class Model(nn.Module):
         sum of the mask) and the forward's aux (summed over the layers;
         zero for the dense family), as the reference's. With ``embeds``
         (B, n_front, d), a VLM's logits of the front rows are dropped and
-        the same loss taken over the text tokens."""
+        the same loss taken over the text tokens; the encoder-decoder takes
+        its frame embeddings (B, S_enc, d) there, and its logits are the
+        decoder's, one a token."""
         tokens = batch["tokens"]
         embeds = batch.get("embeds")
         logits, _, aux = self.forward(tokens=tokens, embeds=embeds,
@@ -84,12 +85,19 @@ class Model(nn.Module):
         """(logits (B, S_total, padded_vocab), cache, aux)."""
         return self.lm(tokens, embeds=embeds, mode=mode, cache=cache, pos=pos)
 
-    def init_cache(self, batch: int, max_len: int):
+    def init_cache(self, batch: int, max_len: int, enc_len: int = 0):
         """The family's decode cache, zeros: the stacked KV (or MLA latent)
-        cache, or the hybrid's Mamba states and shared-block KV slots."""
-        if self.cfg.family == "hybrid":
-            return ZB.init_hybrid_cache(self.cfg, batch, max_len, self.device)
-        return TF.init_cache(self.cfg, batch, max_len, self.device)
+        cache, the hybrid's Mamba states and shared-block KV slots, xLSTM's
+        mLSTM and sLSTM states (no dim grows with ``max_len``), or the
+        encoder-decoder's self KV and ``enc_len`` rows of cross KV."""
+        cfg, dev = self.cfg, self.device
+        if cfg.family == "hybrid":
+            return ZB.init_hybrid_cache(cfg, batch, max_len, dev)
+        if cfg.family == "ssm":
+            return XL.init_xlstm_cache(cfg, batch, dev)
+        if cfg.family == "audio":
+            return ED.init_encdec_cache(cfg, batch, max_len, enc_len, dev)
+        return TF.init_cache(cfg, batch, max_len, dev)
 
     def decode_step(self, cache, tokens: torch.Tensor, pos: int):
         """(logits (B, S, vocab_size), cache): the vocab padding trimmed."""

@@ -1,6 +1,7 @@
 """Shared neural layers of the port (``repro/models/layers.py``): init
-helpers, RMSNorm, RoPE, embeddings, the SwiGLU/GELU MLP, GQA attention and
-MLA (multi-head latent attention, minicpm3-4b's).
+helpers, RMSNorm and LayerNorm, RoPE, embeddings, the activations as the
+reference rounds them, the SwiGLU/GELU MLP, GQA attention (self and cross)
+and MLA (multi-head latent attention, minicpm3-4b's).
 
 Layers are functional, as in the reference: ``init_*`` returns a dict of
 tensors (weights in the reference's ``(in, out)`` layout, applied as
@@ -9,14 +10,16 @@ tensors (weights in the reference's ``(in, out)`` layout, applied as
 softmax, in the reference's order of operations and rounding points.
 
 Attention modes: ``causal`` / ``bidir`` (prefill: self-attention with
-S == T, through the flash kernel behind ``kernels/ops.attention``) and
+S == T, through the flash kernel behind ``kernels/ops.attention``),
 ``decode`` (one new token against the KV cache, the reference's masked
-einsum math in plain torch). MLA: prefill and training materialise
-per-head K and V (q k over nope + rope, p v over the value width) and run
+einsum math in plain torch) and ``cross`` / ``cross_decode``. MLA:
+prefill and training materialise per-head K and V (q k over nope + rope, p v over the value width) and run
 the same flash kernel; decode is the reference's absorbed attention over
-the latent cache, in plain torch. Left for later: the cross modes, the
-chunked paths for S > 8192, the multi-device flash-decode (GQA's and MLA's
-``mla_seq_shard``) and ``layer_norm``.
+the latent cache, in plain torch. The cross modes (the encoder-decoder's)
+attend over the encoder's K and V without a mask: the flash kernel where
+the queries are as many as the encoder's rows, the plain einsums
+otherwise. Left for later: the chunked paths for S > 8192 and the
+multi-device flash-decode (GQA's and MLA's ``mla_seq_shard``).
 """
 from __future__ import annotations
 
@@ -62,6 +65,25 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     ms = (xf * xf).sum(-1) / x.shape[-1]
     inv = torch.rsqrt(ms + eps).to(x.dtype)
     return x * inv[..., None] * scale.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor,
+               bias: torch.Tensor | None, eps: float) -> torch.Tensor:
+    """LayerNorm at the reference's rounding points: the mean and the mean
+    square from fp32-accumulated sums, ``var = max(ms - mu^2, 0)`` and
+    ``rsqrt`` in fp32, ``mu`` and ``inv`` rounded to x's dtype, then
+    ``(x - mu) * inv * scale (+ bias)`` in x's dtype (``F.layer_norm``
+    takes a two-pass variance and rounds once)."""
+    d = x.shape[-1]
+    xf = x.float()
+    mu = xf.sum(-1) / d
+    ms = (xf * xf).sum(-1) / d
+    inv = torch.rsqrt(torch.clamp(ms - mu * mu, min=0.0) + eps)
+    y = (x - mu.to(x.dtype)[..., None]) * inv.to(x.dtype)[..., None] * \
+        scale.to(x.dtype)
+    if bias is not None:
+        y = y + bias.to(x.dtype)
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -112,6 +134,82 @@ def unembed_fwd(table: torch.Tensor, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# activations, as the reference's jaxprs round them
+# ---------------------------------------------------------------------------
+
+
+class _Logistic(torch.autograd.Function):
+    """``jax.nn.sigmoid``'s ``logistic``: forward 1 / (1 + exp(-x)) as XLA
+    lowers it, each op rounded to x's dtype; backward g * (s * (1 - s)),
+    its JVP rule's order of operations (autograd through the forward's
+    ops rounds elsewhere)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s * (1 - s))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as the reference rounds it. Below fp32
+    (``_Logistic``): the same bits forward and backward in bf16, where
+    ``torch.sigmoid``, which rounds once, differs on about a third of the
+    values. In fp32 a rounding per op is 2^-24 and XLA's exp is within an
+    ulp of exact: ``torch.sigmoid`` comes closer to it (0.4% of values an
+    ulp apart) than torch's own exp op by op (4%)."""
+    if x.dtype in (torch.float32, torch.float64):
+        return torch.sigmoid(x)
+    return _Logistic.apply(x)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: x * sigmoid(x), each op rounded to x's dtype
+    (``F.silu`` rounds once); in fp32 ``F.silu``, for ``sigmoid``'s
+    reason (its gradient, too, is the nearer to the reference's)."""
+    if x.dtype in (torch.float32, torch.float64):
+        return F.silu(x)
+    return x * sigmoid(x)
+
+
+class _Gelu(torch.autograd.Function):
+    """``jax.nn.gelu``'s tanh approximation as its jaxpr runs it, op by op in
+    x's dtype, its constants first rounded to that dtype: forward
+    x * (0.5 * (1 + tanh(c2 * (x + c1 * x^3)))), c1 = 0.044715, c2 =
+    sqrt(2/pi); backward the ops of its VJP in their order (tanh's
+    derivative as g (1 - t) + g (1 - t) t, x^3's as 3 x^2)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        c1 = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+        c2 = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype,
+                          device=x.device)
+        t = torch.tanh(c2 * (x + c1 * (x * x * x)))
+        h = 0.5 * (1 + t)
+        ctx.save_for_backward(x, t, h, c1, c2)
+        return x * h
+
+    @staticmethod
+    def backward(ctx, g):
+        x, t, h, c1, c2 = ctx.saved_tensors
+        o = (0.5 * (g * x)) * (1 - t)
+        r = c2 * (o + o * t)
+        return (g * h + r) + (c1 * r) * (3 * (x * x))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (tanh approximation, its default) as the reference
+    rounds it (``_Gelu``): in bf16 the same bits forward and backward
+    (``F.gelu(approximate="tanh")`` differs on ~40% of them)."""
+    return _Gelu.apply(x)
+
+
+# ---------------------------------------------------------------------------
 # MLP (SwiGLU; GELU via kind='gelu')
 # ---------------------------------------------------------------------------
 
@@ -132,9 +230,9 @@ def init_mlp(d: int, d_ff: int, cfg: ModelConfig, generator: torch.Generator,
 def mlp_fwd(p, x: torch.Tensor) -> torch.Tensor:
     h = x @ p["wi"].to(x.dtype)
     if "wg" in p:
-        h = F.silu(x @ p["wg"].to(x.dtype)) * h
+        h = silu(x @ p["wg"].to(x.dtype)) * h
     else:
-        h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
+        h = gelu(h)
     return h @ p["wo"].to(x.dtype)
 
 
@@ -194,19 +292,32 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
 
 
 def attention_fwd(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
-                  rope=None, cache=None, pos: int | None = None):
-    """GQA self-attention. Returns (out, cache).
+                  rope=None, cache=None, pos: int | None = None,
+                  x_kv: torch.Tensor | None = None):
+    """GQA attention. Returns (out, cache).
 
-    mode 'causal' | 'bidir' (prefill; with a cache, k and v are written to
-    its first S rows) or 'decode' (k and v written at ``pos``, then the new
-    tokens attend over the cache up to ``pos + S``). cache: {'k', 'v'} each
-    (B, S_max, KV, hd), updated in place (the reference donates it); pos is
-    a Python int, so nothing is read back from the device.
+    mode 'causal' | 'bidir' (prefill: self-attention; with a cache, k and
+    v are written to its first S rows), 'decode' (k and v written at
+    ``pos``, then the new tokens attend over the cache up to ``pos + S``),
+    'cross' (K and V projected from ``x_kv`` (B, T, d), the encoder's
+    output, and returned as the cache) or 'cross_decode' (K and V read
+    from ``cache``, the encoder's). Both cross modes attend without a mask
+    over all T rows: through the flash kernel where S == T (the only
+    shapes the TPU kernel takes), the plain einsums otherwise. cache:
+    {'k', 'v'} each (B, S_max, KV, hd), updated in place by the self modes
+    (the reference donates it); pos is a Python int, so nothing is read
+    back from the device.
     """
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     dt = x.dtype
     q = (x @ p["wq"].to(dt)).reshape(B, S, H, hd)
+    if mode in ("cross", "cross_decode"):
+        if mode == "cross":
+            cache = {"k": (x_kv @ p["wk"].to(dt)).reshape(B, -1, KV, hd),
+                     "v": (x_kv @ p["wv"].to(dt)).reshape(B, -1, KV, hd)}
+        out = _sdpa(q, cache["k"].to(dt), cache["v"].to(dt), causal=False)
+        return out.reshape(B, S, H * hd) @ p["wo"].to(dt), cache
     k = (x @ p["wk"].to(dt)).reshape(B, S, KV, hd)
     v = (x @ p["wv"].to(dt)).reshape(B, S, KV, hd)
     if rope is not None:
@@ -225,7 +336,7 @@ def attention_fwd(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
         out = _sdpa(q, cache["k"].to(dt), cache["v"].to(dt), causal=True,
                     q_offset=pos, kv_len=pos + S)
     else:
-        raise NotImplementedError(f"attention mode {mode!r} is not ported")
+        raise ValueError(f"attention mode {mode!r}")
     return out.reshape(B, S, H * hd) @ p["wo"].to(dt), cache
 
 

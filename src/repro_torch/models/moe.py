@@ -28,13 +28,12 @@ on the device: a forward reads nothing back to the host.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.mesh import VirtualMesh
 from repro_torch.core.repartition import pack_by_partition, staged_all_to_all
 from repro_torch.core.stats import pick_stages
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import _dense, mlp_fwd
+from repro_torch.models.layers import _dense, mlp_fwd, silu
 from repro_torch.utils import ceil_div, round_up
 
 ROUTED = ("router", "wi", "wg", "wo")
@@ -100,12 +99,12 @@ def routed(probs: torch.Tensor, topi: torch.Tensor, cfg: ModelConfig):
 
 
 def _expert_ffn(wi, wg, wo, toks: torch.Tensor) -> torch.Tensor:
-    """(E_loc, C, d) tokens through per-expert SwiGLU, the weights cast to
-    the tokens' dtype."""
+    """(E_loc, C, d) tokens through per-expert SwiGLU (SiLU rounded as the
+    reference's, ``layers.silu``), the weights cast to the tokens' dtype."""
     dt = toks.dtype
     h = torch.bmm(toks, wi.to(dt))
     g = torch.bmm(toks, wg.to(dt))
-    return torch.bmm(F.silu(g) * h, wo.to(dt))
+    return torch.bmm(silu(g) * h, wo.to(dt))
 
 
 def _bucket_capacity(tokens: int, e_pad: int, cfg: ModelConfig) -> int:

@@ -19,8 +19,10 @@ family), as the reference's scan sums them. The VLM front is the
 reference's stub: ``embeds`` (B, n_front, d), precomputed patch
 embeddings, are cast to the activation dtype, projected by ``front_proj``
 (d, d) and put before the token embeddings; positions run over the whole
-row, front rows first. Left for later: MLA with experts or a front, the
-audio front, and the ``"dots"`` policy (matmul outputs saved).
+row, front rows first. The audio front is the encoder-decoder's
+(``models/encdec.py``). Left for later: MLA with experts or a front, and
+the ``"dots"`` policy (matmul outputs saved; ROADMAP.md queue 1 item
+12.7).
 """
 from __future__ import annotations
 
@@ -129,9 +131,9 @@ class Transformer(nn.Module):
                 (mla and cfg.frontend != "none"):
             raise NotImplementedError(
                 f"{cfg.arch}: only the dense GQA, dense MLA, MoE (GQA) and "
-                f"VLM (GQA, vision_stub front) families are ported; MLA "
-                f"takes no front and the audio front is queued in "
-                f"ROADMAP.md")
+                f"VLM (GQA, vision_stub front) families run here; MLA "
+                f"takes no front, and the audio front is the "
+                f"encoder-decoder's (models/encdec.py)")
         self.cfg = cfg
         dev = generator.device
         self.embed = _frozen(NN.init_embed(cfg, generator))

@@ -20,7 +20,8 @@ dt_bias) folded into k = B Δ, q = C (one group shared by the heads), the
 chunked GLA (prefill, training) or its decode step over the fp32 state,
 the ``D`` skip, a gated RMSNorm (norm(y) * SiLU(z)), ``out_proj`` and the
 residual, with the reference's rounding points (``models/recurrent.py``;
-SiLU as ``jax.nn.silu`` lowers, op by op in the activation dtype).
+SiLU as ``jax.nn.silu`` lowers, op by op in the activation dtype:
+``layers.silu``).
 
 Like the reference, the shared block sees the hidden state only (Zamba2's
 concatenated embeddings and per-invocation LoRA are left out there too).
@@ -50,13 +51,6 @@ def _mamba_dims(cfg: ModelConfig):
     conv_ch = d_in + 2 * n                   # x, B, C go through the conv
     d_proj = 2 * d_in + 2 * n + h            # z, x, B, C, dt
     return d_in, n, h, p, conv_ch, d_proj
-
-
-def _silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu`` as the reference lowers it, x * (1 / (1 + exp(-x))),
-    each op rounded to x's dtype (``F.silu`` rounds once: in bf16 a third
-    of its values then differ by an ulp, which the gated norm carries)."""
-    return x * (1 / (1 + torch.exp(-x)))
 
 
 def _mamba_split(zxbcdt: torch.Tensor, cfg: ModelConfig):
@@ -95,7 +89,7 @@ def mamba_fwd(p, x: torch.Tensor, cfg: ModelConfig, *, cache=None,
 
     xbc, new_conv = causal_depthwise_conv(
         xbc, p["conv_w"], None if cache is None else cache["conv"])
-    xbc = _silu(xbc)
+    xbc = NN.silu(xbc)
     xin = xbc[..., :d_in]
     bmat = xbc[..., d_in:d_in + n]              # (B, S, N), one group
     cmat = xbc[..., d_in + n:]
@@ -118,7 +112,7 @@ def mamba_fwd(p, x: torch.Tensor, cfg: ModelConfig, *, cache=None,
             initial_state=None if cache is None else cache["ssm"])
     y = y + v * p["D"].to(dt_)[None, None, :, None]
     y = y.reshape(b, s, d_in)
-    y = NN.rms_norm(y, p["norm"], cfg.norm_eps) * _silu(z)
+    y = NN.rms_norm(y, p["norm"], cfg.norm_eps) * NN.silu(z)
     out = y @ p["out_proj"].to(dt_)
     new_cache = None
     if cache is not None:

@@ -63,13 +63,21 @@ def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
                           for x in tree.values()))
 
 
+# the groups the reference stacks on a leading layer dim: the transformer's
+# layers, the hybrid's Mamba blocks, xLSTM's mLSTM and sLSTM blocks, the
+# encoder-decoder's two stacks (the port holds one module a layer, named
+# ``<group>.<i>.``)
+STACKED_GROUPS = ("layers.", "mamba.", "mlstm.", "slstm.", "enc_layers.",
+                  "dec_layers.")
+
+
 def reference_rank(name: str, p: torch.Tensor) -> int:
     """The rank of ``p``'s leaf in the reference's tree: the reference
-    stacks every per-layer leaf on a leading L dim, so a ``layers.*`` (or
-    a hybrid's ``mamba.*``) parameter has one more dim there (the per-layer
-    norms, (d,) here, are (L, d) there; the hybrid's one shared block is
-    not stacked)."""
-    return p.ndim + (1 if name.startswith(("layers.", "mamba.")) else 0)
+    stacks every per-layer leaf on a leading L dim, so a parameter of a
+    ``STACKED_GROUPS`` group has one more dim there (the per-layer norms,
+    (d,) here, are (L, d) there, as are xLSTM's per-head gate biases, (H,)
+    here; the hybrid's one shared block is not stacked)."""
+    return p.ndim + (1 if name.startswith(STACKED_GROUPS) else 0)
 
 
 @torch.no_grad()

@@ -133,7 +133,8 @@ def make_train_step(model: Model, ocfg: OptConfig, *, microbatches: int = 1,
     """Returns step_fn(state, batch) -> (state, metrics). ``state.params``
     must be the model's parameters (``init_train_state``/``bind_state``);
     ``batch`` holds ``tokens`` (B, S), ``weight`` (B,) and, for a VLM,
-    ``embeds`` (B, n_front, d) on the model's device, B a multiple of
+    ``embeds`` (B, n_front, d) (for the encoder-decoder, its frame
+    embeddings (B, S_enc, d)) on the model's device, B a multiple of
     ``microbatches``."""
     if compress_pod:
         raise NotImplementedError(_POD_TODO)
@@ -162,17 +163,19 @@ def make_eval_step(model: Model):
     return eval_fn
 
 
-def make_prefill_step(model: Model, max_len: int):
+def make_prefill_step(model: Model, max_len: int, enc_len: int = 0):
     """batch -> (last_logits (B, padded_vocab), cache): a causal pass over
-    ``batch['tokens']`` (after a VLM's ``batch['embeds']``, its front rows)
-    that writes a fresh cache of ``max_len`` rows, the model's own
-    (``Model.init_cache``: the stacked KV cache, MLA's latents, or the
-    hybrid's Mamba states and shared-block KV slots). ``max_len`` counts
-    the front rows. The logits keep the vocab padding, as the reference's
-    prefill does."""
+    ``batch['tokens']`` (after a VLM's ``batch['embeds']``, its front rows;
+    the encoder-decoder's ``batch['embeds']`` are its ``enc_len`` audio
+    frames) that writes a fresh cache of ``max_len`` rows, the model's own
+    (``Model.init_cache``: the stacked KV cache, MLA's latents, the
+    hybrid's Mamba states and shared-block KV slots, xLSTM's states, or the
+    encoder-decoder's self and cross KV). ``max_len`` counts a VLM's front
+    rows. The logits keep the vocab padding, as the reference's prefill
+    does."""
     def prefill_fn(batch):
         tokens = batch["tokens"]
-        cache = model.init_cache(tokens.shape[0], max_len)
+        cache = model.init_cache(tokens.shape[0], max_len, enc_len)
         logits, cache, _ = model.forward(tokens=tokens,
                                          embeds=batch.get("embeds"),
                                          mode="causal", cache=cache)

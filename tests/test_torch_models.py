@@ -49,6 +49,9 @@ MLA_ARCHS = ["minicpm3-4b"]
 # the VLM and the Mamba2 hybrid: tests/test_torch_vlm.py and
 # tests/test_torch_hybrid.py hold their models
 VLM_HYBRID_ARCHS = ["internvl2-76b", "zamba2-1.2b"]
+# xLSTM and the encoder-decoder: tests/test_torch_xlstm.py and
+# tests/test_torch_encdec.py hold their models
+SSM_AUDIO_ARCHS = ["xlstm-1.3b", "whisper-base"]
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"f32": 1e-5, "bf16": 3e-2}
@@ -94,7 +97,7 @@ def _tokens(cfg, b, s, seed=0):
 
 
 @pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS + MLA_ARCHS +
-                         VLM_HYBRID_ARCHS)
+                         VLM_HYBRID_ARCHS + SSM_AUDIO_ARCHS)
 @pytest.mark.parametrize("which", ["get_config", "get_tiny"])
 def test_config_copies_the_reference_value_for_value(arch, which):
     j = getattr(jconfigs, which)(arch)
@@ -112,13 +115,15 @@ def test_config_copies_the_reference_value_for_value(arch, which):
 
 def test_every_ported_config_has_flash_kernel_instances():
     """The card's attention has an instance for the head dims of every
-    ported arch, full size and TINY: (hd, hd), or MLA's (nope + rope, v);
-    a pair without one raises there."""
+    ported arch with attention (all but xLSTM's), full size and TINY: (hd,
+    hd), or MLA's (nope + rope, v); a pair without one raises there."""
     from repro_torch.kernels.flash_attention import KERNEL_HEAD_DIMS
 
-    assert sorted(tconfigs.PORTED) == sorted(ARCHS + MOE_ARCHS + MLA_ARCHS +
-                                             VLM_HYBRID_ARCHS)
-    for arch in tconfigs.PORTED:
+    assert sorted(tconfigs.ARCH_IDS) == sorted(
+        ARCHS + MOE_ARCHS + MLA_ARCHS + VLM_HYBRID_ARCHS + SSM_AUDIO_ARCHS)
+    for arch in tconfigs.ARCH_IDS:
+        if tconfigs.get_config(arch).family == "ssm":
+            continue
         for cfg in (tconfigs.get_config(arch), tconfigs.get_tiny(arch)):
             widths = ((cfg.mla_nope_dim + cfg.mla_rope_dim, cfg.mla_v_dim)
                       if cfg.attn_kind == "mla" else (cfg.hd, cfg.hd))
@@ -126,8 +131,19 @@ def test_every_ported_config_has_flash_kernel_instances():
 
 
 def test_unported_arch_raises_naming_the_roadmap():
+    """Every arch of the reference is registered; what the port still
+    lacks (pod compression, which needs a multi-pod mesh) raises naming the
+    roadmap, an unknown arch raises ``KeyError`` and an unknown family
+    ``ValueError``."""
+    from repro_torch.models.factory import network
+    from repro_torch.train import steps as tsteps
+
+    assert sorted(tconfigs.ARCH_IDS) == sorted(jconfigs.ARCH_IDS)
+    with pytest.raises(ValueError, match="family"):
+        network(tconfigs.get_tiny("llama3-8b").replace(family="no-such"),
+                torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconfigs.get_config("xlstm-1.3b")
+        tsteps.make_train_step(None, None, compress_pod=True)
     with pytest.raises(KeyError):
         tconfigs.get_tiny("no-such-arch")
 

@@ -34,6 +34,7 @@ from repro.train.steps import make_prefill_step as j_prefill  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.models.convert import (  # noqa: E402
     params_from_jax, train_state_from_jax)
 from repro_torch.models.factory import build_model  # noqa: E402
@@ -274,13 +275,19 @@ def test_chip_smoke_tiny_commands_phase_rehearses_on_the_cpu(monkeypatch):
         argv + ["--batch", "4", "--seq", "32"]))
     out = smoke.phase_tiny(cpu)
     assert sorted(out["serve"]) == sorted(smoke.TINY_SERVE_ARCHS)
-    for r in out["serve"].values():
-        assert r["hd"] == 16 and r["launches"]["flash_attention"] == 2
+    # flash once an attention layer: 2 for the TINY transformers and the
+    # hybrid's two periods, none for xLSTM, 2 + 2 + 2 for the
+    # encoder-decoder (encoder, decoder, cross at as many frames as tokens)
+    for arch, r in out["serve"].items():
+        n = smoke.attn_layers(tconfigs.get_tiny(arch))
+        assert n == {"xlstm-1.3b": 0, "whisper-base": 6}.get(arch, 2)
+        assert r["hd"] == 16 and r["launches"]["flash_attention"] == n
         assert r["prefill_max_abs_err"] == 0.0 and r["same_tokens"] == r["tokens"]
     for arch, r in out["train"].items():
+        n = smoke.attn_layers(tconfigs.get_tiny(arch))
         assert r["hd"] == 16 and r["max_loss_diff"] == 0.0
-        assert r["launches"]["flash_attention_lse"] == 2 * 2 * 2
-        assert r["launches"]["flash_attention_bwd"] == 2 * 2
+        assert r["launches"]["flash_attention_lse"] == 2 * n * 2
+        assert r["launches"]["flash_attention_bwd"] == n * 2
         assert len(r["loss"]) == 2
     monkeypatch.setattr(smoke, "TINY_LOSS_TOL", -1.0)
     with pytest.raises(smoke.CheckFailed, match="losses"):
@@ -288,19 +295,6 @@ def test_chip_smoke_tiny_commands_phase_rehearses_on_the_cpu(monkeypatch):
     monkeypatch.setattr(fa, "flash_attention", real["flash_attention"])
     with pytest.raises(smoke.CheckFailed, match="launched"):
         smoke.phase_tiny(cpu)
-
-
-def _attention_rounding_p(q, k, v, *, causal=True):
-    """The flash kernel's function with its one extra rounding: P to bf16
-    before p v (the plain version keeps it fp32)."""
-    b, s, h, hd = q.shape
-    kr, vr = (x.repeat_interleave(h // k.shape[2], 2).float() for x in (k, v))
-    sc = torch.einsum("bshd,bthd->bhst", q.float(), kr) / math.sqrt(hd)
-    if causal:
-        sc = sc.masked_fill(torch.ones(s, s, dtype=torch.bool).triu(1), -1e30)
-    p = torch.exp(sc - sc.amax(-1, keepdim=True))
-    o = torch.einsum("bhst,bthd->bshd", p.to(torch.bfloat16).float(), vr)
-    return (o / p.sum(-1).transpose(1, 2)[..., None]).to(q.dtype)
 
 
 @pytest.mark.parametrize("arch", ["granite-3-2b", "stablelm-12b", "minicpm3-4b"])
@@ -322,7 +316,7 @@ def test_tiny_loss_tolerance_tells_a_wrong_mask_from_the_kernels_rounding(
         return np.array([m["loss"] for m in hist])
 
     plain = losses(real)
-    rounded = losses(_attention_rounding_p)
+    rounded = losses(tref.attention_rounding_p)
     unmasked = losses(lambda q, k, v, causal=True: real(q, k, v, causal=False))
     assert np.abs(rounded - plain).max() < tol / 3
     assert np.abs(unmasked - plain).max() > 2 * tol

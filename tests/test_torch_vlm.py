@@ -112,14 +112,15 @@ def test_front_proj_is_carried_and_only_the_vision_front_is_ported():
     assert sd["front_proj"].shape == (64, 64)
     np.testing.assert_array_equal(tm.lm.front_proj.float().numpy(),
                                   _np(js.params["front_proj"]))
+    # the audio front is the encoder-decoder's, not the decoder-only
+    # transformer's; the encoder-decoder takes no vision front
     cfg = tconfigs.get_tiny(ARCH)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
         build_model(cfg.replace(frontend="audio_stub"), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="audio_stub"):
         build_model(cfg.replace(family="audio"), "cpu")
-    for arch in ("xlstm-1.3b", "whisper-base"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tconfigs.get_config(arch)
+    for arch, family in (("xlstm-1.3b", "ssm"), ("whisper-base", "audio")):
+        assert tconfigs.get_config(arch).family == family
     plain = build_model(tconfigs.get_tiny("llama3-8b"), "cpu")
     toks, emb = _inputs(1, 4, 0)
     with pytest.raises(ValueError, match="front"):
