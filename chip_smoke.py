@@ -141,8 +141,9 @@ Phases (any failed check raises, and the script exits nonzero):
 15. The harnesses: ``repro_torch.testing.plan_fuzz.run_fuzz`` over 100
    plans at 8 shards with the reference CI leg's seed 20260807 (every plan
    verifier-clean and its fused result equal to the eager oracle), and each
-   of the 18 cases of ``repro_torch.testing.dist_cases`` (16 relational,
-   ``moe_ep`` and ``moe_decode_psum``) once, held to what
+   of the 21 cases of ``repro_torch.testing.dist_cases`` (16 relational,
+   ``moe_ep``, ``moe_decode_psum``, ``flash_decode_shard``,
+   ``compress_pod`` and ``elastic_restore``) once, held to what
    tests/test_dist.py asserts (``dist_cases.checks``).
 
 Then, with the relational tables freed, the serving path (the LM slice):
@@ -194,7 +195,7 @@ Then, with the serving model freed, the training path:
    served at full width and depth as phases 8-10 serve llama3-8b (flash
    once a layer in the prefill, 40, none a decode step; logits within
    ``LM_TOL`` of the plain run and of one causal forward; times, peak,
-   one traced prefill and 8 decode steps); then trained at
+   one traced prefill and 4 decode steps); then trained at
    ``BIG_TRAIN_LAYERS`` (4) of its 40 layers, full width (2.14 B
    parameters; 40 layers need ~240 GB of training state), 8 x 1024 tokens
    a step in the reference's 8 microbatches: 2 layers against
@@ -230,7 +231,7 @@ Then, with the serving model freed, the training path:
    ``MOE_FLIP_SHARE``), every step's logits within ``LM_TOL``; the serving
    invariant at capacity factor ``MOE_INVARIANT_CF`` (one causal forward
    on prefill + decode's routes, within ``LM_TOL``, nothing dropped);
-   times, peak, one traced prefill and 8 decode steps (flash's and the
+   times, peak, one traced prefill and 4 decode steps (flash's and the
    histogram's device ms). Then trained at full width and
    ``MOE_TRAIN_LAYERS`` (4) of 24 layers (2.91 B parameters), 8 x 1024
    tokens a step in its 4 microbatches: 2 layers against ``oracle_scope()``
@@ -248,7 +249,7 @@ Then, with the serving model freed, the training path:
    absorbed decode step; logits within ``LM_TOL`` of the plain run, and
    prefill + absorbed decode within ``MLA_DECODE_TOL`` of one causal
    forward; a bidirectional mask must move the prefill logits by more
-   than 3 times that; times, peak, one traced prefill and 8 decode steps.
+   than 3 times that; times, peak, one traced prefill and 4 decode steps.
    Then trained at full width and ``MLA_TRAIN_LAYERS`` (8) of 62 layers
    (0.88 B) in its 8 microbatches: 2 layers against ``oracle_scope()``
    with phase 16's tolerances, a warm-up step and 2 steps of 128 LSE
@@ -294,10 +295,10 @@ Then, with the serving model freed, the training path:
    invariant as the hybrid's (fp32 within ``XLSTM_F32_TOL``, the bf16
    path within ``HYBRID_NOISE_RATIO`` of its forward's own rounding), the
    states zeroed after the prefill moving the logits by more than 3
-   ``LM_TOL``; times, peak, one traced prefill and 8 decode steps. Then
+   ``LM_TOL``; times, peak, one traced prefill and 4 decode steps. Then
    trained uncut, 8 x 1024 tokens a step in its 4 microbatches
    (``remat="full"`` a period), a warm-up step and 2 steps, its first loss
-   near ln 50304, one profiled step.
+   near ln 50304 (no profiled step: PERF.md keeps an earlier trace).
 24. The encoder-decoder: whisper-base uncut (6 + 6 blocks, d 512, 8/8
    heads of 64, tied vocab 51865, LayerNorm, GELU) serves ``LM_BATCH`` x
    (``LM_PROMPT`` random audio frames + ``LM_PROMPT`` prompt ids) and
@@ -316,6 +317,34 @@ Then, with the serving model freed, the training path:
    the same weights in fp32, the kernel run at most ``GRAD_NOISE_RATIO``
    times as far from the fp32 run as the plain run is; a warm-up step and
    2 steps of 36 LSE forwards and 18 backwards each, one profiled step.
+25. The reference's mesh as virtual axes on the one card
+   (``launch/mesh.make_local_mesh``). (a) Right after phase 10, on its
+   llama3-8b: ``generate`` with the model on an 8 x model mesh, so each
+   decode step splits the cache 8 ways on T (the grouped einsums a shard,
+   the log-sum-exp merge: 2 psum + 1 pmax a layer a step, counted), the
+   kernel run's tokens teacher-forced, against the one-device decode on the
+   same weights: the prefill's logits bit for bit, every step's within
+   ``LM_TOL``, flash launched by the prefill alone; decode ms a token of
+   both, and 4 traced decode steps of each (busy share, host ops a step);
+   at ``LM_PROMPT`` and once at a 4 x ``LONG_PROMPT`` prompt (a cache of
+   8224 rows, 4.3 GB of K/V). After phase 24: (b) minicpm3-4b at full size
+   with ``mla_seq_shard`` the same way against the absorbed one-device
+   decode; (d) granite-3-2b at full width and ``POD_LAYERS`` (16) of its
+   40 layers over (pod 2, data 2, model 2), one step's gradients in its 4
+   microbatches under ``remat="dots"`` and twice under ``"full"``
+   (deterministic algorithms on): the loss equal, each leaf bit for bit
+   where the two full runs agree, the flash launches equal, fewer products
+   run under "dots" (``mm_calls``), gradient ms and peak of each; (c) on
+   the same model ``POD_STEPS`` exact steps and as many ``compress_pod``
+   steps from one state: the launches a step (4 microbatches a pod), losses
+   within ``POD_LOSS_TOL``, parameters within ``POD_PARAM_TOL``, residuals
+   finite and nonzero, step ms and peak; (e) the launchers' mesh flags
+   (``MESH_SERVE_FLAGS`` for llama3-8b and qwen2-moe-a2.7b, the MoE's
+   expert-parallel prefill and psum decode with the histogram once a shard
+   a layer a forward; ``MESH_TRAIN_FLAGS`` for granite-3-2b) on the card
+   against ``--device cpu`` with phase 18's tolerances, each decode step
+   compared while the two runs' tokens agree. (f) The three new dist cases
+   run in phase 15.
 Phase 2 also holds flash_attention against its plain version (S 1 to
 4096, around the 64-row fp32 and 128-row bf16 tiles, causal or not, group
 size 1, 4 and 6, every (q·k, p·v) width pair of ``KERNEL_HEAD_DIMS``
@@ -372,7 +401,8 @@ one with phase 16's (``{"train": ...}``), one with phase 17's
 (``{"stablelm": ...}``), one with phase 18's (``{"tiny": ...}``), one
 with phase 19's (``{"moe": ...}``), one with phase 20's (``{"mla":
 ...}``), one with phases 21-22's (``{"hybrid": ..., "vlm": ...}``), one
-with phases 23-24's (``{"xlstm": ..., "whisper": ...}``), one with every
+with phases 23-24's (``{"xlstm": ..., "whisper": ...}``), one with phase
+25's (``{"mesh": ...}``), one with every
 kernel's (the flash entries' other head dims as
 ``<entry>@hd160`` and ``@hd16``, phase 19's shapes as
 ``bucket_histogram@moe``, ``flash_attention@g1`` and ``@g6``, phase 20's
@@ -423,6 +453,7 @@ from repro_torch.kernels.hash64 import hash32, hash32_partition  # noqa: E402
 from repro_torch.kernels.histogram import bucket_histogram  # noqa: E402
 from repro_torch.kernels.segment_reduce import segment_reduce_tiles  # noqa: E402
 from repro_torch.kernels.segment_scan import segment_scan_tiles  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.launch.serve import generate, prompt_inputs  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models.factory import build_model  # noqa: E402
@@ -623,6 +654,25 @@ XLSTM_F32_TOL = 1e-3
 # prompt (its decoder's context); trained at the training path's shape
 # with as many random frames, in its 1 microbatch
 WHISPER_ARCH, WHISPER_FRAMES, WHISPER_TEXT = "whisper-base", 1500, 448
+# phase 25: the reference's mesh on the card as virtual axes. (a)-(b) the
+# seq-sharded decodes over SHARD_DEVICES x model (the cache split 8 ways on
+# T) against the one-device decode on the same weights, at LM_PROMPT and
+# (GQA) once at a LONG_PROMPT prompt; (c) compress_pod on granite-3-2b at
+# full width and POD_LAYERS of its 40 layers (~20 B of state a parameter,
+# 8 B of residuals at 2 pods and 4 B of one pod's gradient: ~34 GB at
+# 1.07 B parameters, where the uncut 2.53 B would need ~81 GB) over
+# (pod 2, data 2, model 2), POD_STEPS compressed steps against as many
+# exact ones from one state, the parameters within POD_PARAM_TOL (the
+# reference's bound, tests/test_dist.py) and the losses within POD_LOSS_TOL;
+# (d) remat="dots" against "full" on the same model
+SHARD_DEVICES, LONG_PROMPT = 8, 8192
+POD_LAYERS, POD_STEPS, POD_PARAM_TOL, POD_LOSS_TOL = 16, 3, 5e-2, 0.2
+# the launchers' mesh flags (the reference's examples), on the card against
+# --device cpu with phase 18's tolerances
+MESH_SERVE_ARCHS = ("llama3-8b", "qwen2-moe-a2.7b")
+MESH_SERVE_FLAGS = ("--devices", "8", "--model-axis", "8")
+MESH_TRAIN_FLAGS = ("--devices", "8", "--model-axis", "2", "--pod-axis", "2",
+                    "--compress-pod")
 
 # segment_reduce's pass-1 tile (csrc/segment_reduce.cu), whose edges phase 2
 # probes
@@ -1950,25 +2000,31 @@ def profiled(name: str, call, top: int = 8) -> dict:
     device's busy share; the port uses one stream), the device time of the
     port's own CUDA kernels (``PORTED_KERNELS``) and the kernels that took
     the most device time; ``ported`` splits the port's by source file
-    (``flash``, ``hist``, ...)."""
+    (``flash``, ``hist``, ...). A trace that records no device event at
+    all (CUPTI dropped it: seen once at phase 7's zamba backward) is
+    taken once more, ``traces`` 2, before the check fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = call()
+    for traces in (1, 2):
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    del res
-    by_name: dict[str, float] = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + \
-                ev.time_range.elapsed_us() / 1e3
-    busy = sum(by_name.values())
-    check(busy > 0, f"profile of {name}: no device time recorded")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = call()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        del res
+        by_name: dict[str, float] = {}
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA:
+                by_name[ev.name] = by_name.get(ev.name, 0.0) + \
+                    ev.time_range.elapsed_us() / 1e3
+        busy = sum(by_name.values())
+        if busy > 0:
+            break
+    check(busy > 0, f"profile of {name}: no device time recorded in "
+          f"{traces} traces")
     ported = sum(ms for kname, ms in by_name.items()
                  if any(k in kname for k in PORTED_KERNELS))
     # by kernel source: flash, hist, hash32, bitonic, seg, scan
@@ -1984,7 +2040,7 @@ def profiled(name: str, call, top: int = 8) -> dict:
                    ev.name.startswith("aten::"))
     return {"wall_ms": wall, "device_ms": busy, "busy_share": busy / wall,
             "ported_kernels_ms": ported, "ported": by_source,
-            "host_ops": host_ops,
+            "host_ops": host_ops, "traces": traces,
             "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:top]}
 
 
@@ -2829,7 +2885,9 @@ def phase_harnesses(dev, plans: int = FUZZ_PLANS) -> dict:
     for name, ok in dist_cases.checks(cases).items():
         check(ok, f"dist case {name}: {cases[name.split(':')[0]]}")
     return {"fuzz": fuzz, "dist_cases_seconds": secs,
-            "dist_cases": {k: cases[k] for k in ("plan_fused", "cost_groupby")}}
+            "dist_cases": {k: cases[k] for k in (
+                "plan_fused", "cost_groupby", "flash_decode_shard",
+                "compress_pod", "elastic_restore")}}
 
 
 def _plain(call):
@@ -3472,7 +3530,7 @@ def phase_serve_plain(model, tokens, gen, causal_tol: float | None = LM_TOL,
 
 def phase_serve_times(model, tokens, reps: int = 5, embeds=None) -> dict:
     """Phase 10: prefill median ms (host clock around a synchronised call),
-    decode ms a token and tokens/s (medians of three ``generate`` runs)."""
+    decode ms a token and tokens/s (medians of two ``generate`` runs)."""
     cfg = model.cfg
     prefill = make_prefill_step(model, front_rows(cfg, embeds) + LM_PROMPT
                                 + LM_GEN, enc_rows(cfg, embeds))
@@ -3488,7 +3546,7 @@ def phase_serve_times(model, tokens, reps: int = 5, embeds=None) -> dict:
             walls.append((time.perf_counter() - t0) * 1e3)
             del res
     decode_ms, decode_tok_s, e2e_tok_s = [], [], []
-    for _ in range(3):
+    for _ in range(2):
         g = generate(model, tokens, LM_GEN, embeds=embeds)
         decode_ms.append(g.decode_s / (LM_GEN - 1) * 1e3)
         decode_tok_s.append(LM_BATCH * (LM_GEN - 1) / g.decode_s)
@@ -3500,7 +3558,7 @@ def phase_serve_times(model, tokens, reps: int = 5, embeds=None) -> dict:
             "end_to_end_tokens_per_s": statistics.median(e2e_tok_s)}
 
 
-def phase_serve_profile(model, tokens, steps: int = 8, embeds=None) -> dict:
+def phase_serve_profile(model, tokens, steps: int = 4, embeds=None) -> dict:
     """Phase 10's traces: one prefill, then ``steps`` decode steps."""
     nf = front_rows(model.cfg, embeds)
     prefill = make_prefill_step(model, nf + LM_PROMPT + LM_GEN,
@@ -3533,14 +3591,15 @@ def phase_serve_profile(model, tokens, steps: int = 8, embeds=None) -> dict:
 
 
 def train_launches(cfg, microbatches: int) -> dict[str, int]:
-    """Each kernel's launches in one train step: with ``remat="full"`` every
+    """Each kernel's launches in one train step: with ``remat="full"`` (or
+    ``"dots"``, which keeps matmul outputs and recomputes the rest) every
     attention layer (a hybrid's shared-block invocation, recomputed with
     its period) runs the LSE forward once in the forward and once more
     when its block is recomputed in the backward, and the backward once,
     for each microbatch; an MoE layer's dispatch counts its experts' tokens
     with bucket_histogram in both forwards; the serving entry and the
     other relational kernels never."""
-    fwd = 2 if cfg.remat == "full" else 1
+    fwd = 1 if cfg.remat == "none" else 2
     moe = fwd * cfg.num_layers * microbatches if cfg.moe_num_experts else 0
     return {**ZERO_LAUNCHES,
             "flash_attention_lse": fwd * attn_layers(cfg) * microbatches,
@@ -4332,7 +4391,7 @@ def phase_moe_serve(dev, arch: str, layers: int | None = None,
     prefill's logits by over 3 ``LM_TOL``; the serving invariant at
     ``MOE_INVARIANT_CF`` (prefill + decode against one causal forward that
     follows their routes, within ``LM_TOL``); the serving times, and with
-    ``profile`` one traced prefill and 8 decode steps."""
+    ``profile`` one traced prefill and 4 decode steps."""
     cfg = get_config(arch)
     if layers is not None:
         cfg = cfg.replace(num_layers=layers)
@@ -4626,11 +4685,10 @@ def phase_xlstm(dev, profile) -> dict:
     invariant held as the hybrid's (``hybrid_invariant`` at
     ``XLSTM_F32_TOL``), the recurrent states zeroed after the prefill
     moving the bf16 logits by more than 3 ``LM_TOL``; times, peak, one
-    traced prefill and 8 traced decode steps. Then trained uncut on the
+    traced prefill and 4 traced decode steps. Then trained uncut on the
     pipeline's batches (``phase_train``: a warm-up step and
     ``XLSTM_TRAIN_STEPS`` steps of 8 x 1024 tokens in its 4 microbatches,
-    no launch), its first loss within 0.5 of ln(padded vocab), one profiled
-    step."""
+    no launch), its first loss within 0.5 of ln(padded vocab)."""
     walls, t0 = {}, time.perf_counter()
 
     def lap(name):
@@ -4664,7 +4722,9 @@ def phase_xlstm(dev, profile) -> dict:
              "lost_carry_max_abs_err": lost, "first_run": first, **inv,
              **times, "profile": prof}
     batches, pipe_ms = train_batches(dev, cfg, XLSTM_TRAIN_STEPS + 2)
-    train = phase_train(dev, batches, profile, XLSTM_ARCH, None,
+    # no profiled step: reading its ~50,000 host ops' trace took most of
+    # the phase (PERF.md keeps an earlier trace)
+    train = phase_train(dev, batches, None, XLSTM_ARCH, None,
                         XLSTM_TRAIN_STEPS)
     del batches
     torch.cuda.empty_cache()
@@ -4713,14 +4773,6 @@ def say_xlstm(r: dict, card: str, secs: float) -> None:
         f"token), peak {t['peak_bytes'] / 2**30:.2f} GiB on {card}; loss "
         f"{[round(x, 4) for x in t['loss']]}, grad norm "
         f"{[round(x, 4) for x in t['grad_norm']]}; launches {t['launches']}")
-    pr = t["profile"]
-    say(f"[23] one profiled step: wall {pr['wall_ms']:.1f} ms, GPU kernels "
-        f"{pr['device_ms']:.1f} ms, busy share {pr['busy_share']:.2f}, "
-        f"{pr['host_ops']} torch ops")
-    for kname, ms in pr["top"]:
-        say(f"      {ms:8.2f} ms  {kname[:110]}")
-    t["profile"] = {k: pr[k] for k in (
-        "wall_ms", "device_ms", "busy_share", "host_ops", "top")}
     say(f"[23] phase 23 {secs:.1f} s (" + ", ".join(
         f"{k} {v:.1f}" for k, v in s["phase_s"].items()) + ")")
 
@@ -4858,6 +4910,429 @@ def phase_vlm_tiny_train(dev) -> dict:
             "front_proj_grad_max": front, "loss_with_embeds": float(m["loss"]),
             "loss_text_only": text_only,
             "launches_per_step": train_launches(cfg, train_microbatches(VLM_ARCH))}
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the reference's mesh as virtual axes on the card (seq-sharded
+# decodes, pod compression, remat="dots", the launchers' mesh flags)
+# ---------------------------------------------------------------------------
+
+
+def decode_profile(model, tokens, steps: int = 8) -> dict:
+    """One prefill (unprofiled), then ``steps`` decode steps profiled: the
+    device's busy share and the host's torch ops a step."""
+    prefill = make_prefill_step(model, tokens.shape[1] + LM_GEN)
+    decode = make_decode_step(model)
+    with torch.no_grad():
+        logits, cache = prefill({"tokens": tokens})
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    del logits
+
+    def run_decode():
+        t = tok
+        with torch.no_grad():
+            for i in range(steps):
+                out, _ = decode(cache, t, tokens.shape[1] + i)
+                t = torch.argmax(out, -1)[:, None].to(torch.int32)
+
+    pr = profiled("decode", run_decode)
+    del cache
+    return {"wall_ms_per_step": pr["wall_ms"] / steps,
+            "device_ms_per_step": pr["device_ms"] / steps,
+            "busy_share": pr["busy_share"],
+            "host_ops_per_step": pr["host_ops"] / steps,
+            "top": pr["top"][:4]}
+
+
+def sharded_decode(model, tokens, mesh, tol: float = LM_TOL,
+                   profile: bool = True) -> dict:
+    """Phase 25 (a)/(b): ``generate`` with the model on ``mesh`` (the decode
+    cache split on T over its shards) against the one-device decode on the
+    same weights, teacher-forced with its tokens. The counts zeroed just
+    before and read just after the sharded run: flash once an attention
+    layer (the prefill, which the mesh leaves whole), no other kernel; the
+    merges 2 psum + 1 pmax a layer a decode step. Prefill logits equal bit
+    for bit; every decode step's within ``tol``. Decode ms a token of the
+    two runs, and with ``profile`` 4 traced decode steps of each (busy
+    share, host ops a step)."""
+    cfg = model.cfg
+    s, layers = tokens.shape[1], cfg.num_layers
+    model.mesh = None
+    base = generate(model, tokens, LM_GEN, keep_logits=True)
+    model.mesh = mesh
+    mesh.reset_counts()
+    set_launches(0)
+    shard = generate(model, tokens, LM_GEN, keep_logits=True,
+                     forced=base.tokens)
+    counts, merges = launches(), dict(mesh.counts)
+    want_merges = {"psum": 2 * layers * (LM_GEN - 1),
+                   "pmax": layers * (LM_GEN - 1)}
+    check(counts == {**ZERO_LAUNCHES, "flash_attention": attn_layers(cfg)},
+          f"sharded generate launched {counts}")
+    check(merges == want_merges, f"sharded decode merged {merges}, want "
+          f"{want_merges}")
+    check(all(bool(torch.isfinite(x).all()) for x in shard.logits),
+          "non-finite sharded decode logits")
+    errs = [logit_err(a, b) for a, b in zip(base.logits, shard.logits)]
+    check(errs[0] == 0.0, f"the prefill moved by {errs[0]} on the mesh")
+    check(max(errs) <= tol, f"sharded decode logits differ from the "
+          f"one-device decode's by {max(errs)} (tolerance {tol})")
+    same = int((base.tokens == shard.tokens).sum())
+    ms = {name: g.decode_s / (LM_GEN - 1) * 1e3
+          for name, g in (("one_device", base), ("sharded", shard))}
+    del base, shard
+    prof = {}
+    if profile:
+        for name, m in (("one_device", None), ("sharded", mesh)):
+            model.mesh = m
+            prof[name] = decode_profile(model, tokens, steps=4)
+    model.mesh = None
+    return {"prompt_len": s, "cache_rows": s + LM_GEN,
+            "shards": mesh.view(("model",)).axis_size,
+            "launches": counts, "merges_per_step": {
+                k: v // (LM_GEN - 1) for k, v in merges.items()},
+            "max_abs_err": max(errs), "err_by_step": errs, "tolerance": tol,
+            "same_greedy_tokens": same, "tokens": LM_BATCH * LM_GEN,
+            "decode_ms_per_token": ms, "profile": prof}
+
+
+def phase_seq_shard_gqa(model, tokens, long_prompt: int = LONG_PROMPT,
+                        profile: bool = True) -> dict:
+    """Phase 25 (a): phase 8's llama3-8b over ``make_local_mesh(8,
+    model=8)``: the batch divides the data axis (1), so the cache splits 8
+    ways on T over the model axis; at LM_PROMPT, then once at a
+    ``long_prompt`` prompt (4 x 8192: a cache of 8224 rows, 4.3 GB of K/V)."""
+    mesh = make_local_mesh(SHARD_DEVICES, model=SHARD_DEVICES)
+    out = {"mesh": mesh.shape,
+           "prompt": sharded_decode(model, tokens, mesh, profile=profile)}
+    torch.cuda.empty_cache()
+    long_tokens, _ = prompt_inputs(model.cfg, LM_BATCH, long_prompt, 1,
+                                   tokens.device)
+    torch.cuda.reset_peak_memory_stats()
+    out["long_prompt"] = sharded_decode(model, long_tokens, mesh,
+                                        profile=profile)
+    out["long_prompt"]["peak_bytes"] = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_seq_shard_mla(dev, arch: str = MLA_ARCH, profile: bool = True
+                        ) -> dict:
+    """Phase 25 (b): minicpm3-4b at full size with ``mla_seq_shard`` over
+    ``make_local_mesh(8, model=8)``: the latent caches split 8 ways on T,
+    each shard's latent context merged, W_uv after the merge; against the
+    absorbed one-device decode on the same weights."""
+    cfg = get_config(arch).replace(mla_seq_shard=True)
+    model = build_model(cfg, dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    tokens, _ = serve_inputs(cfg, dev)
+    mesh = make_local_mesh(SHARD_DEVICES, model=SHARD_DEVICES)
+    out = sharded_decode(model, tokens, mesh, profile=profile)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def mm_calls(call) -> int:
+    """The ``aten.mm``/``aten.addmm`` products ``call`` runs, counted by a
+    dispatch mode outside the remat policy's (a kept product the backward
+    takes back from the policy is not run, so not counted; autograd carries
+    the mode to its device thread)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    saved = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += func in saved
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        call()
+    return Count.n
+
+
+def set_remat(model, remat: str) -> None:
+    model.cfg = model.lm.cfg = model.cfg.replace(remat=remat)
+
+
+def remat_dots_check(model, batch, k: int) -> dict:
+    """Phase 25 (d): one step's gradients (the train step's
+    ``_accumulate_grads``, in its k microbatches) from one state under
+    ``remat="full"`` twice and under ``"dots"``, with deterministic
+    algorithms on (phase 16's crash-resume setting). The loss equal; each
+    leaf bit for bit where the two "full" runs agree bit for bit, else
+    within twice their distance (printed); the flash launches equal (the
+    attention recomputed under both); the products run a step (``mm_calls``:
+    fewer under "dots", whose kept x·W outputs the backward does not run
+    again); gradient ms (forward and backward; "dots" run twice, the same
+    bits) and the peak each run adds over what is held (the parameters and
+    the earlier runs' gradients)."""
+    params = dict(model.lm.named_parameters())
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for tag, remat in (("full", "full"), ("full_again", "full"),
+                           ("dots", "dots"), ("dots_again", "dots")):
+            set_remat(model, remat)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            set_launches(0)
+            t0 = time.perf_counter()
+            grads, met = TS._accumulate_grads(model, params, batch, k)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            runs[tag] = {"grads": grads, "loss": float(met["loss"]), "ms": ms,
+                         "launches": launches(), "peak_over_held_bytes":
+                         torch.cuda.max_memory_allocated() - held}
+            if tag == "dots_again":
+                check(all(torch.equal(g, runs["dots"]["grads"][n])
+                          for n, g in grads.items()),
+                      "remat dots: two runs differ")
+                del runs[tag]["grads"], grads
+            elif tag != "full_again":
+                runs[tag]["mm_calls"] = mm_calls(
+                    lambda: TS._accumulate_grads(model, params, batch, k))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        set_remat(model, "full")
+    full, again, dots = (runs[t].pop("grads") for t in
+                         ("full", "full_again", "dots"))
+    check(runs["dots"]["loss"] == runs["full"]["loss"],
+          f"remat dots loss {runs['dots']['loss']} != full "
+          f"{runs['full']['loss']}")
+    noisy, worst = {}, 0.0
+    for n, g in full.items():
+        if torch.equal(g, again[n]):
+            check(torch.equal(dots[n], g), f"remat dots: gradient {n} differs "
+                  f"from full, whose two runs agree bit for bit")
+        else:
+            dist = float((g - again[n]).abs().max())
+            got = float((dots[n] - g).abs().max())
+            noisy[n] = {"full_vs_full": dist, "dots_vs_full": got}
+            check(got <= 2 * dist, f"remat dots: gradient {n} {got} from "
+                  f"full, two full runs {dist} apart")
+            worst = max(worst, got)
+    check(runs["dots"]["launches"] == runs["full"]["launches"],
+          f"remat dots launched {runs['dots']['launches']}, full "
+          f"{runs['full']['launches']}")
+    check(runs["dots"]["mm_calls"] < runs["full"]["mm_calls"],
+          f"remat dots ran {runs['dots']['mm_calls']} products, full "
+          f"{runs['full']['mm_calls']}")
+    del full, again, dots
+    return {"leaves": len(params), "bitwise_leaves": len(params) - len(noisy),
+            "nondeterministic_leaves": noisy, **runs}
+
+
+def pod_train_check(model, batches, k: int, steps: int = POD_STEPS) -> dict:
+    """Phase 25 (c): ``steps`` exact train steps and ``steps`` compressed
+    ones (``compress_pod=True``: each of the mesh's 2 pods takes its half of
+    the batch in k microbatches, int8 gradients with error feedback) from
+    one state (``init_train_state(model, 0)`` both times), on the same
+    batches. The launches a step (``train_launches`` of the microbatches
+    run: k for the exact step, k a pod for the compressed one), losses
+    finite and within ``POD_LOSS_TOL`` step by step, the largest parameter
+    difference after them under ``POD_PARAM_TOL``, the residuals finite
+    and nonzero; step ms and peak GiB of each."""
+    cfg = model.cfg
+    pods = model.mesh.axis_size("pod")
+    ocfg = OptConfig(**TRAIN_OPT)
+    out = {}
+    for tag, compress in (("exact", False), ("compressed", True)):
+        state = TS.init_train_state(model, 0, compress_pod=compress,
+                                    n_pods=pods)
+        step = TS.make_train_step(model, ocfg, microbatches=k,
+                                  compress_pod=compress)
+        want = train_launches(cfg, k * (pods if compress else 1))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, walls = [], []
+        for i in range(steps):
+            set_launches(0)
+            t0 = time.perf_counter()
+            state, m = step(state, batches[i])
+            losses.append(float(m["loss"]))  # synchronises
+            walls.append((time.perf_counter() - t0) * 1e3)
+            got = launches()
+            check(got == want, f"{tag} step {i} launched {got}, want {want}")
+        out[tag] = {"loss": losses, "step_ms": walls,
+                    "launches_per_step": want,
+                    "peak_bytes": torch.cuda.max_memory_allocated()}
+        if compress:
+            check(all(bool(torch.isfinite(e).all()) for e in state.ef.values()),
+                  "non-finite pod residuals")
+            out[tag]["ef_max_abs"] = max(float(e.abs().max())
+                                         for e in state.ef.values())
+            check(out[tag]["ef_max_abs"] > 0, "the pod residuals stayed zero")
+            diff = max(float((p.float() - exact[n].float()).abs().max())
+                       for n, p in state.params.items())
+        else:
+            exact = {n: p.detach().clone() for n, p in state.params.items()}
+        del state, step
+        torch.cuda.empty_cache()
+    losses = list(zip(out["exact"]["loss"], out["compressed"]["loss"]))
+    check(all(math.isfinite(a) and math.isfinite(b) and abs(a - b)
+              <= POD_LOSS_TOL for a, b in losses),
+          f"compressed losses {out['compressed']['loss']} against exact "
+          f"{out['exact']['loss']} (tolerance {POD_LOSS_TOL})")
+    check(diff < POD_PARAM_TOL, f"compressed parameters {diff} from the "
+          f"exact run's (tolerance {POD_PARAM_TOL})")
+    return {**out, "max_param_diff": diff, "pods": pods}
+
+
+def phase_pod_and_dots(dev, arch: str = TRAIN_ARCH,
+                       layers: int = POD_LAYERS, batches=None) -> dict:
+    """Phase 25 (c) and (d) on one model: ``arch`` at full width and
+    ``layers`` layers over ``make_local_mesh(8, model=2, pod=2)`` (the
+    mesh leaves the dense arithmetic as it is; only compress_pod reads its
+    pod axis), the reference's microbatches, phase 16's batches."""
+    cfg = get_config(arch).replace(num_layers=layers)
+    k = train_microbatches(arch)
+    mesh = make_local_mesh(SHARD_DEVICES, model=2, pod=2)
+    model = build_model(cfg, dev, mesh=mesh,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    if batches is None:
+        batches, _ = train_batches(dev, cfg, POD_STEPS)
+    n_params = sum(p.numel() for p in model.parameters())
+    dots = remat_dots_check(model, batches[0], k)
+    torch.cuda.empty_cache()
+    pod = pod_train_check(model, batches, k)
+    del model
+    torch.cuda.empty_cache()
+    return {"arch": arch, "layers": layers, "parameters": n_params,
+            "microbatches": k, "mesh": mesh.shape, "remat_dots": dots,
+            "compress_pod": pod}
+
+
+def phase_mesh_launchers(dev) -> dict:
+    """Phase 25 (e): the launchers' mesh flags, in process on the card and
+    with ``--device cpu``: ``serve --tiny`` of ``MESH_SERVE_ARCHS`` with
+    ``MESH_SERVE_FLAGS`` (the decode cache split 8 ways; the MoE arch's
+    prefill through the expert-parallel path and its decode through the
+    psum path over the model axis, each shard's dispatch counted by
+    bucket_histogram) and ``train --tiny --steps 3`` of granite-3-2b with
+    ``MESH_TRAIN_FLAGS`` (pod compression). Serving: the prefill's logits
+    within ``LM_TOL`` of the CPU run's, and each decode step's wherever the
+    two runs' earlier tokens agree; training: each step's loss within
+    ``TINY_LOSS_TOL``. The MoE arch's CPU run follows the card run's routes
+    (``RouteTap``)."""
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+
+    out = {"serve": {}, "train": {}}
+    shards = int(MESH_SERVE_FLAGS[-1])
+    for arch in MESH_SERVE_ARCHS:
+        cfg = get_tiny(arch)
+        argv = ["--arch", arch, "--tiny", *MESH_SERVE_FLAGS]
+        set_launches(0)
+        tap = RouteTap()
+        with tap.record():
+            card = serve_cli.main(argv)
+        counts = launches()
+        gen = card.tokens.shape[1]
+        hist = cfg.num_layers * shards * gen if cfg.moe_num_experts else 0
+        check(counts == {**ZERO_LAUNCHES, "flash_attention": attn_layers(cfg),
+                         "bucket_histogram": hist},
+              f"serve {' '.join(argv)} launched {counts}, want flash "
+              f"{attn_layers(cfg)} and bucket_histogram {hist}")
+        with tap.follow(tap.calls):
+            cpu = serve_cli.main(argv + ["--device", "cpu"])
+        check(tap.share <= MOE_FLIP_SHARE, f"serve {arch} on the mesh: "
+              f"{tap.flips} of {tap.routes} routes differ from the card's")
+        agree = torch.cumprod((card.tokens.cpu() == cpu.tokens).int(), 1)
+        errs = [logit_err(card.logits[0].cpu(), cpu.logits[0])]
+        for i, (a, b) in enumerate(zip(card.logits[1:], cpu.logits[1:])):
+            rows = agree[:, i].bool()  # tokens 0..i equal: step i comparable
+            if bool(rows.any()):
+                errs.append(logit_err(a.cpu()[rows], b[rows]))
+        check(max(errs) <= LM_TOL, f"serve {arch} on the mesh: logits differ "
+              f"from the --device cpu run's by {max(errs)}")
+        out["serve"][arch] = {"launches": counts, "max_abs_err": max(errs),
+                              "steps_compared": len(errs),
+                              "same_tokens": int((card.tokens.cpu()
+                                                  == cpu.tokens).sum()),
+                              "tokens": card.tokens.numel(),
+                              "route_flips": tap.flips, "routes": tap.routes}
+    arch = TRAIN_ARCH
+    cfg = get_tiny(arch)
+    argv = ["--arch", arch, "--tiny", "--steps", str(TINY_TRAIN_STEPS),
+            "--log-every", "1", *MESH_TRAIN_FLAGS]
+    pods = int(MESH_TRAIN_FLAGS[MESH_TRAIN_FLAGS.index("--pod-axis") + 1])
+    want = train_launches(cfg, pods)
+    set_launches(0)
+    card = train_cli.main(argv)
+    counts = launches()
+    check(all(counts[n] == TINY_TRAIN_STEPS * want[n]
+              for n in LM_KERNELS + ("bucket_histogram",)),
+          f"train {' '.join(argv)} launched {counts}, want {TINY_TRAIN_STEPS}"
+          f" x {want} of the LM kernels")
+    cpu = train_cli.main(argv + ["--device", "cpu"])
+    diffs = [abs(a["loss"] - b["loss"]) for a, b in zip(card, cpu)]
+    check(len(card) == len(cpu) == TINY_TRAIN_STEPS and
+          all(math.isfinite(x["loss"]) for x in card) and
+          max(diffs) <= TINY_LOSS_TOL,
+          f"train {' '.join(argv)}: losses {[x['loss'] for x in card]} on "
+          f"the card, {[x['loss'] for x in cpu]} on the CPU")
+    out["train"][arch] = {"launches": counts,
+                          "loss": [x["loss"] for x in card],
+                          "cpu_loss": [x["loss"] for x in cpu],
+                          "max_loss_diff": max(diffs)}
+    return out
+
+
+def say_seq_shard(tag: str, arch: str, r: dict, card: str) -> None:
+    ms = r["decode_ms_per_token"]
+    say(f"[25{tag}] {arch}, {LM_BATCH} x {r['prompt_len']}-token prompts, "
+        f"{LM_GEN} tokens, cache {r['cache_rows']} rows split {r['shards']} "
+        f"ways: logits within {r['max_abs_err']:.4g} of the one-device "
+        f"decode (tolerance {r['tolerance']}), greedy tokens equal on "
+        f"{r['same_greedy_tokens']} of {r['tokens']}; merges a step "
+        f"{r['merges_per_step']}; launches {r['launches']}")
+    say(f"[25{tag}] decode ms a token: one device {ms['one_device']:.3f}, "
+        f"sharded {ms['sharded']:.3f} on {card}")
+    for name, pr in r["profile"].items():
+        say(f"[25{tag}] {name} decode, 4 traced steps: "
+            f"{pr['wall_ms_per_step']:.2f} ms a step (profiled), GPU kernels "
+            f"{pr['device_ms_per_step']:.2f} ms, busy share "
+            f"{pr['busy_share']:.2f}, {pr['host_ops_per_step']:.0f} host ops "
+            f"a step; top {[(k[:60], round(v, 3)) for k, v in pr['top']]}")
+
+
+def say_pod_and_dots(r: dict, card: str) -> None:
+    d, p = r["remat_dots"], r["compress_pod"]
+    say(f"[25d] {r['arch']} at {r['layers']} layers ({r['parameters']} "
+        f"parameters), {TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
+        f"{r['microbatches']} microbatches: remat dots loss "
+        f"{d['dots']['loss']:.6f} = full {d['full']['loss']:.6f}; "
+        f"{d['bitwise_leaves']} of {d['leaves']} gradient leaves bit for bit "
+        f"(nondeterministic in two full runs: {d['nondeterministic_leaves']})"
+        f"; flash launches {d['dots']['launches']['flash_attention_lse']} LSE "
+        f"+ {d['dots']['launches']['flash_attention_bwd']} backwards under "
+        f"both; products (mm) run a step: full {d['full']['mm_calls']}, dots "
+        f"{d['dots']['mm_calls']}")
+    say(f"[25d] gradient ms (forward + backward): full {d['full']['ms']:.1f} "
+        f"/ {d['full_again']['ms']:.1f}, dots {d['dots']['ms']:.1f} / "
+        f"{d['dots_again']['ms']:.1f}; peak GiB over what is held: full "
+        f"{d['full']['peak_over_held_bytes'] / 2**30:.2f}, dots "
+        f"{d['dots']['peak_over_held_bytes'] / 2**30:.2f} on {card}")
+    e, c = p["exact"], p["compressed"]
+    say(f"[25c] compress_pod on {r['mesh']}: losses "
+        f"{[round(x, 5) for x in c['loss']]} vs exact "
+        f"{[round(x, 5) for x in e['loss']]}; largest parameter difference "
+        f"{p['max_param_diff']:.4g} (tolerance {POD_PARAM_TOL}); residuals up "
+        f"to {c['ef_max_abs']:.4g}; flash a step "
+        f"{c['launches_per_step']['flash_attention_lse']} LSE + "
+        f"{c['launches_per_step']['flash_attention_bwd']} backwards "
+        f"(exact {e['launches_per_step']['flash_attention_lse']} + "
+        f"{e['launches_per_step']['flash_attention_bwd']}: "
+        f"{r['microbatches']} microbatches a pod)")
+    say(f"[25c] step ms compressed {[round(x, 1) for x in c['step_ms']]}, "
+        f"exact {[round(x, 1) for x in e['step_ms']]}; peak GiB compressed "
+        f"{c['peak_bytes'] / 2**30:.2f}, exact {e['peak_bytes'] / 2**30:.2f} "
+        f"on {card}")
 
 
 def main() -> None:
@@ -5082,6 +5557,13 @@ def main() -> None:
             f"ops dispatched by the host, on {card}")
         for kname, ms in pr["top"]:
             say(f"      {ms:8.3f} ms  {kname[:110]}")
+    t0 = time.perf_counter()
+    gqa_shard = phase_seq_shard_gqa(model, tokens)
+    say_seq_shard("a", LM_ARCH, gqa_shard["prompt"], card)
+    say_seq_shard("a", LM_ARCH, gqa_shard["long_prompt"], card)
+    say(f"[25a] peak at the {LONG_PROMPT}-token prompt "
+        f"{gqa_shard['long_prompt']['peak_bytes'] / 2**30:.2f} GiB; phase 25a "
+        f"{time.perf_counter() - t0:.1f} s")
     del model, tokens
     torch.cuda.empty_cache()
 
@@ -5334,6 +5816,36 @@ def main() -> None:
     say(f"[24] phase 24 {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    mla_shard = phase_seq_shard_mla(dev)
+    say_seq_shard("b", MLA_ARCH, mla_shard, card)
+    t1 = time.perf_counter()
+    pod_dots = phase_pod_and_dots(dev)
+    say_pod_and_dots(pod_dots, card)
+    t2 = time.perf_counter()
+    mesh_cli = phase_mesh_launchers(dev)
+    for arch, r in mesh_cli["serve"].items():
+        say(f"[25e] serve --tiny --arch {arch} {' '.join(MESH_SERVE_FLAGS)} on "
+            f"the card: launches {r['launches']}; logits within "
+            f"{r['max_abs_err']:.4g} of --device cpu over "
+            f"{r['steps_compared']} steps (tolerance {LM_TOL}); "
+            f"{r['same_tokens']} of {r['tokens']} greedy tokens equal")
+    for arch, r in mesh_cli["train"].items():
+        say(f"[25e] train --tiny --arch {arch} {' '.join(MESH_TRAIN_FLAGS)}: "
+            f"losses {[round(x, 5) for x in r['loss']]} vs --device cpu "
+            f"{[round(x, 5) for x in r['cpu_loss']]} (largest difference "
+            f"{r['max_loss_diff']:.3g}, tolerance {TINY_LOSS_TOL:g}); "
+            f"launches {r['launches']}")
+    cases = harnesses["dist_cases"]
+    say(f"[25f] the dist cases on the card (phase 15): flash_decode_err "
+        f"{cases['flash_decode_shard']['flash_decode_err']:.3g}, "
+        f"pod_compress_max_param_diff "
+        f"{cases['compress_pod']['pod_compress_max_param_diff']:.4g}, "
+        f"elastic losses {cases['elastic_restore']['elastic_losses']}")
+    say(f"[25] phase 25: (b) {t1 - t0:.1f} s, (c)-(d) {t2 - t1:.1f} s, (e) "
+        f"{time.perf_counter() - t2:.1f} s")
+    torch.cuda.empty_cache()
+
     for name in ("flash_attention_lse", "flash_attention_bwd"):
         for suffix in ("", "@hd160", "@hd16", "@mla", "@zamba", "@whisper"):
             t = times[name + suffix]
@@ -5466,6 +5978,10 @@ def main() -> None:
                     "vlm": {"serve": vlm_serve, "train": vlm_train},
                     "card": card}))
     say(json.dumps({"xlstm": xl, "whisper": wh, "card": card}))
+    say(json.dumps({"mesh": {"seq_shard_gqa": gqa_shard,
+                             "seq_shard_mla": mla_shard,
+                             "pod_and_dots": pod_dots, "launchers": mesh_cli,
+                             "card": card}}))
     say(json.dumps({"kernels": kernels}))
     say(nvidia_smi())
     say(json.dumps({"ok": True, "device": {

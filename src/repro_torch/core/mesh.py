@@ -11,13 +11,24 @@ collective is one call over all shards:
 - ``all_gather`` gives every shard the stacked ``(p, ...)`` values (one
   tensor that all shards read);
 - ``ppermute`` moves shard ``src``'s value to shard ``dst`` for each pair
-  of the permutation; shards that receive nothing get zeros.
+  of the permutation; shards that receive nothing get zeros;
+- ``psum`` and ``pmax`` reduce the ``(p, ...)`` per-shard values to the one
+  value every shard holds after ``lax.psum`` / ``lax.pmax``: the sum taken
+  in shard order, one add at a time in the values' dtype.
 
 Every collective issued is counted in :attr:`counts` by name, so that
 wire accounting and a collective audit have something to read.
+
+:class:`NamedMesh` is the reference's named multi-axis mesh (``("pod",
+"data", "model")`` or ``("data", "model")``, ``repro/launch/mesh.py``)
+over virtual devices: it holds the axes' sizes, and a one-axis
+``VirtualMesh`` view of any tuple of its axes (``view``), whose shards are
+the axes' index tuples in row-major order and whose collectives count in
+the mesh's own :attr:`NamedMesh.counts`.
 """
 from __future__ import annotations
 
+import math
 from collections import Counter
 from typing import Sequence
 
@@ -27,11 +38,11 @@ import torch
 class VirtualMesh:
     """One mesh axis of ``num_shards`` virtual shards."""
 
-    def __init__(self, num_shards: int):
+    def __init__(self, num_shards: int, counts: Counter | None = None):
         if num_shards < 1:
             raise ValueError(num_shards)
         self.num_shards = num_shards
-        self.counts: Counter = Counter()
+        self.counts: Counter = Counter() if counts is None else counts
 
     @property
     def axis_size(self) -> int:
@@ -62,6 +73,25 @@ class VirtualMesh:
         self.counts["all_gather"] += 1
         return x
 
+    def _stacked(self, name: str, x: torch.Tensor) -> None:
+        if x.shape[0] != self.num_shards:
+            raise ValueError(f"{name} needs a leading shard axis of "
+                             f"{self.num_shards}, got {tuple(x.shape)}")
+        self.counts[name] += 1
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """(p, ...) per-shard values -> their sum, added in shard order."""
+        self._stacked("psum", x)
+        out = x[0]
+        for i in range(1, self.num_shards):
+            out = out + x[i]
+        return out
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        """(p, ...) per-shard values -> their elementwise maximum."""
+        self._stacked("pmax", x)
+        return torch.amax(x, dim=0)
+
     def ppermute(self, x: torch.Tensor,
                  perm: Sequence[tuple[int, int]]) -> torch.Tensor:
         """(p, ...) per-shard values -> out[dst] = x[src] for (src, dst) in
@@ -77,3 +107,37 @@ class VirtualMesh:
             dst = torch.tensor([d for _, d in perm], device=x.device)
             out[dst] = x[src]
         return out
+
+
+class NamedMesh:
+    """A named mesh of virtual devices: ``shape`` maps each axis name, in
+    order, to its size (the reference's ``dict(mesh.shape)``)."""
+
+    def __init__(self, shape: dict[str, int]):
+        if not shape or any(n < 1 for n in shape.values()):
+            raise ValueError(f"mesh shape {shape}")
+        self.shape = dict(shape)
+        self.counts: Counter = Counter()
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return tuple(self.shape)
+
+    def axis_size(self, name: str) -> int:
+        """The axis' size; 1 for an axis the mesh does not have."""
+        return self.shape.get(name, 1)
+
+    def view(self, axes: Sequence[str]) -> VirtualMesh:
+        """The axes ``axes`` (each of this mesh's) as one axis of
+        prod(sizes) shards, counting into :attr:`counts`."""
+        missing = [a for a in axes if a not in self.shape]
+        if missing or not axes:
+            raise ValueError(f"axes {tuple(axes)} of a mesh {self.shape}")
+        return VirtualMesh(math.prod(self.shape[a] for a in axes),
+                           counts=self.counts)
+
+    def reset_counts(self) -> None:
+        self.counts.clear()
+
+    def __repr__(self) -> str:
+        return f"NamedMesh({self.shape})"

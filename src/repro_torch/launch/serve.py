@@ -9,6 +9,12 @@ weights are drawn on the host from ``--seed`` and moved to the device, so
 one command serves the same model on every device. The loop is
 :func:`generate`, which the tests and ``chip_smoke.py`` call too.
 
+``--devices N --model-axis m`` serves over a mesh of N virtual devices
+(``launch/mesh.make_local_mesh``): the decode's KV cache splits on its
+sequence (flash-decoding, ``models/layers.py``) and an MoE arch takes the
+expert-parallel prefill and the psum decode over the model axis, its
+experts padded to a multiple of m.
+
 The encoder-decoder (whisper-base) serves as the reference launcher does:
 ``prompt_len`` random audio frames, drawn after the tokens, go through the
 encoder; the cross cache holds ``prompt_len`` rows.
@@ -35,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_tiny
+from repro_torch.launch.mesh import flag_mesh
 from repro_torch.models.factory import Model, build_model
 from repro_torch.train.steps import make_decode_step, make_prefill_step
 from repro_torch.utils import resolve_device
@@ -127,6 +134,8 @@ def main(argv=None) -> Generation:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--tiny", action="store_true")
+    ap.add_argument("--devices", type=int, default=0)
+    ap.add_argument("--model-axis", type=int, default=1)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
@@ -136,7 +145,8 @@ def main(argv=None) -> Generation:
 
     cfg = get_tiny(args.arch) if args.tiny else get_config(args.arch)
     dev = resolve_device(args.device)
-    model = build_model(cfg, dev,
+    model = build_model(cfg, dev, mesh=flag_mesh(args.devices,
+                                                 args.model_axis),
                         generator=torch.Generator().manual_seed(args.seed))
     tokens, embeds = prompt_inputs(cfg, args.batch, args.prompt_len,
                                    args.seed, dev)

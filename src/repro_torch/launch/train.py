@@ -17,10 +17,19 @@ encoder-decoder (whisper-base) raises ``ValueError`` before any step: its
 encoder needs audio frames, which the pipeline does not make (the
 reference launcher starts and then fails in its encoder, ``AttributeError``
 on the missing embeds); ``train.steps.make_train_step`` trains it on a
-batch that holds ``embeds``. The
-multi-device flags (``--devices``, ``--model-axis``, ``--pod-axis``,
-``--compress-pod``) need the port's mesh, which ROADMAP.md keeps queued:
-asking for more than one device raises ``NotImplementedError``.
+batch that holds ``embeds``.
+
+``--devices N`` (N > 1) runs over a mesh of N virtual devices on the one
+device (``launch/mesh.make_local_mesh``: ``--model-axis``, ``--pod-axis``,
+the rest data), printed as the reference prints it; ``--compress-pod``
+trains with int8 error-feedback gradients across the pod axis:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
+        --tiny --steps 3 --batch 8 --seq 64 --devices 8 --model-axis 2 \\
+        --pod-axis 2 --compress-pod --device cpu
+
+Axes that do not split the devices, or any axis above 1 without
+``--devices``, raise ``ValueError``.
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ import torch
 
 from repro_torch.configs import get_config, get_tiny
 from repro_torch.data.pipeline import PipelineConfig, RelationalTokenPipeline
+from repro_torch.launch.mesh import flag_mesh
 from repro_torch.models.factory import build_model
 from repro_torch.train.loop import LoopConfig, run
 from repro_torch.train.optimizer import OptConfig
@@ -61,11 +71,6 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--log-every", type=int, default=10)
     args = ap.parse_args(argv)
 
-    if args.devices > 1 or args.model_axis != 1 or args.pod_axis != 1 or \
-            args.compress_pod:
-        raise NotImplementedError(
-            "--devices, --model-axis, --pod-axis and --compress-pod need the "
-            "port's mesh; ROADMAP.md queue 1 item 12.7 keeps them queued")
     cfg = get_tiny(args.arch) if args.tiny else get_config(args.arch)
     if cfg.family == "audio":
         raise ValueError(
@@ -74,7 +79,10 @@ def main(argv=None) -> list[dict]:
             f"through train.steps.make_train_step with a batch holding "
             f"'embeds' (B, S_enc, {cfg.d_model})")
     dev = resolve_device(args.device)
-    model = build_model(cfg, dev,
+    mesh = flag_mesh(args.devices, args.model_axis, args.pod_axis)
+    if mesh is not None:
+        print(f"mesh: {mesh.shape}")
+    model = build_model(cfg, dev, mesh=mesh,
                         generator=torch.Generator().manual_seed(args.seed))
     if cfg.family == "vlm":
         print(f"note: {cfg.family} frontend is a stub; launcher trains the "

@@ -1,16 +1,19 @@
-"""``ModelConfig``: the port's copy of ``repro/models/common.py``'s config.
+"""``ModelConfig``: the port's copy of ``repro/models/common.py``'s config,
+and the one sharding rule the port computes with, ``decode_layout``.
 
-One dataclass covers every architecture family of the JAX package; the
-port builds the dense GQA and MLA models, the MoE family, the VLM backbone
-and the Mamba2 hybrid so far, but keeps every field so a config copies
-over value for value. The mesh and sharding helpers of the reference (``ShardingRules``, partition specs, ``fsdp_extend``, ``cast``)
-are multi-device machinery and are not carried over: the port runs on
-one card. ``remat`` applies in training (``models/transformer.py``);
-``ep_shuffle``, ``layout`` and the MoE shuffle's ``moe_shuffle_stages`` and
-``moe_shuffle_mode`` choose ``models/moe.moe_fwd``'s path over a
-``VirtualMesh``; the other compile knobs (``scan_layers``, ``fsdp``, the
-seq-shard flags, ``time_unroll``) are kept as fields and ignored: PyTorch
-runs eagerly, layer by layer, and loops over chunks in Python.
+One dataclass covers every architecture family of the JAX package, and
+keeps every field so a config copies over value for value. The port runs
+on one card: the reference's ``ShardingRules``, partition specs and
+``fsdp_extend`` place arrays on devices and change no arithmetic, so they
+are not carried over. The mesh (``launch/mesh.py``, virtual axes) reaches
+only the code the reference writes per shard: ``decode_seq_shard`` and
+``mla_seq_shard`` choose the seq-sharded decodes of ``models/layers.py``
+(their shards given by :func:`decode_layout`), ``ep_shuffle``, ``layout``,
+``moe_shuffle_stages`` and ``moe_shuffle_mode`` choose
+``models/moe.moe_fwd``'s path over the model axis, and ``remat`` applies in
+training (``models/transformer.py``). ``scan_layers``, ``fsdp`` and
+``time_unroll`` are kept as fields and ignored: PyTorch runs eagerly,
+layer by layer, and loops over chunks in Python.
 """
 from __future__ import annotations
 
@@ -18,6 +21,11 @@ import dataclasses
 from typing import Any
 
 import torch
+
+# the reference's mesh axis names (launch/mesh.py builds the meshes)
+POD_AXIS = "pod"
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,3 +110,24 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+def decode_layout(mesh_shape: dict[str, int], batch: int,
+                  seq_shard: bool = True):
+    """(batch_axes | None, seq_axes | None) of a decode cache on a mesh of
+    ``mesh_shape`` (``ShardingRules.decode_layout`` of the reference, mesh
+    free). When the batch divides the data-parallel axes (pod, data) it
+    splits over them and the cache's sequence over ``model`` (if that axis
+    is larger than 1); otherwise (small-batch long-context decode) the
+    batch is whole and the sequence splits over every axis, (pod,) data,
+    model. ``seq_shard`` False leaves the sequence whole."""
+    pod = mesh_shape.get(POD_AXIS, 1)
+    data = mesh_shape.get(DATA_AXIS, 1)
+    model = mesh_shape.get(MODEL_AXIS, 1)
+    has_pod = POD_AXIS in mesh_shape
+    dp = (POD_AXIS, DATA_AXIS) if has_pod else (DATA_AXIS,)
+    dp_size = pod * data
+    if batch % dp_size == 0 and batch >= dp_size:
+        return dp, ((MODEL_AXIS,) if seq_shard and model > 1 else None)
+    axes = ((POD_AXIS,) if has_pod else ()) + (DATA_AXIS, MODEL_AXIS)
+    return None, (axes if seq_shard else None)

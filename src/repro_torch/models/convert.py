@@ -19,7 +19,8 @@ reference on the same weights.
 
 ``train_state_from_jax`` carries the reference's whole ``TrainState``
 (numpy leaves) across the same way: the parameters, the optimizer's fp32
-masters and moments unstacked per layer, ``count`` and ``step``, as a
+masters and moments unstacked per layer, ``count``, ``step`` and the pod
+compression's residuals ``ef``, as a
 :class:`~repro_torch.train.steps.TrainState` of CPU tensors that
 ``train.steps.bind_state(model, state)`` puts on the model.
 """
@@ -99,20 +100,37 @@ def params_from_jax(tree, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     return sd
 
 
+def _pod_row(tree, j: int):
+    """Row j of every leaf's leading (pod) dim, in a nested dict."""
+    if isinstance(tree, dict):
+        return {k: _pod_row(v, j) for k, v in tree.items()}
+    return np.asarray(tree)[j]
+
+
+def ef_from_jax(tree, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """The reference's error-feedback residuals (a parameter tree whose
+    leaves carry a leading pod dim, (n_pods, *shape) fp32) -> the port's,
+    {parameter name: (n_pods, *shape) fp32}: each pod's row converted as
+    parameters, then stacked again on the pod dim."""
+    f32 = cfg.replace(param_dtype=torch.float32)
+    n_pods = np.asarray(tree["embed"]["table"]).shape[0]
+    rows = [params_from_jax(_pod_row(tree, j), f32) for j in range(n_pods)]
+    return {n: torch.stack([r[n] for r in rows]) for n in rows[0]}
+
+
 def train_state_from_jax(tree, cfg: ModelConfig):
     """The reference's ``TrainState`` with numpy leaves
     (``jax.tree.map(np.asarray, state)``) -> the port's, CPU tensors keyed by
-    the module's parameter names. Pod compression's ``ef`` is not carried
-    (the port has no pod mesh)."""
+    the module's parameter names; pod compression's ``ef``, if any,
+    through :func:`ef_from_jax`."""
     from repro_torch.train.optimizer import OptState
     from repro_torch.train.steps import TrainState
 
-    if tree.ef is not None:
-        raise NotImplementedError("a TrainState with pod-compression residuals")
     f32 = cfg.replace(param_dtype=torch.float32)
     opt = OptState(master=params_from_jax(tree.opt.master, f32),
                    m=params_from_jax(tree.opt.m, f32),
                    v=params_from_jax(tree.opt.v, f32),
                    count=_tensor(tree.opt.count, torch.int32))
+    ef = None if tree.ef is None else ef_from_jax(tree.ef, cfg)
     return TrainState(params=params_from_jax(tree.params, cfg), opt=opt,
-                      step=_tensor(tree.step, torch.int32), ef=None)
+                      step=_tensor(tree.step, torch.int32), ef=ef)

@@ -23,7 +23,8 @@ otherwise (a decode step, or a prompt shorter than the audio).
 Serving: prefill runs the encoder once, writes every layer's cross K/V
 into the cache and the prompt's self K/V; a decode step updates only the
 self cache and does not run the encoder again. While autograd records
-(training), ``remat="full"`` runs each encoder and decoder block under
+(training), ``remat="full"`` (or ``"dots"``, the matmul outputs kept:
+``transformer.remat_context``) runs each encoder and decoder block under
 ``torch.utils.checkpoint``, as the reference remats both scan bodies.
 """
 from __future__ import annotations
@@ -35,7 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import layers as NN
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import (
-    AUX_KEYS, FrozenTree, _frozen, _remat_contexts)
+    AUX_KEYS, FrozenTree, _frozen, remat_context)
 
 MAX_DEC_POS = 32768  # the learned decoder position table's rows
 
@@ -87,14 +88,16 @@ class DecBlock(FrozenTree):
         self.cfg = cfg
 
     def forward(self, x: torch.Tensor, cross_kv, *, mode: str,
-                self_cache=None, pos: int | None = None) -> torch.Tensor:
+                self_cache=None, pos: int | None = None,
+                mesh=None) -> torch.Tensor:
         """Self-attention ('causal' or 'decode'; the cache written in
-        place), cross-attention over ``cross_kv`` {'k', 'v'} (B, T, KV, hd),
-        the MLP."""
+        place; its decode seq-sharded on a mesh's model axis > 1),
+        cross-attention over ``cross_kv`` {'k', 'v'} (B, T, KV, hd), the
+        MLP."""
         cfg = self.cfg
         h = NN.layer_norm(x, self["ln1"], None, cfg.norm_eps)
         a, _ = NN.attention_fwd(self["self"], h, cfg, mode=mode,
-                                cache=self_cache, pos=pos)
+                                cache=self_cache, pos=pos, mesh=mesh)
         x = x + a
         h = NN.layer_norm(x, self["ln2"], None, cfg.norm_eps)
         c, _ = NN.attention_fwd(self["cross"], h, cfg, mode="cross_decode",
@@ -133,14 +136,12 @@ class EncDec(nn.Module):
         self.dec_norm = _frozen(NN.init_norm(cfg.d_model, cfg.param_dtype,
                                              dev))
 
-    def _remat(self) -> bool:
-        cfg = self.cfg
-        remat = torch.is_grad_enabled() and any(
-            p.requires_grad for p in self.parameters())
-        if remat and cfg.remat not in ("none", "full"):
-            raise NotImplementedError(f"remat={cfg.remat!r}: the port has "
-                                      "'full' and 'none'")
-        return remat and cfg.remat == "full"
+    def _remat(self):
+        """``checkpoint``'s context_fn while autograd records, else None."""
+        if torch.is_grad_enabled() and any(
+                p.requires_grad for p in self.parameters()):
+            return remat_context(self.cfg)
+        return None
 
     def encode(self, embeds: torch.Tensor) -> torch.Tensor:
         """embeds (B, S_enc, d), the frontend stub's frame embeddings ->
@@ -150,8 +151,8 @@ class EncDec(nn.Module):
             embeds.shape[1], cfg.d_model, embeds.device).to(cfg.dtype)[None]
         remat = self._remat()
         for block in self.enc_layers:
-            x = checkpoint(block, x, use_reentrant=False,
-                           context_fn=_remat_contexts) if remat else block(x)
+            x = checkpoint(block, x, use_reentrant=False, context_fn=remat) \
+                if remat is not None else block(x)
         return NN.layer_norm(x, self.enc_norm, None, cfg.norm_eps)
 
     def build_cross_kv(self, enc: torch.Tensor) -> list[dict]:
@@ -165,7 +166,8 @@ class EncDec(nn.Module):
                 for blk in self.dec_layers]
 
     def decode(self, tokens: torch.Tensor, cross: list[dict], *, mode: str,
-               self_cache=None, pos: int | None = None) -> torch.Tensor:
+               self_cache=None, pos: int | None = None,
+               mesh=None) -> torch.Tensor:
         """The decoder: mode 'causal' (prefill, teacher forcing) or
         'decode' (new tokens at ``pos``); ``self_cache`` the stacked
         {'k', 'v'} (L, B, S_max, KV, hd), written in place. Returns the
@@ -176,20 +178,22 @@ class EncDec(nn.Module):
         start = pos if mode == "decode" else 0
         pidx = torch.arange(s, device=x.device) + start
         x = x + self.dec_pos[pidx].to(cfg.dtype)[None]
-        remat = self_cache is None and self._remat()
+        remat = self._remat() if self_cache is None else None
         for i, block in enumerate(self.dec_layers):
             sc = None if self_cache is None else \
                 {name: t[i] for name, t in self_cache.items()}
-            if remat:
-                x = checkpoint(block, x, cross[i], mode=mode,
-                               use_reentrant=False, context_fn=_remat_contexts)
+            if remat is not None:
+                x = checkpoint(block, x, cross[i], mode=mode, mesh=mesh,
+                               use_reentrant=False, context_fn=remat)
             else:
-                x = block(x, cross[i], mode=mode, self_cache=sc, pos=pos)
+                x = block(x, cross[i], mode=mode, self_cache=sc, pos=pos,
+                          mesh=mesh)
         x = NN.layer_norm(x, self.dec_norm, None, cfg.norm_eps)
         return NN.unembed_fwd(self.embed, x, cfg)
 
     def forward(self, tokens: torch.Tensor, *, embeds=None,
-                mode: str = "causal", cache=None, pos: int | None = None):
+                mode: str = "causal", cache=None, pos: int | None = None,
+                mesh=None):
         """Returns (logits (B, S, padded_vocab), cache, aux).
 
         mode 'causal': ``embeds`` (B, S_enc, d) through the encoder, then
@@ -197,13 +201,14 @@ class EncDec(nn.Module):
         with a cache (``init_encdec_cache``'s, its cross rows S_enc), a
         prefill that writes the cross K/V and the prompt's self K/V. mode
         'decode': new tokens at ``pos`` against the cache; the encoder is
-        not run again. aux: the zero MoE terms."""
+        not run again. aux: the zero MoE terms. mesh: the decoder's
+        self-attention's."""
         cfg = self.cfg
         if mode == "decode":
             cross = [{name: t[i] for name, t in cache["cross"].items()}
                      for i in range(cfg.num_layers)]
             logits = self.decode(tokens, cross, mode="decode",
-                                 self_cache=cache["self"], pos=pos)
+                                 self_cache=cache["self"], pos=pos, mesh=mesh)
         elif mode == "causal":
             if embeds is None:
                 raise ValueError(f"{cfg.arch}: the encoder needs frame "
@@ -221,7 +226,7 @@ class EncDec(nn.Module):
                             cache["cross"][name].dtype)
             logits = self.decode(tokens, cross, mode="causal",
                                  self_cache=None if cache is None
-                                 else cache["self"])
+                                 else cache["self"], mesh=mesh)
         else:
             raise ValueError(f"encoder-decoder mode {mode!r}: 'causal' or "
                              f"'decode'")

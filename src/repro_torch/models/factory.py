@@ -3,11 +3,19 @@ and VLM families (``transformer.Transformer``), the Mamba2 hybrid
 (``zamba.Hybrid``), xLSTM (``ssm``, ``xlstm.XLSTM``) and the
 encoder-decoder (``audio``, ``encdec.EncDec``).
 
-``build_model(cfg, device)`` returns a :class:`Model`: an ``nn.Module``
-holding the family's network drawn from a ``torch.Generator``, with
-``loss_fn``, ``forward``, ``init_cache`` and ``decode_step``. The
-parameters live in the module, so the step functions take none (the
-reference passes its parameter tree to every call).
+``build_model(cfg, device, mesh=)`` returns a :class:`Model`: an
+``nn.Module`` holding the family's network drawn from a
+``torch.Generator``, with ``loss_fn``, ``forward``, ``init_cache`` and
+``decode_step``. The parameters live in the module, so the step functions
+take none (the reference passes its parameter tree to every call).
+
+The mesh (``launch/mesh.make_local_mesh``: named axes of virtual devices,
+all on the one card) is kept as :attr:`Model.mesh` and passed to every
+forward. A dense model computes the same arithmetic on any mesh; only the
+reference's per-shard code reads it: the seq-sharded decodes, MoE's
+expert-parallel and psum paths over the model axis (whose size pads the
+experts when the weights are drawn), and the train step's
+``compress_pod`` over the pod axis.
 """
 from __future__ import annotations
 
@@ -18,13 +26,16 @@ from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as TF
 from repro_torch.models import xlstm as XL
 from repro_torch.models import zamba as ZB
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import MODEL_AXIS, ModelConfig
 from repro_torch.utils import resolve_device
 
-def network(cfg: ModelConfig, generator: torch.Generator) -> nn.Module:
-    """The family's network, its weights drawn from ``generator``."""
+def network(cfg: ModelConfig, generator: torch.Generator,
+            mesh=None) -> nn.Module:
+    """The family's network, its weights drawn from ``generator`` (an MoE's
+    experts padded for the mesh's model axis)."""
     if cfg.family in ("dense", "moe", "vlm"):
-        return TF.Transformer(cfg, generator)
+        return TF.Transformer(cfg, generator, 1 if mesh is None else
+                              mesh.axis_size(MODEL_AXIS))
     if cfg.family == "hybrid":
         return ZB.Hybrid(cfg, generator)
     if cfg.family == "ssm":
@@ -35,10 +46,12 @@ def network(cfg: ModelConfig, generator: torch.Generator) -> nn.Module:
 
 
 class Model(nn.Module):
-    def __init__(self, cfg: ModelConfig, generator: torch.Generator):
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator,
+                 mesh=None):
         super().__init__()
         self.cfg = cfg
-        self.lm = network(cfg, generator)
+        self.mesh = mesh
+        self.lm = network(cfg, generator, mesh)
 
     @property
     def device(self) -> torch.device:
@@ -82,8 +95,10 @@ class Model(nn.Module):
 
     def forward(self, *, tokens: torch.Tensor, embeds=None,
                 mode: str = "causal", cache=None, pos: int | None = None):
-        """(logits (B, S_total, padded_vocab), cache, aux)."""
-        return self.lm(tokens, embeds=embeds, mode=mode, cache=cache, pos=pos)
+        """(logits (B, S_total, padded_vocab), cache, aux), on the model's
+        mesh."""
+        return self.lm(tokens, embeds=embeds, mode=mode, cache=cache, pos=pos,
+                       mesh=self.mesh)
 
     def init_cache(self, batch: int, max_len: int, enc_len: int = 0):
         """The family's decode cache, zeros: the stacked KV (or MLA latent)
@@ -107,15 +122,16 @@ class Model(nn.Module):
 
 
 def build_model(cfg: ModelConfig, device: str | torch.device = "cuda", *,
-                generator: torch.Generator | None = None) -> Model:
+                mesh=None, generator: torch.Generator | None = None) -> Model:
     """A model of ``cfg`` with random weights on ``device`` (``cuda`` unless
     the caller asks for another; ``cuda`` without a card raises), drawn from
     ``generator``: one on ``device`` (by default a new one seeded 0), or one
     on the host, whose weights are then moved to ``device``, so that a seed
-    gives the same model on every device (as the reference's key does)."""
+    gives the same model on every device (as the reference's key does).
+    ``mesh``: a ``NamedMesh`` of virtual devices, or None (one device)."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     elif generator.device.type not in (dev.type, "cpu"):
         raise ValueError(f"generator on {generator.device}, model on {dev}")
-    return Model(cfg, generator).to(dev)
+    return Model(cfg, generator, mesh).to(dev)

@@ -18,8 +18,20 @@ the same flash kernel; decode is the reference's absorbed attention over
 the latent cache, in plain torch. The cross modes (the encoder-decoder's)
 attend over the encoder's K and V without a mask: the flash kernel where
 the queries are as many as the encoder's rows, the plain einsums
-otherwise. Left for later: the chunked paths for S > 8192 and the
-multi-device flash-decode (GQA's and MLA's ``mla_seq_shard``).
+otherwise. Left for later: the chunked paths for S > 8192.
+
+Seq-sharded decode (flash-decoding, the reference's ``shard_map`` bodies
+``_flash_decode_shard`` and ``_mla_flash_decode_shard``): given a mesh
+(``core/mesh.NamedMesh``) whose ``model`` axis is larger than 1, and
+``cfg.decode_seq_shard`` (GQA) or ``cfg.mla_seq_shard`` (MLA), decode
+splits the cache's T rows into the n shards of ``common.decode_layout``'s
+sequence axes: a ``(B, n, T/n, ...)`` view of the one cache. Every shard's
+softmax statistics ``(m, l, o)`` are computed at once, batched over the
+shard axis, and merged by the log-sum-exp reduction through the mesh's
+``pmax`` and ``psum``, in the reference's order and rounding. ``T % n !=
+0`` raises ``ValueError``: there is no fallback to the plain decode.
+Prefill and training never read the mesh: their arithmetic is the same
+on any mesh.
 """
 from __future__ import annotations
 
@@ -29,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import MODEL_AXIS, ModelConfig, decode_layout
 
 NEG_INF = -1e30  # the reference's mask value (``_mask_scores``)
 
@@ -293,7 +305,7 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
 
 def attention_fwd(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                   rope=None, cache=None, pos: int | None = None,
-                  x_kv: torch.Tensor | None = None):
+                  x_kv: torch.Tensor | None = None, mesh=None):
     """GQA attention. Returns (out, cache).
 
     mode 'causal' | 'bidir' (prefill: self-attention; with a cache, k and
@@ -306,7 +318,10 @@ def attention_fwd(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     shapes the TPU kernel takes), the plain einsums otherwise. cache:
     {'k', 'v'} each (B, S_max, KV, hd), updated in place by the self modes
     (the reference donates it); pos is a Python int, so nothing is read
-    back from the device.
+    back from the device. mesh: a ``NamedMesh`` or None; 'decode' on a
+    mesh of model axis > 1 with ``cfg.decode_seq_shard`` attends through
+    :func:`_flash_decode_sharded` (the cache write stays the whole
+    cache's).
     """
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
@@ -333,11 +348,67 @@ def attention_fwd(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     elif mode == "decode":
         cache["k"][:, pos:pos + S] = k.to(cache["k"].dtype)
         cache["v"][:, pos:pos + S] = v.to(cache["v"].dtype)
-        out = _sdpa(q, cache["k"].to(dt), cache["v"].to(dt), causal=True,
-                    q_offset=pos, kv_len=pos + S)
+        shards = _seq_shards(mesh, cfg.decode_seq_shard, B,
+                             cache["k"].shape[1])
+        if shards is not None:
+            out = _flash_decode_sharded(
+                q.reshape(B, S, KV, H // KV, hd), cache["k"].to(dt),
+                cache["v"].to(dt), pos + S, shards)
+        else:
+            out = _sdpa(q, cache["k"].to(dt), cache["v"].to(dt), causal=True,
+                        q_offset=pos, kv_len=pos + S)
     else:
         raise ValueError(f"attention mode {mode!r}")
     return out.reshape(B, S, H * hd) @ p["wo"].to(dt), cache
+
+
+def _seq_shards(mesh, seq_shard: bool, batch: int, t: int):
+    """The one-axis view of the decode's sequence shards, or None where
+    the reference decodes unsharded (no mesh, model axis 1, the flag off).
+    Raises ``ValueError`` when the cache's ``t`` rows do not split evenly."""
+    if mesh is None or not seq_shard or mesh.axis_size(MODEL_AXIS) <= 1:
+        return None
+    _, seq_axes = decode_layout(mesh.shape, batch, seq_shard)
+    view = mesh.view(seq_axes)
+    if t % view.axis_size:
+        raise ValueError(f"a decode cache of {t} rows does not split into "
+                         f"the {view.axis_size} shards of {seq_axes} on a "
+                         f"mesh {mesh.shape}")
+    return view
+
+
+def _flash_decode_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          kv_len: int, shards) -> torch.Tensor:
+    """The reference's ``_flash_decode_shard`` over every shard at once.
+
+    q (B, S, KV, G, hd); k, v (B, T, KV, hd), the whole cache, taken as n
+    = ``shards.axis_size`` slices of T/n rows (shard i holds global rows
+    [i T/n, (i+1) T/n)). Each shard's scores come from the grouped einsum
+    (each KV head read once, not repeated to H), in fp32 over sqrt(hd),
+    masked at global row >= ``kv_len``; its max m, the sum l of e = exp(s
+    - m), and o = e (rounded to q's dtype) times v. The merge: M = pmax(m),
+    corr = exp(m - M), l_g = psum(l corr), o_g = psum(o corr) with corr
+    rounded to q's dtype, and o_g / l_g in q's dtype -> (B, S, KV * G,
+    hd)."""
+    b, s, kv, g, hd = q.shape
+    t = k.shape[1]
+    n = shards.axis_size
+    t_loc = t // n
+    ks = k.view(b, n, t_loc, kv, hd)
+    vs = v.view(b, n, t_loc, kv, hd)
+    scores = torch.einsum("bskgh,bntkh->nbkgst", q, ks).float() / math.sqrt(hd)
+    tpos = torch.arange(t, device=q.device).view(n, 1, 1, 1, 1, t_loc)
+    scores = scores.masked_fill(tpos >= kv_len, NEG_INF)
+    m = torch.amax(scores, dim=-1, keepdim=True)        # (n, B, KV, G, S, 1)
+    e = torch.exp(scores - m)
+    l = e.sum(-1, keepdim=True)
+    o = torch.einsum("nbkgst,bntkh->nbskgh", e.to(q.dtype), vs)
+    big_m = shards.pmax(m)
+    corr = torch.exp(m - big_m)
+    l_g = shards.psum(l * corr)                         # (B, KV, G, S, 1)
+    o_g = shards.psum(o * corr.permute(0, 1, 4, 2, 3, 5).to(q.dtype))
+    out = o_g / l_g.permute(0, 3, 1, 2, 4).to(q.dtype)
+    return out.reshape(b, s, kv * g, hd)
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, device,
@@ -374,7 +445,7 @@ def init_mla(cfg: ModelConfig, generator: torch.Generator
 
 
 def mla_fwd(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str, rope,
-            cache=None, pos: int | None = None):
+            cache=None, pos: int | None = None, mesh=None):
     """MLA (``repro/models/layers.py::mla_fwd``). Returns (out, cache). The
     cache holds the latents, {'c_kv' (B, S_max, kv_lora), 'k_rope' (B,
     S_max, rope_dim)}, updated in place.
@@ -391,7 +462,10 @@ def mla_fwd(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str, rope,
     bf16, the context in latent space, then W_uv. No K or V is
     materialised. The projections are matmuls on the (in, out) weights
     reshaped as the reference's einsums read them, so K and V come out
-    contiguous for the kernel."""
+    contiguous for the kernel. On a mesh of model axis > 1 with
+    ``cfg.mla_seq_shard``, decode runs :func:`_mla_flash_decode_sharded`
+    (the latent caches split on T, the latent context merged across
+    shards, W_uv after the merge)."""
     B, S, _ = x.shape
     H = cfg.num_heads
     nd, rd, vd = cfg.mla_nope_dim, cfg.mla_rope_dim, cfg.mla_v_dim
@@ -419,11 +493,19 @@ def mla_fwd(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str, rope,
             cache["c_kv"][:, :S] = c_kv.to(cache["c_kv"].dtype)
             cache["k_rope"][:, :S] = k_rope.to(cache["k_rope"].dtype)
     elif mode == "decode":
+        w_uk = p["w_uk"].to(dt).reshape(kvl, H, nd)
+        q_lat = torch.einsum("bshn,khn->bshk", q_nope, w_uk)  # absorb W_uk
+        shards = _seq_shards(mesh, cfg.mla_seq_shard, B,
+                             cache["c_kv"].shape[1])
+        if shards is not None:
+            ctx_lat = _mla_flash_decode_sharded(
+                q_lat, q_rope, c_kv, k_rope, cache, pos, scale, shards)
+            ctx = torch.einsum("bshk,khv->bshv", ctx_lat,
+                               p["w_uv"].to(dt).reshape(kvl, H, vd))
+            return ctx.reshape(B, S, H * vd) @ p["wo"].to(dt), cache
         cache["c_kv"][:, pos:pos + S] = c_kv.to(cache["c_kv"].dtype)
         cache["k_rope"][:, pos:pos + S] = k_rope.to(cache["k_rope"].dtype)
         ckv, kr = cache["c_kv"].to(dt), cache["k_rope"].to(dt)
-        w_uk = p["w_uk"].to(dt).reshape(kvl, H, nd)
-        q_lat = torch.einsum("bshn,khn->bshk", q_nope, w_uk)  # absorb W_uk
         scores = (torch.einsum("bshk,btk->bhst", q_lat, ckv) +
                   torch.einsum("bshr,btr->bhst", q_rope, kr))
         scores = scores.float() * scale
@@ -436,6 +518,52 @@ def mla_fwd(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str, rope,
     else:
         raise NotImplementedError(f"MLA mode {mode!r} is not ported")
     return ctx.reshape(B, S, H * vd) @ p["wo"].to(dt), cache
+
+
+def _mla_flash_decode_sharded(q_lat, q_rope, ckv_new, kr_new, cache,
+                              pos: int, scale: float, shards) -> torch.Tensor:
+    """The reference's ``_mla_flash_decode_shard`` over every shard at once.
+
+    The latent caches ``cache['c_kv']`` (B, T, kv_lora) and
+    ``cache['k_rope']`` (B, T, rope) are taken as n = ``shards.axis_size``
+    slices of T/n rows. The write lands on one shard: shard i (rows from
+    lo = i T/n) takes the new rows at ``pos - lo`` clipped into its slice,
+    where 0 <= pos - lo < T/n (the start clamped so that the S rows fit,
+    as ``dynamic_update_slice`` clamps it), and every other shard keeps its
+    rows; the write is made in place. Scores: the two latent einsums in
+    q's dtype, added, then fp32 times ``scale``, masked at global row >=
+    pos + 1 (the reference's bound), the shard's (m, l, o) with the
+    *latent* c_kv as the value, and the log-sum-exp merge through
+    ``pmax``/``psum`` as the GQA merge. Returns the merged latent context
+    (B, S, H, kv_lora); W_uv is applied by the caller, after the merge."""
+    b, s, h, kvl = q_lat.shape
+    dt = q_lat.dtype
+    t = cache["c_kv"].shape[1]
+    n = shards.axis_size
+    t_loc = t // n
+    views = {name: cache[name].view(b, n, t_loc, cache[name].shape[-1])
+             for name in ("c_kv", "k_rope")}
+    for idx in range(n):
+        lp = pos - idx * t_loc
+        if 0 <= lp < t_loc:
+            at = min(lp, t_loc - s)
+            views["c_kv"][:, idx, at:at + s] = ckv_new.to(cache["c_kv"].dtype)
+            views["k_rope"][:, idx, at:at + s] = kr_new.to(cache["k_rope"].dtype)
+    ckv, kr = views["c_kv"].to(dt), views["k_rope"].to(dt)
+    scores = (torch.einsum("bshk,bntk->nbhst", q_lat, ckv) +
+              torch.einsum("bshr,bntr->nbhst", q_rope, kr))
+    scores = scores.float() * scale
+    tpos = torch.arange(t, device=q_lat.device).view(n, 1, 1, 1, t_loc)
+    scores = scores.masked_fill(tpos >= pos + 1, NEG_INF)
+    m = torch.amax(scores, dim=-1, keepdim=True)        # (n, B, H, S, 1)
+    e = torch.exp(scores - m)
+    l = e.sum(-1, keepdim=True)
+    o = torch.einsum("nbhst,bntk->nbshk", e.to(dt), ckv)
+    big_m = shards.pmax(m)
+    corr = torch.exp(m - big_m)
+    l_g = shards.psum(l * corr)                         # (B, H, S, 1)
+    o_g = shards.psum(o * corr.permute(0, 1, 3, 2, 4).to(dt))
+    return o_g / l_g.permute(0, 2, 1, 3).to(dt)
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, device,

@@ -247,6 +247,10 @@ def moe_fwd(p, x: torch.Tensor, cfg: ModelConfig,
     b, s, d = x.shape
     m = mesh.axis_size if mesh is not None else 1
     e_pad = padded_experts(cfg, m)
+    if p["wi"].shape[0] != e_pad:
+        raise ValueError(f"{p['wi'].shape[0]} experts' weights, padded for "
+                         f"another model axis than this one of {m} "
+                         f"({e_pad} experts)")
     routed = {name: p[name] for name in ROUTED}
     if mesh is None or m == 1 or not cfg.ep_shuffle or cfg.layout == "fsdp":
         y, aux = _dispatch_compute_combine(routed, x.reshape(b * s, d), cfg,

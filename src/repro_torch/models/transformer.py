@@ -12,7 +12,8 @@ stays stacked on L, as the reference's, and each block writes its slice in
 place. While autograd records (training), ``cfg.remat`` applies as the
 reference's ``_remat``: ``"full"`` runs each block under
 ``torch.utils.checkpoint`` (its input saved, its forward run again in the
-backward; an MoE block routes the same tokens the same way again), ``"none"``
+backward; an MoE block routes the same tokens the same way again),
+``"dots"`` likewise with the matmul outputs kept (below), ``"none"``
 plainly. The forward's aux (``moe_aux``, ``moe_dropped``) is the sum over
 the layers, in order, of fp32 tensors on the device (zeros for the dense
 family), as the reference's scan sums them. The VLM front is the
@@ -20,9 +21,24 @@ reference's stub: ``embeds`` (B, n_front, d), precomputed patch
 embeddings, are cast to the activation dtype, projected by ``front_proj``
 (d, d) and put before the token embeddings; positions run over the whole
 row, front rows first. The audio front is the encoder-decoder's
-(``models/encdec.py``). Left for later: MLA with experts or a front, and
-the ``"dots"`` policy (matmul outputs saved; ROADMAP.md queue 1 item
-12.7).
+(``models/encdec.py``). Left for later: MLA with experts or a front.
+
+``remat="dots"`` is the reference's ``dots_with_no_batch_dims_saveable``:
+``torch.utils.checkpoint`` with a selective policy (:func:`remat_context`)
+that saves the outputs of ``aten.mm``/``aten.addmm`` (the x·W projections,
+the MLP, the MoE router: the port's projections are all ``@`` on 2-D
+weights) and recomputes everything else (batched products, the flash
+kernel, norms, activations). Every family's blocks take it
+(``zamba.py``, ``xlstm.py``, ``encdec.py``).
+
+The mesh (``forward(..., mesh=)``, a ``core/mesh.NamedMesh``; the model
+keeps it, ``factory.build_model(cfg, device, mesh=)``) changes no dense
+arithmetic: on one card there is no GSPMD, and prefill, training and the
+MLP compute whole on any mesh. It reaches only the code the reference
+writes per shard: the seq-sharded decodes of ``layers.attention_fwd`` and
+``layers.mla_fwd``, and ``moe.moe_fwd``'s expert-parallel and psum paths
+over the model axis (whose size also pads the experts at init,
+``moe.padded_experts``).
 """
 from __future__ import annotations
 
@@ -30,14 +46,18 @@ import contextlib
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as NN
 from repro_torch.models import moe as MOE
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import MODEL_AXIS, ModelConfig
 
 AUX_KEYS = ("moe_aux", "moe_dropped")
+REMAT_POLICIES = ("none", "full", "dots")
+# the products "dots" saves: dot products with no batch dims
+SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -81,8 +101,43 @@ def _remat_contexts():
     return contextlib.nullcontext(), again
 
 
+def dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Save what ``dots_with_no_batch_dims_saveable`` saves (``SAVED_DOTS``)
+    and recompute the rest."""
+    if op in SAVED_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+@contextlib.contextmanager
+def _entered(*contexts):
+    with contextlib.ExitStack() as stack:
+        for c in contexts:
+            stack.enter_context(c)
+        yield
+
+
+def _dots_contexts():
+    """The selective policy's (forward, recompute) contexts, the recompute
+    also under ``_remat_contexts``' (the forward's attention path)."""
+    fwd, rec = create_selective_checkpoint_contexts(dots_policy)
+    _, again = _remat_contexts()
+    return fwd, _entered(rec, again)
+
+
+def remat_context(cfg: ModelConfig):
+    """``checkpoint``'s ``context_fn`` for ``cfg.remat`` ("full" or
+    "dots"); None for "none", when a block runs plainly. Another value
+    raises ``ValueError``."""
+    if cfg.remat not in REMAT_POLICIES:
+        raise ValueError(f"remat={cfg.remat!r}: one of {REMAT_POLICIES}")
+    return {"none": None, "full": _remat_contexts,
+            "dots": _dots_contexts}[cfg.remat]
+
+
 class Block(nn.Module):
-    def __init__(self, cfg: ModelConfig, generator: torch.Generator):
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator,
+                 model_size: int = 1):
         super().__init__()
         self.cfg = cfg
         dev = generator.device
@@ -92,24 +147,25 @@ class Block(nn.Module):
                                NN.init_attention(cfg, generator))
         self.ln2 = _frozen(NN.init_norm(cfg.d_model, cfg.param_dtype, dev))
         if cfg.moe_num_experts:
-            self.moe = FrozenTree(MOE.init_moe(cfg, generator))
+            self.moe = FrozenTree(MOE.init_moe(cfg, generator, model_size))
         else:
             self.mlp = FrozenTree(NN.init_mlp(cfg.d_model, cfg.d_ff, cfg,
                                               generator))
 
     def forward(self, x: torch.Tensor, *, rope, mode: str, cache=None,
-                pos: int | None = None):
+                pos: int | None = None, mesh=None):
         """(x, cache, aux): aux the MoE layer's {"moe_aux", "moe_dropped"},
         None for a dense block."""
         cfg = self.cfg
         h = NN.rms_norm(x, self.ln1, cfg.norm_eps)
         attend = NN.mla_fwd if cfg.attn_kind == "mla" else NN.attention_fwd
         a, cache = attend(self.attn, h, cfg, mode=mode, rope=rope,
-                          cache=cache, pos=pos)
+                          cache=cache, pos=pos, mesh=mesh)
         x = x + a
         h = NN.rms_norm(x, self.ln2, cfg.norm_eps)
         if cfg.moe_num_experts:
-            y, aux = MOE.moe_fwd(self.moe, h, cfg)
+            y, aux = MOE.moe_fwd(self.moe, h, cfg, None if mesh is None
+                                 else mesh.view((MODEL_AXIS,)))
             return x + y, cache, aux
         return x + NN.mlp_fwd(self.mlp, h), cache, None
 
@@ -118,9 +174,11 @@ class Transformer(nn.Module):
     """Parameters are drawn from ``generator`` on its device, in the
     reference's distributions: embedding N(0, 0.02^2), every matrix
     N(0, 1/fan_in) with fan-in its second-to-last dim (so the untied head,
-    (padded_vocab, d), has std 1/sqrt(padded_vocab)), norms ones."""
+    (padded_vocab, d), has std 1/sqrt(padded_vocab)), norms ones; the
+    experts padded for a model axis of ``model_size``."""
 
-    def __init__(self, cfg: ModelConfig, generator: torch.Generator):
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator,
+                 model_size: int = 1):
         super().__init__()
         mla = cfg.attn_kind == "mla"
         if cfg.family not in ("dense", "moe", "vlm") or \
@@ -137,7 +195,7 @@ class Transformer(nn.Module):
         self.cfg = cfg
         dev = generator.device
         self.embed = _frozen(NN.init_embed(cfg, generator))
-        self.layers = nn.ModuleList(Block(cfg, generator)
+        self.layers = nn.ModuleList(Block(cfg, generator, model_size)
                                     for _ in range(cfg.num_layers))
         self.final_norm = _frozen(NN.init_norm(cfg.d_model, cfg.param_dtype,
                                                dev))
@@ -148,7 +206,8 @@ class Transformer(nn.Module):
             if cfg.frontend == "vision_stub" else None
 
     def forward(self, tokens: torch.Tensor, *, embeds=None,
-                mode: str = "causal", cache=None, pos: int | None = None):
+                mode: str = "causal", cache=None, pos: int | None = None,
+                mesh=None):
         """Returns (logits (B, S_total, padded_vocab), cache, aux).
 
         tokens (B, S) int; embeds (B, n_front, d) or None, projected and
@@ -157,7 +216,7 @@ class Transformer(nn.Module):
         ``pos``, a Python int, which counts the front rows). cache:
         ``init_cache``'s stacked {'k', 'v'} (MLA: {'c_kv', 'k_rope'}),
         written in place and returned. RoPE runs over the head dim, or
-        MLA's rope dim.
+        MLA's rope dim. mesh: the model's ``NamedMesh`` or None.
         """
         cfg = self.cfg
         x = NN.embed_fwd(self.embed, tokens, cfg)
@@ -172,22 +231,20 @@ class Transformer(nn.Module):
         positions = torch.arange(s, device=x.device) + start
         rope_dim = cfg.mla_rope_dim if cfg.attn_kind == "mla" else cfg.hd
         rope = NN.rope_tables(positions, rope_dim, cfg.rope_theta)
-        remat = cache is None and torch.is_grad_enabled() and x.requires_grad
-        if remat and cfg.remat not in ("none", "full"):
-            raise NotImplementedError(f"remat={cfg.remat!r}: the port has "
-                                      "'full' and 'none'")
+        remat = remat_context(cfg) if cache is None and \
+            torch.is_grad_enabled() and x.requires_grad else None
         total = {k: torch.zeros((), dtype=torch.float32, device=x.device)
                  for k in AUX_KEYS}
         for i, block in enumerate(self.layers):
             layer_cache = None if cache is None else \
                 {name: t[i] for name, t in cache.items()}
-            if remat and cfg.remat == "full":
+            if remat is not None:
                 x, _, aux = checkpoint(block, x, rope=rope, mode=mode,
-                                       use_reentrant=False,
-                                       context_fn=_remat_contexts)
+                                       mesh=mesh, use_reentrant=False,
+                                       context_fn=remat)
             else:
                 x, _, aux = block(x, rope=rope, mode=mode, cache=layer_cache,
-                                  pos=pos)
+                                  pos=pos, mesh=mesh)
             if aux is not None:
                 total = {k: total[k] + aux[k] for k in AUX_KEYS}
         x = NN.rms_norm(x, self.final_norm, cfg.norm_eps)

@@ -8,7 +8,8 @@ blocks (0 there). The reference stacks the mLSTM blocks in that order
 ``XLSTM.forward`` loops over them in Python, each block an ``nn.Module``
 with its own layer's tensors: ``mlstm.<j>`` is the reference's stacked
 index j, ``slstm.<i>`` period i's sLSTM. While autograd records
-(training), ``remat="full"`` runs each period under
+(training), ``remat="full"`` (or ``"dots"``, the matmul outputs kept:
+``transformer.remat_context``) runs each period under
 ``torch.utils.checkpoint``, as the reference's ``_remat(period_body)``;
 the trailing blocks run plainly, as in the reference.
 
@@ -42,7 +43,7 @@ from repro_torch.models.recurrent import (
     causal_depthwise_conv, chunked_gla, gla_decode_step, slstm_decode_step,
     slstm_scan)
 from repro_torch.models.transformer import (
-    AUX_KEYS, FrozenTree, _frozen, _remat_contexts)
+    AUX_KEYS, FrozenTree, _frozen, remat_context)
 from repro_torch.utils import round_up
 
 
@@ -261,13 +262,15 @@ class XLSTM(nn.Module):
         return x
 
     def forward(self, tokens: torch.Tensor, *, embeds=None,
-                mode: str = "causal", cache=None, pos: int | None = None):
+                mode: str = "causal", cache=None, pos: int | None = None,
+                mesh=None):
         """Returns (logits (B, S, padded_vocab), cache, aux).
 
         tokens (B, S); mode 'causal' (prefill, training) or 'decode' (one
         token; ``pos`` is not needed: the state carries the position).
         cache: ``init_xlstm_cache``'s, written in place and returned. aux:
-        the zero MoE terms, as the reference's."""
+        the zero MoE terms, as the reference's. ``mesh`` is not read: the
+        reference writes no per-shard code for xLSTM."""
         if embeds is not None:
             raise NotImplementedError("xLSTM takes no embeds")
         if mode not in ("causal", "decode"):
@@ -276,14 +279,12 @@ class XLSTM(nn.Module):
         decode = mode == "decode"
         x = NN.embed_fwd(self.embed, tokens, cfg)
         periods, m_per, rem = xl_counts(cfg)
-        remat = cache is None and torch.is_grad_enabled() and x.requires_grad
-        if remat and cfg.remat not in ("none", "full"):
-            raise NotImplementedError(f"remat={cfg.remat!r}: the port has "
-                                      "'full' and 'none'")
+        remat = remat_context(cfg) if cache is None and \
+            torch.is_grad_enabled() and x.requires_grad else None
         for i in range(periods):
-            if remat and cfg.remat == "full":
+            if remat is not None:
                 x = checkpoint(self._period, x, i, use_reentrant=False,
-                               context_fn=_remat_contexts)
+                               context_fn=remat)
             else:
                 x = self._period(x, i, cache, decode)
         for j in range(periods * m_per, periods * m_per + rem):

@@ -7,7 +7,8 @@ slot for each of its invocations), then the ``rem`` trailing Mamba blocks
 (2). The reference scans over periods (``attn_every`` stacked Mamba blocks
 and one shared-block call); here ``Hybrid.forward`` loops over them in
 Python, each Mamba block an ``nn.Module`` with its own layer's tensors.
-While autograd records (training), ``remat="full"`` runs each period under
+While autograd records (training), ``remat="full"`` (or ``"dots"``, the
+matmul outputs kept: ``transformer.remat_context``) runs each period under
 ``torch.utils.checkpoint``, as the reference's ``_remat(period_body)``: the
 period's input is saved and its Mamba blocks and shared block run again in
 the backward, so a step runs the shared block's flash forward twice an
@@ -38,7 +39,7 @@ from repro_torch.models.common import ModelConfig
 from repro_torch.models.recurrent import (
     causal_depthwise_conv, chunked_gla, gla_decode_step)
 from repro_torch.models.transformer import (
-    AUX_KEYS, Block, FrozenTree, _frozen, _remat_contexts)
+    AUX_KEYS, Block, FrozenTree, _frozen, remat_context)
 
 
 def _mamba_dims(cfg: ModelConfig):
@@ -167,7 +168,8 @@ class Hybrid(nn.Module):
                                          cfg.param_dtype, generator))
 
     def _period(self, x, first: int, *, rope, mode: str, cache=None,
-                attn_slot: int | None = None, pos: int | None = None):
+                attn_slot: int | None = None, pos: int | None = None,
+                mesh=None):
         """Mamba blocks ``first`` .. ``first + attn_every - 1`` and, with an
         ``attn_slot``, the shared block; the caches written in place."""
         decode = mode == "decode"
@@ -176,7 +178,8 @@ class Hybrid(nn.Module):
         if attn_slot is not None:
             slot = None if cache is None else \
                 {name: t[attn_slot] for name, t in cache["attn"].items()}
-            x, _, _ = self.shared(x, rope=rope, mode=mode, cache=slot, pos=pos)
+            x, _, _ = self.shared(x, rope=rope, mode=mode, cache=slot, pos=pos,
+                                  mesh=mesh)
         return x
 
     def _mamba(self, x, i: int, cache, decode: bool):
@@ -190,13 +193,15 @@ class Hybrid(nn.Module):
         return x
 
     def forward(self, tokens: torch.Tensor, *, embeds=None,
-                mode: str = "causal", cache=None, pos: int | None = None):
+                mode: str = "causal", cache=None, pos: int | None = None,
+                mesh=None):
         """Returns (logits (B, S, padded_vocab), cache, aux).
 
         tokens (B, S); mode 'causal' (prefill, training) or 'decode' (one
         token at ``pos``, a Python int). cache: ``init_hybrid_cache``'s,
         written in place and returned. aux: the zero MoE terms, as the
-        reference's dense shared block gives."""
+        reference's dense shared block gives. mesh: the shared block's
+        (its decode seq-sharded on a model axis > 1)."""
         if embeds is not None:
             raise NotImplementedError("the hybrid takes no embeds")
         cfg = self.cfg
@@ -206,19 +211,17 @@ class Hybrid(nn.Module):
         rope = NN.rope_tables(torch.arange(s, device=x.device) + start, cfg.hd,
                               cfg.rope_theta)
         periods, rem = period_counts(cfg)
-        remat = cache is None and torch.is_grad_enabled() and x.requires_grad
-        if remat and cfg.remat not in ("none", "full"):
-            raise NotImplementedError(f"remat={cfg.remat!r}: the port has "
-                                      "'full' and 'none'")
+        remat = remat_context(cfg) if cache is None and \
+            torch.is_grad_enabled() and x.requires_grad else None
         for i in range(periods):
             first = i * cfg.attn_every
-            if remat and cfg.remat == "full":
+            if remat is not None:
                 x = checkpoint(self._period, x, first, rope=rope, mode=mode,
-                               attn_slot=i, use_reentrant=False,
-                               context_fn=_remat_contexts)
+                               attn_slot=i, mesh=mesh, use_reentrant=False,
+                               context_fn=remat)
             else:
                 x = self._period(x, first, rope=rope, mode=mode, cache=cache,
-                                 attn_slot=i, pos=pos)
+                                 attn_slot=i, pos=pos, mesh=mesh)
         for i in range(periods * cfg.attn_every, cfg.num_layers):
             x = self._mamba(x, i, cache, mode == "decode")
         x = NN.rms_norm(x, self.final_norm, cfg.norm_eps)

@@ -12,9 +12,12 @@ must show.
 The MoE cases (``moe_ep``, ``moe_decode_psum``) take the reference's
 (2, 4) data x model mesh as two batch halves, each over a ``VirtualMesh(4)``
 as the model axis: every shard holds the reference's tokens and capacity.
-The reference's other three LM-side cases (``flash_decode_shard``,
-``compress_pod``, ``elastic_restore``) need modules the port does not have
-yet (ROADMAP queue 1 item 12).
+The other three LM-side cases run on the reference's mesh shapes as
+``launch/mesh`` meshes of virtual devices: ``flash_decode_shard`` (the
+seq-sharded decode on (2, 4) data x model against the plain decode),
+``compress_pod`` (3 int8 error-feedback steps on (2, 2, 2) pod x data x
+model against 3 exact ones) and ``elastic_restore`` (a train state saved
+under (4, 2), restored under (4, 2), (2, 4) and (8, 1)).
 """
 from __future__ import annotations
 
@@ -809,6 +812,140 @@ def case_moe_decode_psum(device="cuda"):
     return {"moe_decode_err": float((y_local - y_ep).abs().max())}
 
 
+def _lm_case_setup(device):
+    """The reference's 2-layer dense config of its training cases (d 32,
+    4/2 heads of 8, vocab 128, no remat) and its batch: 8 x 16 tokens from
+    ``default_rng(0)``, unit weights. No flash instance takes head dim 8:
+    the two cases run their model under ``oracle_scope()`` (the plain
+    attention, on the card too), named so; what they test is the pod
+    compression and the restore, not the kernel."""
+    import torch
+
+    from repro_torch.models.common import ModelConfig
+    from repro_torch.utils import resolve_device
+
+    dev = resolve_device(device)
+    cfg = ModelConfig(arch="t", family="dense", num_layers=2, d_model=32,
+                      num_heads=4, num_kv_heads=2, d_ff=64, vocab_size=128,
+                      head_dim=8, remat="none")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(1, 128, (8, 16)).astype(np.int32)).to(dev),
+        "weight": torch.ones((8,), dtype=torch.float32, device=dev)}
+    return dev, cfg, batch
+
+
+def case_flash_decode_shard(device="cuda"):
+    """Seq-sharded flash decode == the plain decode attention, on the
+    reference's (2, 4) data x model mesh and its shapes (B 4, a 64-row fp32
+    cache of 2 KV heads of 8, 8 query heads, pos 17): the batch divides the
+    data axis, so the cache splits 4 ways over the model axis."""
+    import torch
+
+    from repro_torch.core.mesh import NamedMesh
+    from repro_torch.models import layers as NN
+    from repro_torch.models.common import ModelConfig
+    from repro_torch.utils import resolve_device
+
+    dev = resolve_device(device)
+    mesh = NamedMesh({"data": 2, "model": 4})
+    cfg = ModelConfig(arch="d", family="dense", num_layers=1, d_model=64,
+                      num_heads=8, num_kv_heads=2, d_ff=64, vocab_size=64,
+                      head_dim=8, decode_seq_shard=True)
+    rng = np.random.default_rng(0)
+    b, s_max = 4, 64
+
+    def f32(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+
+    cache = {"k": f32(b, s_max, 2, 8), "v": f32(b, s_max, 2, 8)}
+    p = NN.init_attention(cfg, torch.Generator(device=dev).manual_seed(0))
+    x = f32(b, 1, 64)
+    pos = 17
+    rope = NN.rope_tables(torch.arange(1, device=dev) + pos, cfg.hd, 1e4)
+    with torch.no_grad():
+        y_shard, _ = NN.attention_fwd(
+            p, x, cfg, mode="decode", rope=rope, pos=pos, mesh=mesh,
+            cache={k: v.clone() for k, v in cache.items()})
+        y_plain, _ = NN.attention_fwd(p, x, cfg, mode="decode", rope=rope,
+                                      cache=cache, pos=pos)
+    return {"flash_decode_err": float((y_shard - y_plain).abs().max()),
+            "merges": dict(mesh.counts)}
+
+
+def case_compress_pod(device="cuda"):
+    """int8 error-feedback pod gradients track exact training: 3 steps of
+    the reference's 2-layer model on its (2, 2, 2) pod x data x model mesh,
+    compressed and exact from one seed; the largest parameter difference
+    after them and the last losses' agreement."""
+    import torch
+
+    from repro_torch.kernels.ops import oracle_scope
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.factory import build_model
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.steps import init_train_state, make_train_step
+
+    dev, cfg, batch = _lm_case_setup(device)
+    mesh = make_local_mesh(8, model=2, pod=2)
+    ocfg = OptConfig(lr=1e-2, warmup_steps=2, total_steps=20)
+    model_c = build_model(cfg, dev, mesh=mesh)
+    model_e = build_model(cfg, dev, mesh=mesh)
+    st_c = init_train_state(model_c, 0, compress_pod=True, n_pods=2)
+    st_e = init_train_state(model_e, 0)
+    step_c = make_train_step(model_c, ocfg, compress_pod=True)
+    step_e = make_train_step(model_e, ocfg)
+    with oracle_scope():
+        for _ in range(3):
+            st_c, mc = step_c(st_c, batch)
+            st_e, me = step_e(st_e, batch)
+    diff = max(float((st_c.params[n].float() - st_e.params[n].float())
+                     .abs().max()) for n in st_c.params)
+    ef_abs = max(float(e.abs().max()) for e in st_c.ef.values())
+    return {"pod_compress_max_param_diff": diff,
+            "loss_close": abs(float(mc["loss"]) - float(me["loss"])) < 0.2,
+            "ef_finite": all(bool(torch.isfinite(e).all())
+                             for e in st_c.ef.values()),
+            "ef_max_abs": ef_abs}
+
+
+def case_elastic_restore(device="cuda"):
+    """Save on a (4, 2) data x model mesh, restore on (4, 2), (2, 4) and
+    (8, 1): the loss of the restored state is the same under each (the
+    reference allows 2e-3 for its meshes' reduction orders; here the
+    dense arithmetic does not depend on the mesh)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core.mesh import NamedMesh
+    from repro_torch.kernels.ops import oracle_scope
+    from repro_torch.models.factory import build_model
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.steps import init_train_state
+
+    dev, cfg, batch = _lm_case_setup(device)
+    losses, steps = {}, []
+    with tempfile.TemporaryDirectory() as d:
+        for name, shape in (("a", (4, 2)), ("b", (2, 4)), ("c", (8, 1))):
+            mesh = NamedMesh({"data": shape[0], "model": shape[1]})
+            model = build_model(cfg, dev, mesh=mesh)
+            if not losses:
+                ckpt.save(d, 1, init_train_state(model, 0))
+            # another draw, which the restore must overwrite
+            like = init_train_state(model, 1)
+            state, step = ckpt.CheckpointManager(d).resume(like, mesh=mesh)
+            steps.append(step if state is like else None)
+            with torch.no_grad(), oracle_scope():
+                loss, _ = model.loss_fn(batch)
+            losses[name] = float(loss)
+    vals = list(losses.values())
+    return {"elastic_losses": vals, "restored_steps": steps,
+            "elastic_ok": steps == [1, 1, 1]
+            and max(vals) - min(vals) < 2e-3}
+
+
 CASES = {k[5:]: v for k, v in list(globals().items())
          if k.startswith("case_")}
 
@@ -933,6 +1070,15 @@ _CHECKS = {
     "moe_decode_psum": (
         ("psum decode equal to the local path",
          lambda r: r["moe_decode_err"] < 2e-5),),
+    "flash_decode_shard": (
+        ("seq-sharded decode equal to the plain decode",
+         lambda r: r["flash_decode_err"] < 2e-4),),
+    "compress_pod": (
+        ("compressed training tracks exact",
+         lambda r: r["pod_compress_max_param_diff"] < 5e-2),
+        ("losses close", _all("loss_close"))),
+    "elastic_restore": (
+        ("the restored loss is the same on every mesh", _all("elastic_ok")),),
 }
 
 

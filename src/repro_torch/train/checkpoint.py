@@ -24,8 +24,16 @@
 ``restore`` loads into the tensors of ``like`` in place, as
 ``load_state_dict`` does, after every leaf has verified on the host: the
 state on the card is not held twice, and a checkpoint that fails leaves
-``like`` untouched. The reference's elastic ``(mesh, specs)`` restore waits
-for the port's mesh.
+``like`` untouched.
+
+**Elastic restore**: leaves are stored as full logical arrays, so a
+checkpoint written under one mesh restores under any other. ``restore``
+and :meth:`CheckpointManager.resume` take the reference's ``mesh`` and
+``specs``: on the port's virtual mesh every device is the one card, so the
+leaves land where ``like``'s tensors are, and ``specs`` (the reference's
+partition specs, which place arrays and change no value) is not read.
+A train state's pod-compression residuals ``ef`` ride as its last field,
+after ``step``, as the reference's ``TrainState`` orders them.
 """
 from __future__ import annotations
 
@@ -187,10 +195,10 @@ def _load_leaf(d: str, step: int, m: dict) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore(ckpt_dir: str, step: int, like: Any) -> Any:
-    """Load checkpoint ``step`` into the tensors of ``like`` (its structure,
-    shapes and devices), in place, and return ``like``. Every leaf is read
-    and verified before any tensor of ``like`` is written."""
+def read_leaves(ckpt_dir: str, step: int) -> list[torch.Tensor]:
+    """Every leaf of checkpoint ``step``, verified, as CPU tensors in the
+    manifest's order (for a tree the caller knows, e.g. one the reference
+    wrote, which ``convert`` then maps onto the port's)."""
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     try:
         with open(os.path.join(d, MANIFEST)) as f:
@@ -198,12 +206,20 @@ def restore(ckpt_dir: str, step: int, like: Any) -> Any:
     except (OSError, ValueError) as e:
         raise CheckpointCorruptError(
             f"step {step}: unreadable manifest ({e})") from e
-    leaves_meta = manifest["leaves"]
+    return [_load_leaf(d, step, m) for m in manifest["leaves"]]
+
+
+def restore(ckpt_dir: str, step: int, like: Any, *, mesh=None, specs=None
+            ) -> Any:
+    """Load checkpoint ``step`` into the tensors of ``like`` (its structure,
+    shapes and devices), in place, and return ``like``. Every leaf is read
+    and verified before any tensor of ``like`` is written. ``mesh`` and
+    ``specs``: the elastic restore's target (module docstring)."""
     flat = _leaf_paths(like)
-    if len(flat) != len(leaves_meta):
+    loaded = read_leaves(ckpt_dir, step)
+    if len(flat) != len(loaded):
         raise ValueError(f"tree mismatch: {len(flat)} leaves vs "
-                         f"{len(leaves_meta)} in the checkpoint")
-    loaded = [_load_leaf(d, step, m) for m in leaves_meta]
+                         f"{len(loaded)} in the checkpoint")
     for (name, leaf), arr in zip(flat, loaded):
         if tuple(leaf.shape) != tuple(arr.shape):
             raise ValueError(f"step {step}: leaf {name} has shape "
@@ -239,14 +255,15 @@ class CheckpointManager:
             self._pending.join()
             self._pending = None
 
-    def resume(self, like):
+    def resume(self, like, *, mesh=None, specs=None):
         """(state, step) from the newest checkpoint that verifies, or
         (None, 0). A truncated or corrupt newest checkpoint is skipped with
-        a warning and the next-newest retained step is tried."""
+        a warning and the next-newest retained step is tried. ``mesh`` and
+        ``specs`` go to :func:`restore`."""
         bad = []
         for step in reversed(list_steps(self.dir)):
             try:
-                state = restore(self.dir, step, like)
+                state = restore(self.dir, step, like, mesh=mesh, specs=specs)
             except CheckpointCorruptError as e:
                 bad.append(step)
                 warnings.warn(

@@ -1,7 +1,8 @@
 """Fault-tolerant training loop, the port of ``repro/train/loop.py``:
 checkpoint/restart with deterministic replay.
 
-The state is (params, opt, step) in the checkpoint, and the data pipeline
+The state is (params, opt, step, and ef under ``compress_pod``) in the
+checkpoint, and the data pipeline
 is a pure function of the step index, so a restarted run replays the same
 batch stream from the resume step: training is bitwise reproducible across
 failures on one device (``tests/test_torch_checkpoint.py``, and
@@ -18,7 +19,14 @@ import torch
 from repro_torch.data.pipeline import RelationalTokenPipeline
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.optimizer import OptConfig
-from repro_torch.train.steps import TrainState, init_train_state, make_train_step
+from repro_torch.models.common import POD_AXIS
+from repro_torch.train.steps import (
+    TrainState, init_ef, init_train_state, make_train_step)
+
+
+def pod_count(model) -> int:
+    """The model's mesh's pod axis size (1 without a mesh)."""
+    return 1 if model.mesh is None else model.mesh.axis_size(POD_AXIS)
 
 
 @dataclasses.dataclass
@@ -45,13 +53,16 @@ def run(model, pipeline: RelationalTokenPipeline, ocfg: OptConfig,
                               compress_pod=lcfg.compress_pod)
     if state is None:
         state = init_train_state(model, lcfg.seed,
-                                 compress_pod=lcfg.compress_pod)
+                                 compress_pod=lcfg.compress_pod,
+                                 n_pods=pod_count(model))
+    elif lcfg.compress_pod and state.ef is None:
+        state = state._replace(ef=init_ef(state.params, pod_count(model)))
     start = 0
     manager = None
     if lcfg.ckpt_dir:
         manager = ckpt.CheckpointManager(lcfg.ckpt_dir, every=lcfg.ckpt_every,
                                          keep=lcfg.ckpt_keep)
-        restored, start = manager.resume(state)
+        restored, start = manager.resume(state, mesh=model.mesh)
         if restored is not None:
             state = restored
             log(f"[resume] from step {start}")

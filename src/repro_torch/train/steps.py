@@ -8,50 +8,74 @@ tensors (keyed by the network's ``named_parameters()``); the train step
 computes the loss through the model and updates those tensors, the fp32
 masters and the moments in place (the reference donates its state). The
 parameters stay frozen (``requires_grad`` False) outside the step's
-backward, so serving builds no autograd graph. ``compress_pod`` (int8
-error-feedback gradients across pods) needs a pod mesh, which the port
-does not have yet.
+backward, so serving builds no autograd graph.
+
+Gradient compression (``compress_pod=True``, the reference's int8
+error-feedback pod compression): on a mesh with a ``pod`` axis of n pods,
+each pod takes its contiguous 1/n of the batch (the reference's
+``P("pod")`` on the leading dim), accumulates its gradients over its own
+microbatches, adds its error-feedback residual ``ef[name][pod]`` and
+quantizes each of the reference's leaves (a per-layer leaf is one leaf
+stacked over the layers there) to int8 with one fp32 scale
+(:func:`_quantize`); the residual keeps what the quantization lost, and
+the mean of the pods' dequantized gradients feeds AdamW. The pods run one after another, so one
+pod's fp32 gradients are live beside the running sum of the dequantized
+ones. Inside a pod, the data and model axes change no arithmetic (the
+reference's GSPMD there is a layout).
 """
 from __future__ import annotations
 
 import contextlib
+import re
 from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.models.common import POD_AXIS
 from repro_torch.models.factory import Model, network
 from repro_torch.train.optimizer import OptConfig, OptState, apply_updates, init_opt
-
-_POD_TODO = ("compress_pod needs a multi-pod mesh, which the port does not "
-             "have; ROADMAP.md queue 1 item 12.7 keeps it queued")
 
 
 class TrainState(NamedTuple):
     params: dict[str, torch.Tensor]
     opt: OptState
     step: torch.Tensor  # int32, ()
-    ef: Any             # error-feedback residuals (pod compression) or None
+    # error-feedback residuals of pod compression, {name: (n_pods, *shape)
+    # fp32} keyed as params, or None
+    ef: Any
 
 
 def init_train_state(model: Model, seed: int = 0, *,
-                     compress_pod: bool = False) -> TrainState:
+                     compress_pod: bool = False, n_pods: int = 1
+                     ) -> TrainState:
     """Draw the model's parameters afresh from a ``torch.Generator`` seeded
     ``seed`` on its device (as ``build_model`` draws them), in place, and
-    return the state over them: fp32 masters, zero moments, step 0."""
-    if compress_pod:
-        raise NotImplementedError(_POD_TODO)
+    return the state over them: fp32 masters, zero moments, step 0; with
+    ``compress_pod``, zero residuals ``ef`` of ``n_pods`` rows a leaf."""
     fresh = network(model.cfg,
-                    torch.Generator(device=model.device).manual_seed(seed))
+                    torch.Generator(device=model.device).manual_seed(seed),
+                    model.mesh)
     model.lm.load_state_dict(fresh.state_dict())
     del fresh
-    return bind_state(model)
+    state = bind_state(model)
+    if compress_pod:
+        state = state._replace(ef=init_ef(state.params, n_pods))
+    return state
+
+
+def init_ef(params: dict[str, torch.Tensor], n_pods: int
+            ) -> dict[str, torch.Tensor]:
+    """Zero error-feedback residuals: (n_pods, *shape) fp32 a leaf."""
+    return {n: torch.zeros((n_pods,) + tuple(p.shape), dtype=torch.float32,
+                           device=p.device) for n, p in params.items()}
 
 
 def bind_state(model: Model, src: TrainState | None = None) -> TrainState:
     """A train state over the model's parameters: fresh (fp32 masters of
     the parameters as they are, zero moments, step 0), or, from ``src`` (a
     state on any device, e.g. ``convert.train_state_from_jax``'s), a copy
-    of it with ``src.params`` copied into the model's parameters."""
+    of it with ``src.params`` copied into the model's parameters (and its
+    ``ef``, if any, copied to the model's device)."""
     params = dict(model.lm.named_parameters())
     if src is None:
         return TrainState(params=params, opt=init_opt(params),
@@ -63,8 +87,10 @@ def bind_state(model: Model, src: TrainState | None = None) -> TrainState:
                       for n, t in leaves.items()}
                      for leaves in (src.opt.master, src.opt.m, src.opt.v)),
                    count=src.opt.count.to(dev, torch.int32, copy=True))
+    ef = None if src.ef is None else {
+        n: t.to(dev, torch.float32, copy=True) for n, t in src.ef.items()}
     return TrainState(params=params, opt=opt,
-                      step=src.step.to(dev, torch.int32, copy=True), ef=None)
+                      step=src.step.to(dev, torch.int32, copy=True), ef=ef)
 
 
 # ---------------------------------------------------------------------------
@@ -124,6 +150,75 @@ def _accumulate_grads(model: Model, params: dict[str, torch.Tensor],
 
 
 # ---------------------------------------------------------------------------
+# int8 error-feedback pod compression
+# ---------------------------------------------------------------------------
+
+
+def _quantize(g: torch.Tensor, s: torch.Tensor | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(q int8, s fp32 ()) of an fp32 leaf: s = max|g| / 127 + 1e-12 (or
+    the given scale), q = clip(round(g / s), -127, 127), rounding half to
+    even (as ``jnp.round``)."""
+    if s is None:
+        s = _scale([g])
+    q = torch.clamp(torch.round(g / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def _scale(leaves: list[torch.Tensor]) -> torch.Tensor:
+    """max |g| over the leaves / 127 + 1e-12, in fp32."""
+    m = torch.stack([torch.amax(torch.abs(g)) for g in leaves]).amax()
+    return m / 127.0 + 1e-12
+
+
+def stacked_leaves(names) -> dict[str, list[str]]:
+    """The port's parameter names grouped by the reference's leaf: the
+    reference stacks each per-layer leaf on a leading layer dim
+    (``layers.<i>.attn.wq`` are its one ``layers/attn/wq``; so are
+    ``mamba.<i>.*``, ``mlstm.<j>.*``, ``slstm.<i>.*``, ``enc_layers.<i>.*``
+    and ``dec_layers.<i>.*``), and quantizes each leaf with one scale."""
+    groups: dict[str, list[str]] = {}
+    for n in names:
+        groups.setdefault(re.sub(r"^(\w+)\.\d+\.", r"\1.*.", n), []).append(n)
+    return groups
+
+
+def _pod_grads(model: Model, params, batch, ef, microbatches: int, n_pods: int):
+    """The mean over the pods of each pod's dequantized int8 gradients, its
+    residual ``ef[name][pod]`` updated in place (g + e - deq), and the pods'
+    mean metrics. Pod i takes rows [i B/n, (i+1) B/n) of the batch. One
+    scale quantizes each of the reference's stacked leaves
+    (:func:`stacked_leaves`)."""
+    b = next(iter(batch.values())).shape[0]
+    if b % (n_pods * microbatches):
+        raise ValueError(f"a batch of {b} rows does not split over {n_pods} "
+                         f"pods x {microbatches} microbatches")
+    rows = b // n_pods
+    total, msum = None, None
+    for pod in range(n_pods):
+        local = {k: v[pod * rows:(pod + 1) * rows] for k, v in batch.items()}
+        grads, metrics = _accumulate_grads(model, params, local, microbatches)
+        for names in stacked_leaves(grads).values():
+            for name in names:
+                grads[name].add_(ef[name][pod])
+            s = _scale([grads[name] for name in names])
+            for name in names:
+                g = grads[name]
+                q, _ = _quantize(g, s)
+                deq = q.float() * s
+                ef[name][pod].copy_(g - deq)
+                grads[name] = deq
+        if total is None:
+            total, msum = grads, metrics
+        else:
+            torch._foreach_add_(list(total.values()), list(grads.values()))
+            msum = {n: msum[n] + metrics[n] for n in msum}
+        del grads
+    torch._foreach_div_(list(total.values()), float(n_pods))
+    return total, {n: m / n_pods for n, m in msum.items()}
+
+
+# ---------------------------------------------------------------------------
 # step factories
 # ---------------------------------------------------------------------------
 
@@ -135,9 +230,17 @@ def make_train_step(model: Model, ocfg: OptConfig, *, microbatches: int = 1,
     ``batch`` holds ``tokens`` (B, S), ``weight`` (B,) and, for a VLM,
     ``embeds`` (B, n_front, d) (for the encoder-decoder, its frame
     embeddings (B, S_enc, d)) on the model's device, B a multiple of
-    ``microbatches``."""
+    ``microbatches``. ``compress_pod`` needs ``model.mesh`` with a ``pod``
+    axis (``ValueError`` without one) and a state with ``ef``
+    (``init_train_state(..., compress_pod=True, n_pods=)``); B is then a
+    multiple of pods x microbatches."""
+    n_pods = 0
     if compress_pod:
-        raise NotImplementedError(_POD_TODO)
+        mesh = model.mesh
+        if mesh is None or POD_AXIS not in mesh.axis_names:
+            raise ValueError("compress_pod needs a multi-pod mesh (a 'pod' "
+                             "axis)")
+        n_pods = mesh.axis_size(POD_AXIS)
     own = dict(model.lm.named_parameters())
 
     def step_fn(state: TrainState, batch):
@@ -146,8 +249,16 @@ def make_train_step(model: Model, ocfg: OptConfig, *, microbatches: int = 1,
             raise ValueError("state.params are not this model's parameters; "
                              "make the state with init_train_state or "
                              "bind_state")
-        grads, metrics = _accumulate_grads(model, state.params, batch,
-                                           microbatches)
+        if n_pods:
+            if state.ef is None or any(
+                    e.shape[0] != n_pods for e in state.ef.values()):
+                raise ValueError(f"compress_pod needs a state whose ef holds "
+                                 f"{n_pods} pods' residuals")
+            grads, metrics = _pod_grads(model, state.params, batch, state.ef,
+                                        microbatches, n_pods)
+        else:
+            grads, metrics = _accumulate_grads(model, state.params, batch,
+                                               microbatches)
         params, opt, om = apply_updates(state.params, grads, state.opt, ocfg)
         del grads
         return TrainState(params, opt, state.step + 1, state.ef), \

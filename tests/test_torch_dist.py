@@ -462,7 +462,7 @@ def test_chip_smoke_cpu_rehearsal_drives_the_pipeline_and_harnesses(
     with pytest.raises(smoke.CheckFailed, match="appears twice"):
         smoke.check_pipeline_batch("x", batch, cfg, pipe_oracle)
     h = smoke.phase_harnesses(cpu, plans=6)
-    assert h["fuzz"]["plans"] == 6 and len(h["dist_cases_seconds"]) == 18
+    assert h["fuzz"]["plans"] == 6 and len(h["dist_cases_seconds"]) == 21
     json.dumps(h)
 
 
@@ -534,6 +534,135 @@ def _window_matches_one_host(smoke, w, got):
     counts = np.asarray(got["row_counts"])
     starts = (np.cumsum(counts) - counts)[counts > 0]
     assert (want["row_number"][starts] > 1).sum() >= 3  # shards start mid-group
+
+
+def _count_lm_calls(monkeypatch, smoke):
+    """The LM kernels' and the histogram's wrappers counted as launches (a
+    CPU tensor launches nothing), flash through ``FlashAttentionFn`` in
+    training as on the card, and the CUDA-only calls stubbed."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import histogram
+    from repro_torch.kernels import ops as tops
+
+    modules = {n: fa for n in smoke.LM_KERNELS}
+    modules["bucket_histogram"] = histogram
+    real = {n: getattr(m, n) for n, m in modules.items()}
+    for name, module in modules.items():
+        def launch(*a, _name=name, **kw):
+            smoke.KERNELS[_name][0].launches += 1
+            return real[_name](*a, **kw)
+        monkeypatch.setattr(module, name, launch)
+    real_attention = tops.attention
+
+    def attention(q, k, v, *, causal=True):
+        if tops.oracle_only():
+            return real_attention(q, k, v, causal=causal)
+        if torch.is_grad_enabled() and q.requires_grad:
+            return fa.FlashAttentionFn.apply(q, k, v, causal)
+        return fa.flash_attention(q, k, v, causal=causal)
+
+    monkeypatch.setattr(tops, "attention", attention)
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **kw: None)
+    for name in ("max_memory_allocated", "memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: 0)
+    return real
+
+
+def test_chip_smoke_cpu_rehearsal_drives_the_mesh_phase(monkeypatch):
+    """chip_smoke.py's phase 25 at TINY widths on the CPU, the wrappers'
+    calls counted as launches: (a) llama3-8b's decode over an 8-way
+    ``model`` axis at a prompt and a longer one, (b) minicpm3-4b's
+    ``mla_seq_shard`` decode, both against the one-device decode; (c) pod
+    compression and (d) ``remat="dots"`` against ``"full"`` on granite-3-2b
+    at 2 layers over (pod 2, data 2, model 2); (e) the launchers' mesh
+    flags, the 'card' side resolved to the CPU. A wrong merge count fails
+    (a), a wrong launch count (c)."""
+    from repro_torch.configs import get_tiny
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.factory import build_model
+
+    smoke = _load_chip_smoke()
+    real = _count_lm_calls(monkeypatch, smoke)
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(smoke, "get_config", get_tiny)
+    for name, value in (("LM_BATCH", 2), ("LM_PROMPT", 12), ("LM_GEN", 4),
+                        ("TRAIN_SEQ", 32), ("TINY_TRAIN_STEPS", 2)):
+        monkeypatch.setattr(smoke, name, value)
+    cfg = get_tiny("llama3-8b")
+    model = build_model(cfg, cpu)
+    tokens, _ = smoke.serve_inputs(cfg, cpu)
+    a = smoke.phase_seq_shard_gqa(model, tokens, long_prompt=28,
+                                  profile=False)
+    for r, s in ((a["prompt"], 12), (a["long_prompt"], 28)):
+        assert r["prompt_len"] == s and r["shards"] == 8
+        assert r["merges_per_step"] == {"psum": 2 * 2, "pmax": 2}
+        assert r["launches"]["flash_attention"] == 2
+        assert r["max_abs_err"] <= smoke.LM_TOL and r["err_by_step"][0] == 0
+    b = smoke.phase_seq_shard_mla(cpu, profile=False)
+    assert b["merges_per_step"] == {"psum": 2 * 2, "pmax": 2}
+    assert b["max_abs_err"] <= smoke.LM_TOL
+    cd = smoke.phase_pod_and_dots(cpu, layers=2)
+    k = cd["microbatches"]
+    assert cd["mesh"] == {"pod": 2, "data": 2, "model": 2} and k == 4
+    pod, dots = cd["compress_pod"], cd["remat_dots"]
+    assert pod["compressed"]["launches_per_step"]["flash_attention_lse"] == \
+        2 * 2 * k * 2
+    assert pod["exact"]["launches_per_step"]["flash_attention_lse"] == 2 * 2 * k
+    assert pod["max_param_diff"] < smoke.POD_PARAM_TOL
+    assert dots["bitwise_leaves"] == dots["leaves"]
+    assert dots["dots"]["mm_calls"] < dots["full"]["mm_calls"]
+    assert dots["dots"]["launches"]["flash_attention_lse"] == 2 * 2 * k
+    json.dumps({"a": a, "b": b, "cd": cd})
+
+    for mod in (serve_cli, train_cli):
+        monkeypatch.setattr(mod, "resolve_device", lambda d: cpu)
+    real_main = train_cli.main
+    monkeypatch.setattr(train_cli, "main", lambda argv: real_main(
+        argv + ["--batch", "8", "--seq", "32"]))
+    e = smoke.phase_mesh_launchers(cpu)
+    assert e["serve"]["qwen2-moe-a2.7b"]["launches"]["bucket_histogram"] == \
+        2 * 8 * 16
+    assert all(r["max_abs_err"] == 0.0 for r in e["serve"].values())
+    assert e["train"]["granite-3-2b"]["max_loss_diff"] == 0.0
+    json.dumps(e)
+
+    mesh = smoke.make_local_mesh(8, model=8)
+    real_view = mesh.view
+    mesh.view = lambda axes: _tamper(real_view(axes))
+    with pytest.raises(smoke.CheckFailed, match="merged"):
+        smoke.sharded_decode(model, tokens, mesh, profile=False)
+    monkeypatch.setattr(fa, "flash_attention_lse", real["flash_attention_lse"])
+    granite = get_tiny("granite-3-2b")
+    with pytest.raises(smoke.CheckFailed, match="launched"):
+        smoke.pod_train_check(
+            build_model(granite.replace(num_layers=1), cpu,
+                        mesh=smoke.make_local_mesh(8, model=2, pod=2)),
+            smoke.train_batches(cpu, granite, 3)[0], 4)
+
+
+def _tamper(view):
+    """A view whose psum is counted twice: a merge count the check rejects."""
+    real = view.psum
+
+    def psum(x):
+        view.counts["psum"] += 1
+        return real(x)
+
+    view.psum = psum
+    return view
+
+
+def _load_chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
 
 
 def test_chip_smoke_without_a_card_fails_with_no_result():

@@ -3,9 +3,10 @@ virtual shards on the CPU, each held to what tests/test_dist.py asserts of
 the reference's case of the same name (``dist_cases.checks``, which
 chip_smoke.py's phase 15 uses too); a planted bad output of each case
 fails those checks. The port needs no subprocess: its shards are virtual.
-The MoE cases (``moe_ep``, ``moe_decode_psum``) are here; the reference's
-three other LM-side cases wait for their modules (ROADMAP queue 1 item
-12).
+The LM-side cases are here too: the MoE cases (``moe_ep``,
+``moe_decode_psum``), the seq-sharded decode (``flash_decode_shard``), pod
+compression (``compress_pod``) and the elastic restore
+(``elastic_restore``), on virtual meshes of the reference's shapes.
 """
 import functools
 
@@ -49,7 +50,8 @@ def test_every_relational_case_is_ported():
         "sort_chain", "sort_align_skew", "global_limit", "overflow_retry",
         "cost_groupby", "window_chain", "window_thin_shards", "sort_multikey",
         "serving_async", "async_overflow_deferred", "staged_shuffle",
-        "verify_audit", "moe_ep", "moe_decode_psum"])
+        "verify_audit", "moe_ep", "moe_decode_psum", "flash_decode_shard",
+        "compress_pod", "elastic_restore"])
 
 
 def test_dist_cases_cli_prints_one_json_line(capsys):
@@ -180,6 +182,23 @@ def test_moe_decode_psum_matches_local():
     assert_checked("moe_decode_psum")
 
 
+def test_flash_decode_shard_matches_plain():
+    assert_checked("flash_decode_shard")
+    # one LSE merge: 2 psums and 1 pmax over the model axis
+    assert run_case("flash_decode_shard")["merges"] == {"psum": 2, "pmax": 1}
+
+
+def test_pod_compressed_training_tracks_exact():
+    assert_checked("compress_pod")
+    r = run_case("compress_pod")
+    assert r["ef_finite"] and r["ef_max_abs"] > 0
+
+
+def test_elastic_checkpoint_restore():
+    assert_checked("elastic_restore")
+    assert run_case("elastic_restore")["restored_steps"] == [1, 1, 1]
+
+
 def _with(key, value):
     return lambda r: {**r, key: value(r)}
 
@@ -209,6 +228,9 @@ PLANTED = {
                             lambda r: {**r["actual"], "all_to_all": 1}),
     "moe_ep": _with("moe_ep_err", lambda r: 2e-5),
     "moe_decode_psum": _with("moe_decode_err", lambda r: 1e-3),
+    "flash_decode_shard": _with("flash_decode_err", lambda r: 2e-4),
+    "compress_pod": _with("loss_close", lambda r: False),
+    "elastic_restore": _with("elastic_ok", lambda r: False),
 }
 
 

@@ -90,3 +90,27 @@ def test_the_pipeline_and_the_harnesses_are_checked():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_the_mesh_modules_are_checked():
+    """The mesh (``launch/mesh.py``, ``core/mesh.py``) and the modules that
+    read it are among the files checked above, and importing them loads
+    neither jax nor repro."""
+    names = {str(f.relative_to(ROOT)) for f in _files()}
+    for mod in ("launch/mesh", "core/mesh", "models/common", "models/layers",
+                "train/steps", "train/checkpoint", "launch/train",
+                "launch/serve"):
+        assert f"src/repro_torch/{mod}.py" in names, mod
+    code = ("import sys\n"
+            "from repro_torch.launch.mesh import make_local_mesh, "
+            "make_production_mesh\n"
+            "from repro_torch.launch import serve, train\n"
+            "from repro_torch.train.steps import _quantize\n"
+            "make_local_mesh(8, model=2, pod=2).view(('pod',))\n"
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr

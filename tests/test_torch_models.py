@@ -131,10 +131,10 @@ def test_every_ported_config_has_flash_kernel_instances():
 
 
 def test_unported_arch_raises_naming_the_roadmap():
-    """Every arch of the reference is registered; what the port still
-    lacks (pod compression, which needs a multi-pod mesh) raises naming the
-    roadmap, an unknown arch raises ``KeyError`` and an unknown family
-    ``ValueError``."""
+    """Every arch of the reference is registered; pod compression on a
+    model without a pod axis raises ``ValueError`` (the reference asserts a
+    multi-pod mesh), an unknown arch raises ``KeyError`` and an unknown
+    family ``ValueError``."""
     from repro_torch.models.factory import network
     from repro_torch.train import steps as tsteps
 
@@ -142,8 +142,9 @@ def test_unported_arch_raises_naming_the_roadmap():
     with pytest.raises(ValueError, match="family"):
         network(tconfigs.get_tiny("llama3-8b").replace(family="no-such"),
                 torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.make_train_step(None, None, compress_pod=True)
+    with pytest.raises(ValueError, match="pod"):
+        tsteps.make_train_step(build_model(tconfigs.get_tiny("llama3-8b"),
+                                           "cpu"), None, compress_pod=True)
     with pytest.raises(KeyError):
         tconfigs.get_tiny("no-such-arch")
 

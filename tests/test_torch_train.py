@@ -219,11 +219,26 @@ def test_remat_recompute_keeps_the_oracle_scope_on_another_thread(
     assert seen == [True] * (2 * tm.cfg.num_layers)
 
 
-def test_remat_dots_is_not_ported():
+def test_remat_dots_runs_and_equals_full():
+    """``remat="dots"`` recomputes each block's attention in the backward,
+    as "full" does, and gives the same gradients bit for bit; another
+    policy name raises ``ValueError``."""
     _, _, tm, ts = _setup("llama3-8b", "f32")
+    _, tb = _batch(tm.cfg)
+    want, _ = tsteps._accumulate_grads(tm, ts.params, tb, 1)
+    calls = []
+    real = tops.attention
     tm.lm.cfg = dataclasses.replace(tm.cfg, remat="dots")
-    with pytest.raises(NotImplementedError, match="remat"):
-        tsteps._accumulate_grads(tm, ts.params, _batch(tm.cfg)[1], 1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tops, "attention",
+                   lambda *a, **kw: calls.append(1) or real(*a, **kw))
+        got, _ = tsteps._accumulate_grads(tm, ts.params, tb, 1)
+    assert len(calls) == 2 * tm.cfg.num_layers
+    for name in want:
+        assert torch.equal(got[name], want[name]), name
+    tm.lm.cfg = dataclasses.replace(tm.cfg, remat="some")
+    with pytest.raises(ValueError, match="remat"):
+        tsteps._accumulate_grads(tm, ts.params, tb, 1)
 
 
 # --- the attention gradient ---------------------------------------------------------
@@ -636,10 +651,14 @@ def test_train_step_refuses_a_state_of_other_tensors():
     step = tsteps.make_train_step(tm, topt.OptConfig(**OPT_KW))
     with pytest.raises(ValueError, match="bind_state"):
         step(host, _batch(tm.cfg)[1])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # pod compression needs a pod axis, as the reference asserts; the state
+    # itself holds one pod's zero residuals, as the reference's does
+    with pytest.raises(ValueError, match="pod"):
         tsteps.make_train_step(tm, topt.OptConfig(), compress_pod=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.init_train_state(tm, 0, compress_pod=True)
+    ef = tsteps.init_train_state(tm, 0, compress_pod=True).ef
+    assert sorted(ef) == sorted(tm.lm.state_dict()) and all(
+        e.shape == (1,) + tuple(tm.lm.state_dict()[n].shape)
+        and e.dtype == torch.float32 and not e.any() for n, e in ef.items())
 
 
 def test_microbatch_slicing_partition():
@@ -777,9 +796,12 @@ def test_train_cli_needs_a_card_unless_asked_for_the_cpu():
         pytest.skip("a card is present, so 'cuda' resolves")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tlaunch.main(["--arch", "granite-3-2b", "--tiny", "--steps", "1"])
-    for flags in (["--devices", "2"], ["--model-axis", "2"], ["--pod-axis", "2"],
-                  ["--compress-pod"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # axes with no devices to split, devices the axes do not split, and pod
+    # compression without a pod axis raise before any step
+    for flags in (["--model-axis", "2"], ["--pod-axis", "2"],
+                  ["--devices", "6", "--model-axis", "4"], ["--compress-pod"],
+                  ["--devices", "2", "--compress-pod"]):
+        with pytest.raises(ValueError):
             tlaunch.main(["--arch", "granite-3-2b", "--tiny", "--device", "cpu",
                           *flags])
 
