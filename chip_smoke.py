@@ -345,6 +345,31 @@ Then, with the serving model freed, the training path:
    against ``--device cpu`` with phase 18's tolerances, each decode step
    compared while the two runs' tokens agree. (f) The three new dist cases
    run in phase 15.
+26. The dry run's roofs and cells on the card (``launch/dryrun.py``),
+   after phase 25: (a) the card's roofs, a bf16 8192^3 ``torch.matmul`` and
+   a 4 GiB device copy timed with CUDA events, printed beside the
+   datasheet's 989 TFLOP/s and 3.35 TB/s and the card's name and power
+   limit (measuring instruments, not ports); (b) ``measure_cell`` on
+   ``CELL_RUNS`` at depths 1 and 2: one data shard's step (the cell's
+   global batch over data 16, the model axis as 16 virtual shards) of
+   llama3-8b train_4k (16 x 4096 in 8 microbatches), minicpm3-4b
+   decode_32k (8 x 32768 latents), qwen2-moe-a2.7b train_4k (expert
+   parallel over 16 shards: ``bucket_histogram``; 8 microbatches, not the
+   reference's 4, to fit one card) and llama3-8b
+   prefill_32k (2 x 32768: flash at S 32768); each cell's wall and device
+   ms, peak memory, their extrapolation to full depth (not run there), and
+   its bound (the meta count over (a)'s roofs, and over the datasheet's);
+   each measured step's loss or logits finite; the counts zeroed before
+   each cell and read after it must equal the meta count's kernel calls
+   times the steps run, exactly; flash at llama3-8b's S 32768 layer held
+   against the plain attention on its last ``LONG_ROWS`` query rows over
+   all keys (``LONG_LAST_ATOL``, ``LONG_LAST_RTOL``; planted zeros and a
+   skip of the keys past S/2 must fail) and on its first ``LONG_ROWS``
+   rows within ``LM_TOL``, timed beside SDPA; (c) minicpm3-4b's
+   decode at full depth (62 layers, 9.4 GB of latents): its wall ms
+   within ``FULL_DEPTH_WALL_TOL`` of the line through depths 1 and 2, the
+   three timed in turns (the host's pace drifts), and its peak within
+   ``FULL_DEPTH_PEAK_TOL`` of (b)'s extrapolation.
 Phase 2 also holds flash_attention against its plain version (S 1 to
 4096, around the 64-row fp32 and 128-row bf16 tiles, causal or not, group
 size 1, 4 and 6, every (q·k, p·v) width pair of ``KERNEL_HEAD_DIMS``
@@ -365,7 +390,8 @@ launch),
 each of dq, dk, dv in every 64-row
 tile within ``FLASH_BWD_TOL`` of the tile's plain norm (a planted fault,
 the lse off by ln 2 past the first four tiles, must fail at q·k widths
-64, 160, 16 and 96), the same bits on two runs. Phase 7 times
+64, 160, 16 and 96, and at phase 26's train cells' shapes, B 2, S 4096,
+32/8 and 16/16 heads of 128), the same bits on two runs. Phase 7 times
 flash_attention at the serving path's shape beside
 ``F.scaled_dot_product_attention`` (``library_ms``), and the training
 entries at one microbatch of the training path (B 2, S 1024, H 32, KV 8,
@@ -402,7 +428,8 @@ one with phase 16's (``{"train": ...}``), one with phase 17's
 with phase 19's (``{"moe": ...}``), one with phase 20's (``{"mla":
 ...}``), one with phases 21-22's (``{"hybrid": ..., "vlm": ...}``), one
 with phases 23-24's (``{"xlstm": ..., "whisper": ...}``), one with phase
-25's (``{"mesh": ...}``), one with every
+25's (``{"mesh": ...}``), one with phase 26's (``{"cells": ...}``), one
+with every
 kernel's (the flash entries' other head dims as
 ``<entry>@hd160`` and ``@hd16``, phase 19's shapes as
 ``bucket_histogram@moe``, ``flash_attention@g1`` and ``@g6``, phase 20's
@@ -453,6 +480,8 @@ from repro_torch.kernels.hash64 import hash32, hash32_partition  # noqa: E402
 from repro_torch.kernels.histogram import bucket_histogram  # noqa: E402
 from repro_torch.kernels.segment_reduce import segment_reduce_tiles  # noqa: E402
 from repro_torch.kernels.segment_scan import segment_scan_tiles  # noqa: E402
+from repro_torch.configs.shapes import SHAPES  # noqa: E402
+from repro_torch.launch import dryrun as DRY  # noqa: E402
 from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.launch.serve import generate, prompt_inputs  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
@@ -676,6 +705,47 @@ MESH_TRAIN_FLAGS = ("--devices", "8", "--model-axis", "2", "--pod-axis", "2",
 
 # segment_reduce's pass-1 tile (csrc/segment_reduce.cu), whose edges phase 2
 # probes
+# phase 26: the card's roofs (a bf16 ROOF_N^3 product, a ROOF_COPY-byte
+# device copy) and the dry run's cells measured at depths 1 and 2
+ROOF_N = 8192
+ROOF_COPY = 4 << 30
+# (arch, shape, microbatches: None for the reference's rule, timed steps
+# after the warm-up: more where a step takes milliseconds). qwen2-moe's
+# data shard (16 x 4096 tokens) takes 8 microbatches of 2 rows, not the
+# reference's 4 of 4: on one card a microbatch's fp32 logits over its vocab
+# of 151936 are 10 GB a tensor, and the dry run's own count puts the step at
+# depth 2 at ~78 GB with 4 (it ran out of the card's memory there), ~54
+# with 8
+CELL_RUNS = (("llama3-8b", "train_4k", None, 2),
+             ("minicpm3-4b", "decode_32k", None, 30),
+             ("qwen2-moe-a2.7b", "train_4k", 8, 1),
+             ("llama3-8b", "prefill_32k", None, 2))
+# each cell's kernels on its path: the LSE forward and the backward in
+# training (qwen2's expert dispatch counts through the histogram), the
+# serving forward in prefill, none in MLA's absorbed decode
+CELL_KERNELS = {
+    "llama3-8b/train_4k": {"flash_attention_lse", "flash_attention_bwd"},
+    "minicpm3-4b/decode_32k": set(),
+    "qwen2-moe-a2.7b/train_4k": {"flash_attention_lse", "flash_attention_bwd",
+                                 "bucket_histogram"},
+    "llama3-8b/prefill_32k": {"flash_attention"}}
+# flash at S 32768 (llama3-8b's prefill_32k layer) against the plain
+# attention on its last and first LONG_ROWS query rows. The first rows
+# average a few keys each (outputs ~1) and take LM_TOL; the last average
+# ~32k keys each, so their outputs are ~0.01 and LM_TOL would pass zeros
+# there: they take LONG_LAST_ATOL (about six times the largest |diff| read
+# on an H100, 1.6e-4) and LONG_LAST_RTOL on ||diff|| / ||plain||, and a
+# planted fault (zeros, or the keys past S/2 skipped) must fail them
+LONG_ROWS = 256
+LONG_LAST_ATOL = 1e-3
+LONG_LAST_RTOL = 0.02
+# (c) minicpm3-4b's decode at full depth against the line through depths 1
+# and 2: its wall time is host-bound, ~124 host ops a layer a step
+# (PERF.md), so linear in depth; its memory is the weights and the latent cache, both
+# a layer's worth a layer; set before the first reading
+FULL_DEPTH_WALL_TOL = 0.25
+FULL_DEPTH_PEAK_TOL = 0.10
+FULL_DEPTH_ROUNDS = 60
 SEG_TILE = 4096
 # A float32 segment sum of ~33,500 standard-normal rows (phase 7's shape)
 # through the plain version's index_add_ drifts by up to ~0.0025 from the
@@ -1148,8 +1218,8 @@ def phase_kernels(dev) -> None:
         f"plain gradient is 0 (floor {FLASH_BWD_ATOL:g}); at most "
         f"{max(bf['excess'], f32['excess']):.3g} of a limit over "
         f"{len(flash_train_cases())} cases, the same bits on two runs")
-    for hd, bad in worst["planted"].items():
-        say(f"[2] flash backward, hd {hd}: the lse off by ln 2 past the first "
+    for label, bad in worst["planted"].items():
+        say(f"[2] flash backward, {label}: the lse off by ln 2 past the first "
             f"four tiles fails at dq {bad['dq']:.3g}, dk {bad['dk']:.3g}, dv "
             f"{bad['dv']:.3g} times the limit (its largest |diff| "
             f"{bad['max_over_max']:.3g} of the largest |plain|)")
@@ -1601,6 +1671,11 @@ FLASH_TRAIN_GROUPS = ((4, 4), (4, 2), (8, 2), (16, 2))
 # dbrx-132b's group size, 6 (48/8 heads): not a power of two, so the dK/dV
 # launch's dealing and splitting of a KV head's heads meet it at every S
 FLASH_TRAIN_G6 = (12, 2)
+# phase 26's train_4k cells, a microbatch's flash shape each (B 2 of a data
+# shard's 16 rows in 8 microbatches, S 4096): llama3-8b's 32/8 heads and
+# qwen2-moe-a2.7b's 16/16, of 128; each also takes the planted lse fault
+FLASH_TRAIN_CELLS = ((2, 4096, 32, 8, 128, True, torch.bfloat16, 128),
+                     (2, 4096, 16, 16, 128, True, torch.bfloat16, 128))
 
 
 def flash_train_cases():
@@ -1612,7 +1687,8 @@ def flash_train_cases():
     20's minicpm3-4b (40/40 heads, 96/64, B 1); every ``FLASH_TRAIN_SEQS``
     at group size 4 for every width pair, causal or not, bf16 and fp32, and
     in bf16 at group size 6 (``FLASH_TRAIN_G6``); and in bf16 every other
-    group of ``FLASH_TRAIN_GROUPS`` at S 129 and 1025, causal or not."""
+    group of ``FLASH_TRAIN_GROUPS`` at S 129 and 1025, causal or not; and
+    phase 26's train cells' shapes (``FLASH_TRAIN_CELLS``)."""
     bf, f32 = torch.bfloat16, torch.float32
     cases = [(2, 1024, 32, 8, 64, True, bf, 64),
              (2, 1024, 32, 8, 128, True, bf, 128),
@@ -1630,7 +1706,7 @@ def flash_train_cases():
               for hd, dv in KERNEL_HEAD_DIMS for h, kv in FLASH_TRAIN_GROUPS
               if (h, kv) != (8, 2) for causal in (True, False)
               for s in (129, 1025)]
-    return cases
+    return cases + list(FLASH_TRAIN_CELLS)
 
 
 def _tile_squares(x: torch.Tensor) -> torch.Tensor:
@@ -1670,9 +1746,10 @@ def check_flash_train(dev, rng) -> dict:
     (``bwd_errors``), the same bits on a second run. At the path's shape
     and at the first case of each other ``FLASH_PLANTED_DIMS`` a planted
     fault, the lse off by ln 2 past the first four tiles, must fail each of
-    dq, dk, dv. Returns the worst readings by dtype and, by head dim, the
-    planted fault's excess, beside its largest |diff| over the largest
-    |plain| (``max_over_max``, the measure this check replaced)."""
+    dq, dk, dv, and at each of ``FLASH_TRAIN_CELLS``. Returns the worst
+    readings by dtype and, by head dim (and shape for a cell), the planted
+    fault's excess, beside its largest |diff| over the largest |plain|
+    (``max_over_max``, the measure this check replaced)."""
     worst = {key: {"rel": 0.0, "zero_rms": 0.0, "excess": 0.0}
              for key in ("bf16", "f32")}
     planted = {}
@@ -1705,7 +1782,11 @@ def check_flash_train(dev, rng) -> dict:
         again = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
         check(all(torch.equal(a, c) for a, c in zip(got, again)),
               f"{name}: bits differ between two runs")
-        if hd in FLASH_PLANTED_DIMS and hd not in planted:
+        case = (b, s, h, kv, hd, causal, dtype, dv)
+        label = (f"hd {hd}, B {b} S {s} {h}/{kv} heads"
+                 if case in FLASH_TRAIN_CELLS else f"hd {hd}")
+        if (hd in FLASH_PLANTED_DIMS or case in FLASH_TRAIN_CELLS) and \
+                label not in planted:
             shifted = lse.clone()
             shifted[:, :, 4 * FLASH_BWD_TILE:] += math.log(2)
             bad = flash_attention_bwd(q, k, v, out, shifted, dout,
@@ -1719,9 +1800,9 @@ def check_flash_train(dev, rng) -> dict:
                 float((a.float() - w.float()).abs().max()) for a, w in
                 zip(bad, want)) / max(float(w.float().abs().max())
                                       for w in want)
-            planted[hd] = fault
-    check(sorted(planted) == sorted(FLASH_PLANTED_DIMS),
-          f"the lse fault was planted at head dims {sorted(planted)}")
+            planted[label] = fault
+    check(len(planted) == len(FLASH_PLANTED_DIMS) + len(FLASH_TRAIN_CELLS),
+          f"the lse fault was planted at {sorted(planted)}")
     return {**worst, "planted": planted}
 
 
@@ -5335,6 +5416,261 @@ def say_pod_and_dots(r: dict, card: str) -> None:
         f"on {card}")
 
 
+def phase_roofs(dev) -> dict:
+    """(a) The card's roofs: a bf16 ``ROOF_N``^3 ``torch.matmul`` (FLOP/s)
+    and a ``ROOF_COPY``-byte device copy (bytes read and written per s),
+    each the median of CUDA-event timings after a warm-up."""
+    timer = Timer(dev)
+    g = torch.Generator(device=dev).manual_seed(26)
+    a, b = (torch.randn((ROOF_N, ROOF_N), generator=g, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    mm_ms = timer(lambda: torch.matmul(a, b), reps=10)
+    del a, b
+    src = torch.empty(ROOF_COPY, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    copy_ms = timer(lambda: dst.copy_(src), reps=10)
+    del src, dst
+    torch.cuda.empty_cache()
+    return {"matmul_ms": mm_ms, "copy_ms": copy_ms,
+            "flops_per_s": 2.0 * ROOF_N ** 3 / (mm_ms / 1e3),
+            "bytes_per_s": 2.0 * ROOF_COPY / (copy_ms / 1e3),
+            "datasheet_flops_per_s": TENSOR_BF16_OPS_PER_S,
+            "datasheet_bytes_per_s": HBM_BYTES_PER_S}
+
+
+def phase_cells(dev, roofs: dict) -> dict:
+    """(b) ``measure_cell`` on each of ``CELL_RUNS`` at its first depth
+    pair, the launch counts zeroed just before and read just after: each
+    kernel launched its meta count's calls times the steps run, and the
+    cell's kernels (``CELL_KERNELS``) at least once; each depth's last
+    timed step's loss (train) or logits finite."""
+    out = {}
+    for arch, shape, mb, reps in CELL_RUNS:
+        cfg = get_config(arch)
+        depths = DRY._depth_pairs(cfg)[0][1]
+        t0 = time.perf_counter()
+        set_launches(0)
+        r = DRY.measure_cell(cfg, shape, "cuda", depths, reps=reps,
+                             roofs=(roofs["flops_per_s"],
+                                    roofs["bytes_per_s"]), microbatches=mb)
+        got = launches()
+        want = dict(ZERO_LAUNCHES)
+        for d in r["per_depth"]:
+            for name, n in d["kernel_calls"].items():
+                want[name] += n * d["runs"]
+        key = f"{arch}/{shape}"
+        check(got == want, f"{key}: launches {got}, the meta count says {want}")
+        check({n for n, v in got.items() if v} == CELL_KERNELS[key],
+              f"{key} launched {got}")
+        for d in r["per_depth"]:
+            what = "logits" if d["loss"] is None else f"loss {d['loss']}"
+            check(d["finite"], f"{key} at depth {d['depth']}: the measured "
+                  f"step's {what} not finite")
+        r["launches"] = {n: v for n, v in got.items() if v}
+        r["seconds"] = time.perf_counter() - t0
+        out[key] = r
+        torch.cuda.empty_cache()
+    return out
+
+
+def long_rows_errors(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """The largest |got - want| and ||got - want|| / ||want|| over rows."""
+    diff = got.float() - want
+    return {"max_abs": float(diff.abs().max()),
+            "rel": float(diff.norm() / want.norm())}
+
+
+def long_rows_ok(e: dict) -> bool:
+    return e["max_abs"] <= LONG_LAST_ATOL and e["rel"] <= LONG_LAST_RTOL
+
+
+def flash_long_check(dev, timer) -> dict:
+    """Flash at llama3-8b's prefill_32k layer (B 2, S 32768, 32/8 heads of
+    128, causal): its last ``LONG_ROWS`` query rows against the plain
+    attention over all 32768 keys in fp32 (``LONG_LAST_ATOL``,
+    ``LONG_LAST_RTOL``; two planted faults must fail them: zeros, and the
+    plain attention over the first S/2 keys alone), its first against
+    ``attention_ref`` over the first rows (``LM_TOL``); its time and bound,
+    and ``F.scaled_dot_product_attention``'s time on the same inputs
+    (``library_ms``; math's backend, which would hold ~137 GB of scores,
+    left out). Comparison launches, outside any counted window."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    cfg = get_config("llama3-8b")
+    b, s = 2, SHAPES["prefill_32k"].seq_len
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    g = torch.Generator(device=dev).manual_seed(32)
+    q, k, v = (torch.randn((b, s, n, hd), generator=g, device=dev,
+                           dtype=torch.bfloat16) for n in (h, kv, kv))
+    out = flash_attention(q, k, v, causal=True)
+    qs = q[:, s - LONG_ROWS:].float()
+    kr = k.repeat_interleave(h // kv, dim=2).float()
+    scores = torch.einsum("bshd,bthd->bhst", qs, kr) / math.sqrt(hd)
+    del kr
+    rows = torch.arange(s - LONG_ROWS, s, device=dev)[:, None]
+    cols = torch.arange(s, device=dev)[None]
+    p = torch.softmax(scores.masked_fill(cols > rows, float("-inf")), dim=-1)
+    p_half = torch.softmax(scores.masked_fill(cols >= s // 2, float("-inf")),
+                           dim=-1)
+    del scores
+    vr = v.repeat_interleave(h // kv, dim=2).float()
+    want = torch.einsum("bhst,bthd->bshd", p, vr)
+    half = torch.einsum("bhst,bthd->bshd", p_half, vr)
+    del p, p_half, vr
+    last = long_rows_errors(out[:, s - LONG_ROWS:], want)
+    first = float((out[:, :LONG_ROWS].float() - ref.attention_ref(
+        q[:, :LONG_ROWS], k[:, :LONG_ROWS], v[:, :LONG_ROWS]).float()
+                   ).abs().max())
+    check(long_rows_ok(last) and first <= LM_TOL,
+          f"flash at S {s}: last rows {last} from the plain attention "
+          f"(limits {LONG_LAST_ATOL}, {LONG_LAST_RTOL}), first rows {first} "
+          f"(tolerance {LM_TOL})")
+    planted = {"zeros": long_rows_errors(torch.zeros_like(want), want),
+               "first_half_keys": long_rows_errors(half.bfloat16(), want)}
+    check(not any(long_rows_ok(e) for e in planted.values()),
+          f"flash at S {s}: a planted fault passes the last rows' check "
+          f"({planted})")
+    ms = timer(lambda: flash_attention(q, k, v, causal=True), reps=5)
+    bms, by = bound_ms(2 * (q.numel() + k.numel() + v.numel() + q.numel()),
+                       2 * b * h * 2 * hd * attn_pairs(s, True),
+                       TENSOR_BF16_OPS_PER_S)
+    # the port never calls SDPA: it is timed here as the yardstick
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def lib_fwd():
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION]):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+
+    lib_out, lib_error = library_call(lib_fwd)
+    res = {"shape": dict(B=b, S=s, H=h, KV=kv, hd=hd),
+           "last_rows": last, "first_rows_err": first, "planted": planted,
+           "ms": ms, "bound_ms": bms, "bound_by": by,
+           "library_ms": None if lib_out is None else timer(lib_fwd, reps=5),
+           "library_backend": None if lib_out is None else sdpa_backend(
+               lib_fwd),
+           "library_last_rows": None if lib_out is None else long_rows_errors(
+               lib_out.transpose(1, 2)[:, s - LONG_ROWS:], want)}
+    if lib_error is not None:
+        res["library_error"] = lib_error
+    del q, k, v, qt, kt, vt, out, want, half, lib_out
+    torch.cuda.empty_cache()
+    return res
+
+
+def full_depth_check(dev, cells: dict, roofs: dict) -> dict:
+    """(c) minicpm3-4b's decode_32k at full depth: its step's wall against
+    the line through depths 1 and 2, the three steps timed in turns (a step
+    of each a round, ``FULL_DEPTH_ROUNDS`` rounds, medians), and its peak
+    against (b)'s extrapolation. The wall time is the host's, whose pace
+    drifts within a run: depths timed a second or a minute apart, as (b)'s
+    are, have read 8% to 49% off the line."""
+    cfg = get_config("minicpm3-4b")
+    ext = cells["minicpm3-4b/decode_32k"]
+    reps = next(r for a, sh, _, r in CELL_RUNS
+                if (a, sh) == ("minicpm3-4b", "decode_32k"))
+    mesh = DRY.shard_mesh()
+    set_launches(0)
+    full = DRY.time_cell(cfg, "decode_32k", mesh, "cuda", rows=ext["rows"],
+                         reps=reps, roofs=(roofs["flops_per_s"],
+                                           roofs["bytes_per_s"]))
+    torch.cuda.empty_cache()
+    depths = (*DRY._depth_pairs(cfg)[0][1], cfg.num_layers)
+    runs = {d: DRY.make_cell(DRY.at_depth(cfg, d), "decode_32k", mesh, dev,
+                             rows=ext["rows"])[1:3] for d in depths}
+    walls = {d: [] for d in depths}
+    for step, args in runs.values():
+        step(*args)
+    torch.cuda.synchronize()
+    for _ in range(FULL_DEPTH_ROUNDS):
+        for d, (step, args) in runs.items():
+            t0 = time.perf_counter()
+            step(*args)
+            torch.cuda.synchronize()
+            walls[d].append((time.perf_counter() - t0) * 1e3)
+    check(launches() == ZERO_LAUNCHES, f"the absorbed decode launched "
+          f"{launches()}")
+    del runs
+    torch.cuda.empty_cache()
+    med = {d: statistics.median(w) for d, w in walls.items()}
+    d1, d2, dl = depths
+    line = med[d1] + (med[d2] - med[d1]) * (dl - d1) / (d2 - d1)
+    at = {**ext["at_full_depth"], "wall_ms": line}
+    full = {**full, "wall_ms": med[dl]}
+    wall_err = abs(full["wall_ms"] - at["wall_ms"]) / at["wall_ms"]
+    peak_err = abs(full["peak_bytes"] - at["peak_bytes"]) / at["peak_bytes"]
+    check(wall_err <= FULL_DEPTH_WALL_TOL and peak_err <= FULL_DEPTH_PEAK_TOL,
+          f"minicpm3-4b decode at {cfg.num_layers} layers: wall "
+          f"{full['wall_ms']:.1f} ms vs {at['wall_ms']:.1f} extrapolated "
+          f"({wall_err:.3f}), peak {full['peak_bytes'] / 2**30:.2f} GiB vs "
+          f"{at['peak_bytes'] / 2**30:.2f} ({peak_err:.3f})")
+    torch.cuda.empty_cache()
+    return {"measured": full, "extrapolated": at, "wall_rel_err": wall_err,
+            "peak_rel_err": peak_err, "in_turns_ms": med}
+
+
+def say_cells(r: dict, card: str) -> None:
+    ro = r["roofs"]
+    say(f"[26a] roofs on {card}: bf16 {ROOF_N}^3 matmul {ro['matmul_ms']:.3f} "
+        f"ms = {ro['flops_per_s'] / 1e12:.1f} TFLOP/s (datasheet "
+        f"{ro['datasheet_flops_per_s'] / 1e12:.0f}); {ROOF_COPY >> 30} GiB "
+        f"copy {ro['copy_ms']:.3f} ms = {ro['bytes_per_s'] / 1e12:.3f} TB/s "
+        f"read + written (datasheet {ro['datasheet_bytes_per_s'] / 1e12:.2f})")
+    for key, c in r["cells"].items():
+        f = c["at_full_depth"]
+        depth = ", ".join(
+            f"depth {d['depth']}: wall {d['wall_ms']:.1f} ms, device "
+            f"{d['device_ms']:.1f} ms, peak {d['peak_bytes'] / 2**30:.2f} GiB, "
+            f"bound {d['bound_ms']:.2f} ms (datasheet "
+            f"{d['datasheet_bound_ms']:.2f}), "
+            + ("logits finite" if d["loss"] is None else
+               f"loss {d['loss']:.4f}") for d in c["per_depth"])
+        say(f"[26b] {key}, {c['rows']} rows (one data shard of 16) in "
+            f"{c['microbatches']} microbatches, model axis 16: {depth}; "
+            f"extrapolated to {c['full_depth']} layers, not run: wall "
+            f"{f['wall_ms']:.1f} ms, device {f['device_ms']:.1f} ms, peak "
+            f"{f['peak_bytes'] / 2**30:.2f} GiB, bound {f['bound_ms']:.2f} ms "
+            f"= {100 * f['bound_ms'] / f['wall_ms']:.1f}% of wall (measured "
+            f"roofs), {f['datasheet_bound_ms']:.2f} ms = "
+            f"{100 * f['datasheet_bound_ms'] / f['wall_ms']:.1f}% (datasheet "
+            f"roofs; bytes as eager PyTorch moves them); launches "
+            f"{c['launches']} ({c['seconds']:.1f} s) on {card}")
+    fl = r["flash_32k"]
+    lib = ("SDPA refused it: " + fl["library_error"]
+           if fl["library_ms"] is None else
+           f"SDPA ({fl['library_backend']}) {fl['library_ms']:.3f} ms, its "
+           f"last rows within {fl['library_last_rows']['max_abs']:.4g} "
+           f"(||diff|| / ||plain|| {fl['library_last_rows']['rel']:.3g})")
+    pl = fl["planted"]
+    say(f"[26b] flash at S {fl['shape']['S']} (B {fl['shape']['B']}, "
+        f"{fl['shape']['H']}/{fl['shape']['KV']} heads of {fl['shape']['hd']}"
+        f"): last {LONG_ROWS} rows within {fl['last_rows']['max_abs']:.4g} "
+        f"(limit {LONG_LAST_ATOL:g}), ||diff|| / ||plain|| "
+        f"{fl['last_rows']['rel']:.3g} (limit {LONG_LAST_RTOL:g}); planted "
+        f"zeros {pl['zeros']['max_abs']:.4g} / {pl['zeros']['rel']:.3g}, "
+        f"keys past S/2 skipped {pl['first_half_keys']['max_abs']:.4g} / "
+        f"{pl['first_half_keys']['rel']:.3g}, both failing; first rows "
+        f"within {fl['first_rows_err']:.4g} (tolerance {LM_TOL}); "
+        f"{fl['ms']:.3f} ms, bound {fl['bound_ms']:.3f} ms by "
+        f"{fl['bound_by']}; {lib}; no plain time (its scores would be "
+        f"~275 GB) on {card}")
+    fd = r["full_depth"]
+    m, e = fd["measured"], fd["extrapolated"]
+    say(f"[26c] minicpm3-4b decode_32k at 62 layers: wall {m['wall_ms']:.1f} "
+        f"ms (extrapolated {e['wall_ms']:.1f} from depths 1 and 2 timed in "
+        f"turns with it: medians "
+        f"{', '.join(f'{v:.2f}' for v in fd['in_turns_ms'].values())} ms; "
+        f"{fd['wall_rel_err']:.3f} apart, "
+        f"tolerance {FULL_DEPTH_WALL_TOL}), device {m['device_ms']:.1f} ms "
+        f"(extrapolated {e['device_ms']:.1f}), peak "
+        f"{m['peak_bytes'] / 2**30:.2f} GiB (extrapolated "
+        f"{e['peak_bytes'] / 2**30:.2f}, {fd['peak_rel_err']:.3f} apart, "
+        f"tolerance {FULL_DEPTH_PEAK_TOL}), bound {m['bound_ms']:.2f} ms on "
+        f"{card}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; torch.cuda.is_available() is "
@@ -5846,6 +6182,15 @@ def main() -> None:
         f"{time.perf_counter() - t2:.1f} s")
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    roofs = phase_roofs(dev)
+    cells = {"roofs": roofs, "card": card}
+    cells["cells"] = phase_cells(dev, roofs)
+    cells["flash_32k"] = flash_long_check(dev, Timer(dev))
+    cells["full_depth"] = full_depth_check(dev, cells["cells"], roofs)
+    say_cells(cells, card)
+    say(f"[26] phase 26 {time.perf_counter() - t0:.1f} s")
+
     for name in ("flash_attention_lse", "flash_attention_bwd"):
         for suffix in ("", "@hd160", "@hd16", "@mla", "@zamba", "@whisper"):
             t = times[name + suffix]
@@ -5982,6 +6327,7 @@ def main() -> None:
                              "seq_shard_mla": mla_shard,
                              "pod_and_dots": pod_dots, "launchers": mesh_cli,
                              "card": card}}))
+    say(json.dumps({"cells": cells}))
     say(json.dumps({"kernels": kernels}))
     say(nvidia_smi())
     say(json.dumps({"ok": True, "device": {

@@ -2,8 +2,8 @@
 [hf:databricks/dbrx-base; unverified].
 
 40L d_model=6144 48H (GQA kv=8) per-expert d_ff=10752 vocab=100352.
-``fsdp`` is kept as the reference sets it and ignored: the port runs on
-one card.
+``fsdp`` is kept as the reference sets it; the port computes on one card,
+and only the dry run's specs read it (``models/common.ShardingRules``).
 """
 from repro_torch.models.common import ModelConfig
 

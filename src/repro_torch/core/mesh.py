@@ -17,7 +17,11 @@ collective is one call over all shards:
   in shard order, one add at a time in the values' dtype.
 
 Every collective issued is counted in :attr:`counts` by name, so that
-wire accounting and a collective audit have something to read.
+wire accounting and a collective audit have something to read, and is
+reported to every active counter (a ``TorchDispatchMode`` with a
+``collective(kind, nbytes)`` context, ``roofline.analysis.StepCost``) with
+its per-shard result bytes summed over the shards; the mesh's own ops
+inside it are the collective's, not the step's.
 
 :class:`NamedMesh` is the reference's named multi-axis mesh (``("pod",
 "data", "model")`` or ``("data", "model")``, ``repro/launch/mesh.py``)
@@ -28,11 +32,34 @@ the mesh's own :attr:`NamedMesh.counts`.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from collections import Counter
 from typing import Sequence
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+
+_UNTOLD = contextlib.nullcontext()
+
+
+def issued(kind: str, nbytes: float, count: int = 1):
+    """``count`` collectives of ``kind``, ``nbytes`` of results over all
+    shards, told to every active counter for the length of the block (0:
+    the block is part of one already told); a no-op with no mode active."""
+    if not torch._C._len_torch_dispatch_stack():
+        return _UNTOLD
+    return _told(kind, nbytes, count)
+
+
+@contextlib.contextmanager
+def _told(kind: str, nbytes: float, count: int):
+    with contextlib.ExitStack() as stack:
+        for mode in _get_current_dispatch_mode_stack():
+            if hasattr(mode, "collective"):
+                stack.enter_context(mode.collective(kind, nbytes, count))
+        yield
 
 
 class VirtualMesh:
@@ -63,7 +90,8 @@ class VirtualMesh:
             raise ValueError(f"all_to_all needs a ({p}, {p}, ...) buffer, got "
                              f"{tuple(buf.shape)}")
         self.counts["all_to_all"] += 1
-        return buf.transpose(0, 1).contiguous()
+        with issued("all_to_all", buf.numel() * buf.element_size()):
+            return buf.transpose(0, 1).contiguous()
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """(p, ...) per-shard values -> the (p, ...) stack every shard sees."""
@@ -71,7 +99,9 @@ class VirtualMesh:
             raise ValueError(f"all_gather needs a leading shard axis, got "
                              f"{tuple(x.shape)}")
         self.counts["all_gather"] += 1
-        return x
+        with issued("all_gather",
+                     self.num_shards * x.numel() * x.element_size()):
+            return x
 
     def _stacked(self, name: str, x: torch.Tensor) -> None:
         if x.shape[0] != self.num_shards:
@@ -82,15 +112,17 @@ class VirtualMesh:
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """(p, ...) per-shard values -> their sum, added in shard order."""
         self._stacked("psum", x)
-        out = x[0]
-        for i in range(1, self.num_shards):
-            out = out + x[i]
-        return out
+        with issued("psum", x.numel() * x.element_size()):
+            out = x[0]
+            for i in range(1, self.num_shards):
+                out = out + x[i]
+            return out
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
         """(p, ...) per-shard values -> their elementwise maximum."""
         self._stacked("pmax", x)
-        return torch.amax(x, dim=0)
+        with issued("pmax", x.numel() * x.element_size()):
+            return torch.amax(x, dim=0)
 
     def ppermute(self, x: torch.Tensor,
                  perm: Sequence[tuple[int, int]]) -> torch.Tensor:
@@ -101,12 +133,13 @@ class VirtualMesh:
             raise ValueError(f"ppermute needs a leading shard axis, got "
                              f"{tuple(x.shape)}")
         self.counts["ppermute"] += 1
-        out = torch.zeros_like(x)
-        if perm:
-            src = torch.tensor([s for s, _ in perm], device=x.device)
-            dst = torch.tensor([d for _, d in perm], device=x.device)
-            out[dst] = x[src]
-        return out
+        with issued("ppermute", x.numel() * x.element_size()):
+            out = torch.zeros_like(x)
+            if perm:
+                src = torch.tensor([s for s, _ in perm], device=x.device)
+                dst = torch.tensor([d for _, d in perm], device=x.device)
+                out[dst] = x[src]
+            return out
 
 
 class NamedMesh:

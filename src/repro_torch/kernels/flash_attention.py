@@ -29,6 +29,10 @@ warpgroups on ``wgmma``; one dK/dV launch at every head dim, its items
 dealt longest first, and where they are fewer than the SMs a KV head's
 query heads split over items whose fp32 partials a fixed-order pass adds;
 deterministic); :class:`FlashAttentionFn` joins the two under autograd.
+
+Meta tensors (the dry run) take ``kernels/meta``'s route: an empty output
+and the kernel's work recorded (:func:`flash_work`), on the widths and
+dtypes the card takes.
 """
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import meta, ref
 
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 # the (q k width, p v width) pairs with a kernel instance: (16, 16) the
@@ -65,6 +69,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check_shapes("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal)
+    if q.device.type == "meta":
+        _check_meta("flash_attention", q, k, v)
+        meta.record("flash_attention", *flash_work(q, k, v, causal))
+        return _out_like(q, v)
     _check_card("flash_attention", q, k, v)
     out = _out_like(q, v)
     if out.numel() == 0:
@@ -89,8 +97,13 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check_shapes("flash_attention_lse", q, k, v)
     if q.device.type == "cpu":
         return ref.attention_lse_ref(q, k, v, causal=causal)
-    _check_card("flash_attention_lse", q, k, v)
     b, s, h, _ = q.shape
+    if q.device.type == "meta":
+        _check_meta("flash_attention_lse", q, k, v)
+        meta.record("flash_attention_lse", *flash_work(q, k, v, causal,
+                                                      lse=True))
+        return _out_like(q, v), q.new_empty((b, h, s), dtype=torch.float32)
+    _check_card("flash_attention_lse", q, k, v)
     out = _out_like(q, v)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
@@ -127,6 +140,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"fit q {tuple(q.shape)}")
     if q.device.type == "cpu":
         return ref.attention_bwd_ref(q, k, v, dout, causal=causal)
+    if q.device.type == "meta":
+        _check_meta("flash_attention_bwd", q, k, v)
+        meta.record("flash_attention_bwd", *flash_work(q, k, v, causal,
+                                                      backward=True))
+        return tuple(torch.empty_like(x) for x in (q, k, v))
     _check_card("flash_attention_bwd", q, k, v, out, dout)
     if lse.dtype != torch.float32 or lse.device != q.device or \
             not lse.is_contiguous():
@@ -174,6 +192,42 @@ class FlashAttentionFn(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
                                          dout.contiguous(), causal=ctx.causal)
         return dq, dk, dv, None
+
+
+def flash_work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool, *, lse: bool = False, backward: bool = False
+               ) -> tuple[float, float]:
+    """(products in FLOPs, bytes) of one call of a flash entry on these
+    inputs. The unmasked (query, key) pairs, s (s + 1) / 2 a head causal,
+    s^2 not; forward 2 (hd + dv) FLOPs a pair (q k over hd, p v over dv),
+    q, k, v read and the output (and the fp32 lse, a row each) written;
+    backward 2 (3 hd + 2 dv) a pair (s and dP again, dV, dQ, dK), q, k, v,
+    o, dO and lse read, dq, dk, dv written."""
+    b, s, h, hd = q.shape
+    dv = v.shape[3]
+    pairs = b * h * (s * (s + 1) / 2 if causal else float(s * s))
+    es = q.element_size()
+    out = b * s * h * dv
+    if backward:
+        return (2.0 * (3 * hd + 2 * dv) * pairs,
+                es * 2.0 * (q.numel() + out + k.numel() + v.numel())
+                + 4.0 * b * h * s)
+    return (2.0 * (hd + dv) * pairs,
+            es * float(q.numel() + k.numel() + v.numel() + out)
+            + (4.0 * b * h * s if lse else 0.0))
+
+
+def _check_meta(name: str, q: torch.Tensor, *others: torch.Tensor) -> None:
+    """The dtypes and widths the card takes (``_check_card`` less the
+    device and the layout), so the dry run counts only calls the card
+    runs."""
+    if q.dtype not in KERNEL_DTYPES or any(t.dtype != q.dtype for t in others):
+        raise TypeError(f"{name} takes bf16 or fp32 tensors of one dtype, got "
+                        f"{[t.dtype for t in (q, *others)]}")
+    widths = (q.shape[3], others[1].shape[3])
+    if widths not in KERNEL_HEAD_DIMS:
+        raise TypeError(f"{name} has kernels for head dims (q k, p v) "
+                        f"{KERNEL_HEAD_DIMS}, got {widths}")
 
 
 def _check_shapes(name: str, q: torch.Tensor, k: torch.Tensor,

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import meta, ref
 
 # (device index, stream) -> the small-P path's scratch: the blocks' rows and
 # the last-block ticket, zeroed once here; each call leaves the ticket at 0
@@ -25,13 +25,18 @@ def bucket_histogram(ids: torch.Tensor, num_buckets: int) -> torch.Tensor:
     ignored. ``ids``: (N,) int32. Returns (num_buckets,) int32.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (counted in ``bucket_histogram.launches``) or raises.
+    (counted in ``bucket_histogram.launches``) or raises; a meta tensor
+    returns an empty count and records the kernel's bytes (``kernels/meta``:
+    the ids read, the counts written).
     """
     if ids.ndim != 1 or ids.dtype != torch.int32:
         raise TypeError(f"bucket_histogram takes 1-D int32 ids, got "
                         f"shape={tuple(ids.shape)} dtype={ids.dtype}")
     if ids.device.type == "cpu":
         return ref.histogram_ref(ids, num_buckets)
+    if ids.device.type == "meta":
+        meta.record("bucket_histogram", 0.0, 4.0 * (ids.numel() + num_buckets))
+        return ids.new_empty(num_buckets)
     if ids.device.type != "cuda":
         raise ValueError(f"bucket_histogram: unsupported device {ids.device}")
     from repro_torch.kernels._build import check, library, stream_ptr

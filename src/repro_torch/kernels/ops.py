@@ -242,7 +242,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     through :class:`~repro_torch.kernels.flash_attention.FlashAttentionFn`
     (the LSE-writing forward, the hand-written backward); the plain version
     and a CPU tensor go through ``attention_ref``, differentiated by
-    autograd. Otherwise (serving) the serving forward."""
+    autograd. Otherwise (serving) the serving forward. Meta tensors (the
+    dry run) take the same entries, whose meta route records the kernel's
+    work and computes nothing."""
     if oracle_only():
         return ref.attention_ref(q, k, v, causal=causal)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

@@ -34,7 +34,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as NN
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import (
+    ModelConfig, ShardingRules, per_layer_specs, spec, stack_layer_specs)
 from repro_torch.models.transformer import (
     AUX_KEYS, FrozenTree, _frozen, remat_context)
 
@@ -66,6 +67,19 @@ def init_dec_block(cfg: ModelConfig, generator: torch.Generator) -> dict:
             "cross": NN.init_attention(cfg, generator),
             "ln3": NN.init_norm(d, dt, dev),
             "mlp": NN.init_mlp(d, cfg.d_ff, cfg, generator, kind="gelu")}
+
+
+def enc_block_specs(cfg: ModelConfig, rules: ShardingRules) -> dict:
+    return {"ln1": rules.vec(), "attn": NN.attention_specs(cfg, rules),
+            "ln2": rules.vec(),
+            "mlp": NN.mlp_specs(cfg.d_model, cfg.d_ff, rules, kind="gelu")}
+
+
+def dec_block_specs(cfg: ModelConfig, rules: ShardingRules) -> dict:
+    return {"ln1": rules.vec(), "self": NN.attention_specs(cfg, rules),
+            "ln2": rules.vec(), "cross": NN.attention_specs(cfg, rules),
+            "ln3": rules.vec(),
+            "mlp": NN.mlp_specs(cfg.d_model, cfg.d_ff, rules, kind="gelu")}
 
 
 class EncBlock(FrozenTree):
@@ -244,3 +258,21 @@ def init_encdec_cache(cfg: ModelConfig, batch: int, max_len: int,
         return {name: torch.zeros(shape, dtype=cfg.dtype, device=device)
                 for name in ("k", "v")}
     return {"self": stacked(max_len), "cross": stacked(enc_len)}
+
+
+def param_specs(cfg: ModelConfig, rules: ShardingRules) -> dict[str, tuple]:
+    """{parameter name: spec} of an :class:`EncDec` (the learned position
+    table replicated)."""
+    return {"embed": NN.embed_spec(cfg, rules), "dec_pos": spec(None, None),
+            **per_layer_specs(enc_block_specs(cfg, rules), "enc_layers",
+                              cfg.encoder_layers),
+            **per_layer_specs(dec_block_specs(cfg, rules), "dec_layers",
+                              cfg.num_layers),
+            "enc_norm": rules.vec(), "dec_norm": rules.vec()}
+
+
+def encdec_cache_specs(cfg: ModelConfig, rules: ShardingRules, batch: int
+                       ) -> dict:
+    """The self and cross caches as attention caches, stacked on L."""
+    one = stack_layer_specs(NN.attn_cache_specs(cfg, rules, batch))
+    return {"self": one, "cross": dict(one)}

@@ -9,6 +9,15 @@ encoder-decoder (``audio``, ``encdec.EncDec``).
 ``decode_step``. The parameters live in the module, so the step functions
 take none (the reference passes its parameter tree to every call).
 
+``build_model(cfg, "meta")`` gives the same modules with parameters on
+PyTorch's ``meta`` device and draws no weight (the counterpart of
+``jax.eval_shape(model.init)``): the dry run (``launch/dryrun.py``) runs
+the steps on it to count their work. ``Model.param_specs()`` and
+``Model.cache_specs(batch)`` are the reference's partition specs of every
+parameter (by the port's names: a per-layer leaf takes the layer spec) and
+of the decode cache, from ``Model.rules`` (``common.ShardingRules`` of the
+mesh's shape).
+
 The mesh (``launch/mesh.make_local_mesh``: named axes of virtual devices,
 all on the one card) is kept as :attr:`Model.mesh` and passed to every
 forward. A dense model computes the same arithmetic on any mesh; only the
@@ -26,8 +35,16 @@ from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as TF
 from repro_torch.models import xlstm as XL
 from repro_torch.models import zamba as ZB
-from repro_torch.models.common import MODEL_AXIS, ModelConfig
+from repro_torch.models.common import MODEL_AXIS, ModelConfig, ShardingRules
 from repro_torch.utils import resolve_device
+
+
+class NoDraw:
+    """Stands in for a generator on the ``meta`` device: the layers' init
+    helpers make empty meta tensors of their shapes and draw nothing."""
+
+    device = torch.device("meta")
+
 
 def network(cfg: ModelConfig, generator: torch.Generator,
             mesh=None) -> nn.Module:
@@ -51,6 +68,8 @@ class Model(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.mesh = mesh
+        self.rules = ShardingRules({} if mesh is None else mesh.shape,
+                                   cfg.fsdp, layout=cfg.layout)
         self.lm = network(cfg, generator, mesh)
 
     @property
@@ -114,6 +133,28 @@ class Model(nn.Module):
             return ED.init_encdec_cache(cfg, batch, max_len, enc_len, dev)
         return TF.init_cache(cfg, batch, max_len, dev)
 
+    def param_specs(self) -> dict[str, tuple]:
+        """{parameter name: spec}, keyed as ``self.lm.named_parameters()``."""
+        cfg, rules = self.cfg, self.rules
+        if cfg.family == "hybrid":
+            return ZB.param_specs(cfg, rules)
+        if cfg.family == "ssm":
+            return XL.param_specs(cfg, rules)
+        if cfg.family == "audio":
+            return ED.param_specs(cfg, rules)
+        return TF.param_specs(cfg, rules)
+
+    def cache_specs(self, batch: int) -> dict:
+        """Specs of :meth:`init_cache`'s leaves, one tree of one structure."""
+        cfg, rules = self.cfg, self.rules
+        if cfg.family == "hybrid":
+            return ZB.hybrid_cache_specs(cfg, rules, batch)
+        if cfg.family == "ssm":
+            return XL.xlstm_cache_specs(cfg, rules, batch)
+        if cfg.family == "audio":
+            return ED.encdec_cache_specs(cfg, rules, batch)
+        return TF.cache_specs(cfg, rules, batch)
+
     def decode_step(self, cache, tokens: torch.Tensor, pos: int):
         """(logits (B, S, vocab_size), cache): the vocab padding trimmed."""
         logits, cache, _ = self.forward(tokens=tokens, mode="decode",
@@ -128,8 +169,13 @@ def build_model(cfg: ModelConfig, device: str | torch.device = "cuda", *,
     ``generator``: one on ``device`` (by default a new one seeded 0), or one
     on the host, whose weights are then moved to ``device``, so that a seed
     gives the same model on every device (as the reference's key does).
-    ``mesh``: a ``NamedMesh`` of virtual devices, or None (one device)."""
+    ``mesh``: a ``NamedMesh`` of virtual devices, or None (one device).
+    On ``meta`` nothing is drawn (``generator`` must be None)."""
     dev = resolve_device(device)
+    if dev.type == "meta":
+        if generator is not None:
+            raise ValueError("a meta model draws no weight: pass no generator")
+        return Model(cfg, NoDraw(), mesh)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     elif generator.device.type not in (dev.type, "cpu"):

@@ -41,7 +41,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import MODEL_AXIS, ModelConfig, decode_layout
+from repro_torch.models.common import (
+    MODEL_AXIS, ModelConfig, ShardingRules, decode_layout, spec)
 
 NEG_INF = -1e30  # the reference's mask value (``_mask_scores``)
 
@@ -53,7 +54,11 @@ NEG_INF = -1e30  # the reference's mask value (``_mask_scores``)
 
 def _dense(shape, dtype, generator: torch.Generator, scale=None) -> torch.Tensor:
     """Normal(0, 1) in fp32 times ``scale`` (1/sqrt(fan_in), fan-in the
-    second-to-last dim), cast to ``dtype``, on the generator's device."""
+    second-to-last dim), cast to ``dtype``, on the generator's device. On
+    the ``meta`` device (``factory.build_model(cfg, "meta")``) nothing is
+    drawn: an empty tensor of the shape and dtype."""
+    if generator.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     x = torch.randn(shape, generator=generator, dtype=torch.float32,
@@ -132,6 +137,10 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.T
 def init_embed(cfg: ModelConfig, generator: torch.Generator) -> torch.Tensor:
     return _dense((cfg.padded_vocab, cfg.d_model), cfg.param_dtype, generator,
                   scale=0.02)
+
+
+def embed_spec(cfg: ModelConfig, rules: ShardingRules) -> tuple:
+    return rules.embed(cfg.padded_vocab, cfg.d_model)
 
 
 def embed_fwd(table: torch.Tensor, tokens: torch.Tensor,
@@ -239,6 +248,14 @@ def init_mlp(d: int, d_ff: int, cfg: ModelConfig, generator: torch.Generator,
     raise ValueError(f"unknown MLP kind {kind!r}")
 
 
+def mlp_specs(d: int, d_ff: int, rules: ShardingRules,
+              kind: str = "swiglu") -> dict[str, tuple]:
+    if kind == "swiglu":
+        return {"wi": rules.col(d, d_ff), "wg": rules.col(d, d_ff),
+                "wo": rules.row(d_ff, d)}
+    return {"wi": rules.col(d, d_ff), "wo": rules.row(d_ff, d)}
+
+
 def mlp_fwd(p, x: torch.Tensor) -> torch.Tensor:
     h = x @ p["wi"].to(x.dtype)
     if "wg" in p:
@@ -261,6 +278,13 @@ def init_attention(cfg: ModelConfig, generator: torch.Generator
             "wk": _dense((d, KV * hd), dt, generator),
             "wv": _dense((d, KV * hd), dt, generator),
             "wo": _dense((H * hd, d), dt, generator)}
+
+
+def attention_specs(cfg: ModelConfig, rules: ShardingRules
+                    ) -> dict[str, tuple]:
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    return {"wq": rules.col(d, H * hd), "wk": rules.col(d, KV * hd),
+            "wv": rules.col(d, KV * hd), "wo": rules.row(H * hd, d)}
 
 
 def _repeat_kv(k: torch.Tensor, g: int) -> torch.Tensor:
@@ -419,6 +443,15 @@ def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, device,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def attn_cache_specs(cfg: ModelConfig, rules: ShardingRules, batch: int
+                     ) -> dict[str, tuple]:
+    """One layer's KV cache: batch over the dp axes and the sequence over
+    ``model`` (flash-decoding); a small batch at long context puts the
+    sequence over every axis."""
+    b, seq = rules.decode_layout(batch, cfg.decode_seq_shard)
+    return {"k": spec(b, seq, None, None), "v": spec(b, seq, None, None)}
+
+
 # ---------------------------------------------------------------------------
 # MLA attention (minicpm3 / deepseek-style latent KV)
 # ---------------------------------------------------------------------------
@@ -442,6 +475,17 @@ def init_mla(cfg: ModelConfig, generator: torch.Generator
             "w_uk": _dense((kvl, H * nd), dt, generator),
             "w_uv": _dense((kvl, H * vd), dt, generator),
             "wo": _dense((H * vd, d), dt, generator)}
+
+
+def mla_specs(cfg: ModelConfig, rules: ShardingRules) -> dict[str, tuple]:
+    d, H = cfg.d_model, cfg.num_heads
+    ql, kvl = cfg.mla_q_lora, cfg.mla_kv_lora
+    nd, rd, vd = cfg.mla_nope_dim, cfg.mla_rope_dim, cfg.mla_v_dim
+    return {"w_dq": rules.col(d, ql), "q_norm": rules.vec(),
+            "w_uq": rules.col(ql, H * (nd + rd)),
+            "w_dkv": spec(None, None), "kv_norm": rules.vec(),
+            "w_uk": rules.col(kvl, H * nd), "w_uv": rules.col(kvl, H * vd),
+            "wo": rules.row(H * vd, d)}
 
 
 def mla_fwd(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str, rope,
@@ -573,3 +617,9 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, device,
                                 dtype=dtype, device=device),
             "k_rope": torch.zeros((batch, max_len, cfg.mla_rope_dim),
                                   dtype=dtype, device=device)}
+
+
+def mla_cache_specs(cfg: ModelConfig, rules: ShardingRules, batch: int
+                    ) -> dict[str, tuple]:
+    b, seq = rules.decode_layout(batch, cfg.mla_seq_shard)
+    return {"c_kv": spec(b, seq, None), "k_rope": spec(b, seq, None)}

@@ -29,10 +29,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.mesh import VirtualMesh
+from repro_torch.core.mesh import VirtualMesh, issued
 from repro_torch.core.repartition import pack_by_partition, staged_all_to_all
 from repro_torch.core.stats import pick_stages
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, ShardingRules, spec
 from repro_torch.models.layers import _dense, mlp_fwd, silu
 from repro_torch.utils import ceil_div, round_up
 
@@ -63,6 +63,22 @@ def init_moe(cfg: ModelConfig, generator: torch.Generator,
                        "wg": _dense((d, sh_ff), dt, generator),
                        "wo": _dense((sh_ff, d), dt, generator)}
     return p
+
+
+def moe_specs(cfg: ModelConfig, rules: ShardingRules) -> dict:
+    """The router replicated, the experts over ``model`` (EP), the shared
+    expert Megatron-paired, as ``init_moe``'s tree."""
+    d, ff = cfg.d_model, cfg.moe_d_ff
+    e_pad = padded_experts(cfg, rules.model)
+    s = {"router": spec(None, None),
+         "wi": rules.expert_col(e_pad, d, ff),
+         "wg": rules.expert_col(e_pad, d, ff),
+         "wo": rules.expert_row(e_pad, ff, d)}
+    if cfg.moe_num_shared:
+        sh_ff = cfg.moe_num_shared * ff
+        s["shared"] = {"wi": rules.col(d, sh_ff), "wg": rules.col(d, sh_ff),
+                       "wo": rules.row(sh_ff, d)}
+    return s
 
 
 def _route(router_w: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig):
@@ -234,7 +250,13 @@ def _psum_body(p, x: torch.Tensor, *, cfg: ModelConfig, e_pad: int,
         out = _expert_ffn(p["wi"][lo:lo + e_loc], p["wg"][lo:lo + e_loc],
                           p["wo"][lo:lo + e_loc], _slots(xt, send_idx, k))
         part = _combine(out, send_idx, topw, t, k)
-        y = part if y is None else y + part
+        # the reference's psum, in shard order: one collective told to a
+        # step counter (``roofline.analysis.StepCost``) with the first
+        # shard, not to ``mesh.counts``; its adds are the collective's
+        first = y is None
+        with issued("psum", m * part.numel() * part.element_size()
+                    if first else 0, count=int(first)):
+            y = part if first else y + part
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     return y.reshape(b, s, d), {"moe_aux": aux, "moe_dropped": zero}
 

@@ -52,7 +52,8 @@ from torch.utils.checkpoint import (
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as NN
 from repro_torch.models import moe as MOE
-from repro_torch.models.common import MODEL_AXIS, ModelConfig
+from repro_torch.models.common import (
+    MODEL_AXIS, ModelConfig, ShardingRules, per_layer_specs, stack_layer_specs)
 
 AUX_KEYS = ("moe_aux", "moe_dropped")
 REMAT_POLICIES = ("none", "full", "dots")
@@ -133,6 +134,19 @@ def remat_context(cfg: ModelConfig):
         raise ValueError(f"remat={cfg.remat!r}: one of {REMAT_POLICIES}")
     return {"none": None, "full": _remat_contexts,
             "dots": _dots_contexts}[cfg.remat]
+
+
+def block_specs(cfg: ModelConfig, rules: ShardingRules) -> dict:
+    """One block's spec tree, as its parameters nest."""
+    s = {"ln1": rules.vec(),
+         "attn": NN.mla_specs(cfg, rules) if cfg.attn_kind == "mla"
+         else NN.attention_specs(cfg, rules),
+         "ln2": rules.vec()}
+    if cfg.moe_num_experts:
+        s["moe"] = MOE.moe_specs(cfg, rules)
+    else:
+        s["mlp"] = NN.mlp_specs(cfg.d_model, cfg.d_ff, rules)
+    return s
 
 
 class Block(nn.Module):
@@ -251,6 +265,26 @@ class Transformer(nn.Module):
         head = self.embed if cfg.tie_embeddings else self.lm_head
         logits = NN.unembed_fwd(head, x, cfg)
         return logits, cache, total
+
+
+def param_specs(cfg: ModelConfig, rules: ShardingRules) -> dict[str, tuple]:
+    """{parameter name: spec} of a :class:`Transformer`."""
+    s = {"embed": NN.embed_spec(cfg, rules),
+         **per_layer_specs(block_specs(cfg, rules), "layers", cfg.num_layers),
+         "final_norm": rules.vec()}
+    if not cfg.tie_embeddings:
+        s["lm_head"] = rules.embed(cfg.padded_vocab, cfg.d_model)
+    if cfg.frontend == "vision_stub":
+        s["front_proj"] = rules.col(cfg.d_model, cfg.d_model)
+    return s
+
+
+def cache_specs(cfg: ModelConfig, rules: ShardingRules, batch: int
+                ) -> dict[str, tuple]:
+    """Specs of :func:`init_cache`'s stacked leaves."""
+    one = NN.mla_cache_specs(cfg, rules, batch) if cfg.attn_kind == "mla" \
+        else NN.attn_cache_specs(cfg, rules, batch)
+    return stack_layer_specs(one)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device

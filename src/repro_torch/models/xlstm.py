@@ -38,7 +38,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as NN
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import (
+    ModelConfig, ShardingRules, per_layer_specs, spec)
 from repro_torch.models.recurrent import (
     causal_depthwise_conv, chunked_gla, gla_decode_step, slstm_decode_step,
     slstm_scan)
@@ -89,6 +90,21 @@ def init_mlstm_block(cfg: ModelConfig, generator: torch.Generator
             "gnorm": NN.init_norm(d_in, dt, dev),
             "skip": torch.ones((d_in,), dtype=dt, device=dev),
             "down": NN._dense((d_in, d), dt, generator)}
+
+
+def mlstm_block_specs(cfg: ModelConfig, rules: ShardingRules) -> dict:
+    """The block-diagonal q/k's contraction dim FSDP-sharded (gathered on
+    use), as the reference's."""
+    d = cfg.d_model
+    d_in, _, hd = _mlstm_dims(cfg)
+    return {"ln": rules.vec(), "up": rules.col(d, 2 * d_in),
+            "conv_w": spec(None, None),
+            "wq": spec(None, rules._fs(hd), None),
+            "wk": spec(None, rules._fs(hd), None),
+            "w_ig": spec(None, None), "b_ig": rules.vec(),
+            "w_fg": spec(None, None), "b_fg": rules.vec(),
+            "gnorm": rules.vec(), "skip": rules.vec(),
+            "down": rules.row(d_in, d)}
 
 
 def mlstm_fwd(p, x: torch.Tensor, cfg: ModelConfig, *, cache=None,
@@ -157,6 +173,14 @@ def init_slstm_block(cfg: ModelConfig, generator: torch.Generator) -> dict:
             "gnorm": NN.init_norm(d, dt, dev),
             "ln2": NN.init_norm(d, dt, dev),
             "mlp": NN.init_mlp(d, _slstm_ff(cfg), cfg, generator)}
+
+
+def slstm_block_specs(cfg: ModelConfig, rules: ShardingRules) -> dict:
+    d = cfg.d_model
+    return {"ln": rules.vec(), "wi": rules.col(d, d), "wf": rules.col(d, d),
+            "wz": rules.col(d, d), "wo": rules.col(d, d), "b_i": rules.vec(),
+            "b_f": rules.vec(), "gnorm": rules.vec(), "ln2": rules.vec(),
+            "mlp": NN.mlp_specs(d, _slstm_ff(cfg), rules)}
 
 
 def slstm_fwd(p, x: torch.Tensor, cfg: ModelConfig, *, cache=None,
@@ -313,3 +337,23 @@ def init_xlstm_cache(cfg: ModelConfig, batch: int, device
             "slstm": {name: torch.zeros((periods, batch, cfg.d_model),
                                         dtype=f32, device=device)
                       for name in ("c", "n")}}
+
+
+def param_specs(cfg: ModelConfig, rules: ShardingRules) -> dict[str, tuple]:
+    """{parameter name: spec} of an :class:`XLSTM`."""
+    periods, m_per, rem = xl_counts(cfg)
+    return {"embed": NN.embed_spec(cfg, rules),
+            **per_layer_specs(mlstm_block_specs(cfg, rules), "mlstm",
+                              periods * m_per + rem),
+            **per_layer_specs(slstm_block_specs(cfg, rules), "slstm", periods),
+            "final_norm": rules.vec(),
+            "lm_head": rules.embed(cfg.padded_vocab, cfg.d_model)}
+
+
+def xlstm_cache_specs(cfg: ModelConfig, rules: ShardingRules, batch: int
+                      ) -> dict:
+    """Every state over the batch axes; no dim grows with the sequence."""
+    b, _ = rules.decode_layout(batch, False)
+    return {"mlstm": {"conv": spec(None, b, None, None),
+                      "state": spec(None, b, None, None, None)},
+            "slstm": {"c": spec(None, b, None), "n": spec(None, b, None)}}

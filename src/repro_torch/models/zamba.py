@@ -35,11 +35,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as NN
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import (
+    ModelConfig, ShardingRules, flat_specs, per_layer_specs, spec,
+    stack_layer_specs)
 from repro_torch.models.recurrent import (
     causal_depthwise_conv, chunked_gla, gla_decode_step)
 from repro_torch.models.transformer import (
-    AUX_KEYS, Block, FrozenTree, _frozen, remat_context)
+    AUX_KEYS, Block, FrozenTree, _frozen, block_specs, remat_context)
 
 
 def _mamba_dims(cfg: ModelConfig):
@@ -76,6 +78,15 @@ def init_mamba_block(cfg: ModelConfig, generator: torch.Generator
             "dt_bias": torch.full((h,), -1.0, dtype=dt, device=dev),
             "norm": NN.init_norm(d_in, dt, dev),
             "out_proj": NN._dense((d_in, d), dt, generator)}
+
+
+def mamba_block_specs(cfg: ModelConfig, rules: ShardingRules) -> dict:
+    d = cfg.d_model
+    d_in, _, _, _, _, d_proj = _mamba_dims(cfg)
+    return {"ln": rules.vec(), "in_proj": rules.col(d, d_proj),
+            "conv_w": spec(None, None), "A_log": rules.vec(), "D": rules.vec(),
+            "dt_bias": rules.vec(), "norm": rules.vec(),
+            "out_proj": rules.row(d_in, d)}
 
 
 def mamba_fwd(p, x: torch.Tensor, cfg: ModelConfig, *, cache=None,
@@ -251,3 +262,25 @@ def init_hybrid_cache(cfg: ModelConfig, batch: int, max_len: int, device
                       for name, t in one.items()},
             "attn": {name: t[None].repeat((periods,) + (1,) * t.ndim)
                      for name, t in attn.items()}}
+
+
+def param_specs(cfg: ModelConfig, rules: ShardingRules) -> dict[str, tuple]:
+    """{parameter name: spec} of a :class:`Hybrid` (the one shared block
+    unstacked, as in the reference)."""
+    return {"embed": NN.embed_spec(cfg, rules),
+            **per_layer_specs(mamba_block_specs(cfg, rules), "mamba",
+                              cfg.num_layers),
+            **flat_specs(block_specs(cfg, rules), "shared."),
+            "final_norm": rules.vec(),
+            "lm_head": rules.embed(cfg.padded_vocab, cfg.d_model)}
+
+
+def hybrid_cache_specs(cfg: ModelConfig, rules: ShardingRules, batch: int
+                       ) -> dict:
+    """The Mamba states over the batch axes (the sequence is not a dim of
+    theirs), the shared block's KV slots as an attention cache."""
+    b, _ = rules.decode_layout(batch, False)
+    mamba = {"conv": spec(None, b, None, None),
+             "ssm": spec(None, b, None, None, None)}
+    attn = stack_layer_specs(NN.attn_cache_specs(cfg, rules, batch))
+    return {"mamba": mamba, "attn": attn}

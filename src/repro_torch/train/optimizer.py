@@ -46,6 +46,13 @@ def init_opt(params: dict[str, torch.Tensor]) -> OptState:
                     count=torch.zeros((), dtype=torch.int32, device=dev))
 
 
+def opt_state_specs(master_specs: dict[str, tuple]) -> OptState:
+    """The optimizer state's specs: the masters' for ``master``, ``m`` and
+    ``v``, a replicated ``count``."""
+    return OptState(master=master_specs, m=dict(master_specs),
+                    v=dict(master_specs), count=())
+
+
 def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     """Linear warmup to ``lr``, then a cosine down to ``min_lr_frac * lr`` at
     ``total_steps``; fp32, in the reference's order of operations."""

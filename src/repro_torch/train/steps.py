@@ -31,9 +31,11 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.models.common import POD_AXIS
+from repro_torch.models.common import (
+    POD_AXIS, LayerSplit, fsdp_extend, spec)
 from repro_torch.models.factory import Model, network
-from repro_torch.train.optimizer import OptConfig, OptState, apply_updates, init_opt
+from repro_torch.train.optimizer import (
+    OptConfig, OptState, apply_updates, init_opt, opt_state_specs)
 
 
 class TrainState(NamedTuple):
@@ -91,6 +93,53 @@ def bind_state(model: Model, src: TrainState | None = None) -> TrainState:
         n: t.to(dev, torch.float32, copy=True) for n, t in src.ef.items()}
     return TrainState(params=params, opt=opt,
                       step=src.step.to(dev, torch.int32, copy=True), ef=ef)
+
+
+# ---------------------------------------------------------------------------
+# specs (the reference's, by the port's names)
+# ---------------------------------------------------------------------------
+
+
+def master_specs(model: Model) -> dict[str, tuple]:
+    """ZeRO specs of the fp32 optimizer state and the gradient accumulator:
+    ``common.fsdp_extend`` of the parameter specs, applied as the reference
+    applies it, to each stacked leaf (a group of :func:`stacked_leaves`,
+    its shape (n, *shape), its spec (None, *layer spec)). Where that picks
+    the layer dim, each layer's leaf gets a ``LayerSplit``."""
+    specs = model.param_specs()
+    params = dict(model.lm.named_parameters())
+    data = max(model.rules.data, 1)
+    out = {}
+    for group, names in stacked_leaves(specs).items():
+        layer_spec, shape = specs[names[0]], tuple(params[names[0]].shape)
+        if "*" not in group:  # not stacked in the reference either
+            out[names[0]] = fsdp_extend(layer_spec, shape, data)
+            continue
+        ext = fsdp_extend(spec(None, *layer_spec), (len(names),) + shape, data)
+        one = ext[1:] if ext[0] is None else LayerSplit(ext[1:], ext[0])
+        out.update({n: one for n in names})
+    return out
+
+
+def train_state_specs(model: Model, *, compress_pod: bool = False
+                      ) -> TrainState:
+    """The train state's specs: the parameters', the masters' for the
+    optimizer state, a replicated step; with ``compress_pod``, the
+    residuals' (pod, *master spec)."""
+    ms = master_specs(model)
+    ef = None
+    if compress_pod:
+        ef = {n: LayerSplit((POD_AXIS, *s), s.axis) if isinstance(s, LayerSplit)
+              else spec(POD_AXIS, *s) for n, s in ms.items()}
+    return TrainState(params=model.param_specs(), opt=opt_state_specs(ms),
+                      step=(), ef=ef)
+
+
+def batch_specs(model: Model, batch: dict[str, torch.Tensor]
+                ) -> dict[str, tuple]:
+    """A batch's specs: the leading dim over the dp axes."""
+    b = model.rules.batch_axes()
+    return {k: spec(b, *([None] * (x.ndim - 1))) for k, x in batch.items()}
 
 
 # ---------------------------------------------------------------------------

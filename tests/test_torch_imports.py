@@ -114,3 +114,24 @@ def test_the_mesh_modules_are_checked():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_the_dry_run_and_the_roofline_are_checked():
+    """The shapes, the dry run, the hillclimb, the roofline and the kernels'
+    meta route are among the files checked above (so they import neither
+    jax nor repro), and importing the dry run sets no environment
+    variable."""
+    names = {str(f.relative_to(ROOT)) for f in _files()}
+    for mod in ("configs/shapes", "launch/dryrun", "launch/hillclimb",
+                "roofline/analysis", "roofline/report", "kernels/meta"):
+        assert f"src/repro_torch/{mod}.py" in names, mod
+    code = ("import os\n"
+            "before = dict(os.environ)\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.hillclimb\n"
+            "assert dict(os.environ) == before\n"
+            "print('clean')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0 and out.stdout.startswith("clean"), \
+        out.stdout + out.stderr
