@@ -1,0 +1,7 @@
+"""The device memory the program held at its most during the window
+(``torch.cuda.max_memory_allocated``, reset as the window opens), resident
+tables included, in GiB."""
+
+
+def read(run):
+    return run.peak_bytes / 2**30 if run.peak_bytes > 0 else None
