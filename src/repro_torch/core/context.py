@@ -44,6 +44,7 @@ from repro_torch.core import faults as FLT
 from repro_torch.core import ops_agg as A
 from repro_torch.core import plan as PL
 from repro_torch.core import stats as S
+from repro_torch.core import trace
 from repro_torch.core import verify as V
 from repro_torch.core.mesh import VirtualMesh
 from repro_torch.core.plan_cache import PlanCache
@@ -202,7 +203,8 @@ class PlanFuture:
                 raise self._error
             if self._out is None:
                 try:
-                    self._out = self._finalize()
+                    with trace.span("repro_torch.result"):
+                        self._out = self._finalize()
                 except BaseException as e:
                     self._error = e
                     raise
@@ -437,16 +439,17 @@ class DistContext:
         if fn is None:
             fn = functools.partial(PL.execute_plan, plan, mesh=self.mesh,
                                    safe_capacity=safe)
-        shards = [t.shards() for t in tabs]
-        if cached:
-            out, stats = fn(shards, report=report)
+        with trace.span("repro_torch.execute"):
+            shards = [t.shards() for t in tabs]
+            if cached:
+                out, stats = fn(shards, report=report)
+                return DistTable.from_shards(out), stats
+            fires = FLT.thread_fires()
+            with FLT.first_run(self.num_shards):
+                out, stats = fn(shards, report=report)
+            if sig is not None and FLT.thread_fires() == fires:
+                self.plan_cache.put(sig, fn)
             return DistTable.from_shards(out), stats
-        fires = FLT.thread_fires()
-        with FLT.first_run(self.num_shards):
-            out, stats = fn(shards, report=report)
-        if sig is not None and FLT.thread_fires() == fires:
-            self.plan_cache.put(sig, fn)
-        return DistTable.from_shards(out), stats
 
     def submit(self, plan: PL.Node, tabs: Sequence[DistTable], *,
                optimize: bool = False, report: list | None = None
@@ -488,13 +491,14 @@ class DistContext:
         one bad query never stops a serving loop; ``result()`` re-raises
         it.
         """
-        try:
-            with FLT.scope(self.faults):
-                return self._submit_impl(plan, tabs, optimize=optimize,
-                                         report=report)
-        except Exception as e:
-            self._bump("failed_queries")
-            return PlanFuture.failed(e)
+        with trace.span("repro_torch.submit"):
+            try:
+                with FLT.scope(self.faults):
+                    return self._submit_impl(plan, tabs, optimize=optimize,
+                                             report=report)
+            except Exception as e:
+                self._bump("failed_queries")
+                return PlanFuture.failed(e)
 
     def _submit_impl(self, plan: PL.Node, tabs: Sequence[DistTable], *,
                      optimize: bool, report: list | None) -> PlanFuture:
@@ -505,23 +509,25 @@ class DistContext:
         input_stats = [t.stats for t in tabs]
         have_stats = any(s is not None for s in input_stats)
         policy = self.retry_policy
-        if optimize:
-            plan, part = PL.optimize_with_partitioning(
-                plan, schemas, p, input_stats=input_stats)
-        else:
-            part = PL.output_partitioning(plan, schemas, p)
-            plan = PL.apply_cost_model(plan, schemas, p, input_stats)
-        if isinstance(part, RangePartitioning):
-            # a materialized table gets its own provenance token: two runs
-            # of one plan over different inputs have different splitters
-            part = dataclasses.replace(
-                part, fingerprint=fresh_range_fingerprint())
-        key = PL.canonical_key(plan)
-        if key is None:
-            ikey = PL.identity_key(plan)
-            run_key = ("plan-id", ikey) if ikey is not None else None
-        else:
-            run_key = ("plan", key)
+        with trace.span("repro_torch.plan"):
+            if optimize:
+                plan, part = PL.optimize_with_partitioning(
+                    plan, schemas, p, input_stats=input_stats)
+            else:
+                part = PL.output_partitioning(plan, schemas, p)
+                plan = PL.apply_cost_model(plan, schemas, p, input_stats)
+            if isinstance(part, RangePartitioning):
+                # a materialized table gets its own provenance token: two
+                # runs of one plan over different inputs have different
+                # splitters
+                part = dataclasses.replace(
+                    part, fingerprint=fresh_range_fingerprint())
+            key = PL.canonical_key(plan)
+            if key is None:
+                ikey = PL.identity_key(plan)
+                run_key = ("plan-id", ikey) if ikey is not None else None
+            else:
+                run_key = ("plan", key)
         sized = have_stats and PL.plan_cost_sized(plan)
         safe_memo: dict = {}  # the safe plan is derived at most once
 

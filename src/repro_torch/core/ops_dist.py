@@ -18,9 +18,12 @@ Composition (paper section II-B):
 
 Every potential shuffle appends one record to ``report``: bucket, bytes per
 row and the dense wire bytes ``p^2 * bucket * row_bytes`` (0 when elided).
+A shuffle that is not elided runs inside the ``repro_torch.exchange`` span,
+the local joins and aggregations inside their own (``core/trace.py``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -28,6 +31,7 @@ import torch
 from repro_torch.core import ops_agg as A
 from repro_torch.core import ops_local as L
 from repro_torch.core import stats as S
+from repro_torch.core import trace
 from repro_torch.core.mesh import VirtualMesh
 from repro_torch.core.repartition import (ShuffleStats, _counts_carrier,
                                           repartition, zero_shuffle_stats)
@@ -61,7 +65,9 @@ def _shuffle(tables: Sequence[Table], keys: Sequence[str], *, mesh: VirtualMesh,
              stages: int | None = None,
              shuffle_mode: str = "alltoall") -> tuple[Shards, ShuffleStats]:
     """Hash partition + AllToAll, or the elided identity when ``skip``.
-    ``stages=None`` sizes the pipeline from the wire bytes
+    ``pids``: the destinations, or a function of no arguments that computes
+    them (a range partition), in place of the key hash. ``stages=None``
+    sizes the pipeline from the wire bytes
     (:func:`repro_torch.core.stats.pick_stages`)."""
     p = mesh.axis_size
     rb = _row_bytes(tables[0])
@@ -78,10 +84,15 @@ def _shuffle(tables: Sequence[Table], keys: Sequence[str], *, mesh: VirtualMesh,
         })
     if skip:
         return list(tables), zero_shuffle_stats(p, tables[0].device)
-    if pids is None:
-        pids = [_row_pid(t, list(keys), p, seed) for t in tables]
-    return repartition(tables, pids, mesh=mesh, bucket_capacity=bucket_capacity,
-                       stages=stages, shuffle_mode=shuffle_mode)
+    with trace.span("repro_torch.exchange"):
+        with trace.span("repro_torch.exchange.partition_ids"):
+            if pids is None:
+                pids = [_row_pid(t, list(keys), p, seed) for t in tables]
+            elif callable(pids):
+                pids = pids()
+        return repartition(tables, pids, mesh=mesh,
+                           bucket_capacity=bucket_capacity, stages=stages,
+                           shuffle_mode=shuffle_mode)
 
 
 def dist_repartition_by(tables: Sequence[Table], keys: Sequence[str] | str, *,
@@ -198,14 +209,17 @@ def dist_join(left: Sequence[Table], right: Sequence[Table],
                             label="join.right", pids=rpid, stages=stages,
                             shuffle_mode=shuffle_mode)
     outs, truncs = [], []
-    for lt, rt in zip(left2, right2):
-        res = L.join(lt, rt, on_l, how=how, algorithm=algorithm,
-                     out_capacity=out_capacity, seed=seed + 1,
-                     with_overflow=count_truncation)
-        if count_truncation:
-            res, trunc = res
-            truncs.append(trunc)
-        outs.append(res)
+    with trace.span("repro_torch.join.local"):
+        for lt, rt in zip(left2, right2):
+            res = L.join(lt, rt, on_l, how=how, algorithm=algorithm,
+                         out_capacity=out_capacity, seed=seed + 1,
+                         with_overflow=count_truncation)
+            if count_truncation:
+                res, trunc = res
+                truncs.append(trunc)
+            trace.count("join.rows_out", res.row_count)
+            trace.count("join.slots", res.capacity)
+            outs.append(res)
     if count_truncation:
         st_r = st_r._replace(overflow=st_r.overflow + torch.stack(truncs))
     return outs, (st_l, st_r)
@@ -303,24 +317,30 @@ def dist_groupby(tables: Sequence[Table], keys: Sequence[str] | str, aggs, *,
                          bucket_capacity=bucket_capacity, seed=ps, skip=True,
                          report=report, label=f"groupby.{strategy}",
                          stages=stages, shuffle_mode=shuffle_mode)
-        return [A.groupby(t, keys_l, pairs, out_capacity=out_capacity)
-                for t in tables], (st,)
+        with trace.span("repro_torch.groupby.final"):
+            return [A.groupby(t, keys_l, pairs, out_capacity=out_capacity)
+                    for t in tables], (st,)
     if strategy == "shuffle":
         t2, st = _shuffle(tables, keys_l, mesh=mesh,
                           bucket_capacity=bucket_capacity, seed=ps,
                           report=report, label="groupby.shuffle",
                           stages=stages, shuffle_mode=shuffle_mode)
-        return [A.groupby(t, keys_l, pairs, out_capacity=out_capacity)
-                for t in t2], (st,)
+        with trace.span("repro_torch.groupby.final"):
+            return [A.groupby(t, keys_l, pairs, out_capacity=out_capacity)
+                    for t in t2], (st,)
     if strategy == "two_phase":
-        part = [A.partial_groupby(t, keys_l, pairs, out_capacity=partial_capacity)
-                for t in tables]
+        with trace.span("repro_torch.groupby.partial"):
+            part = [A.partial_groupby(t, keys_l, pairs,
+                                      out_capacity=partial_capacity)
+                    for t in tables]
         part2, st = _shuffle(part, keys_l, mesh=mesh,
                              bucket_capacity=bucket_capacity, seed=ps,
                              report=report, label="groupby.two_phase",
                              stages=stages, shuffle_mode=shuffle_mode)
-        return [A.combine_groupby(t, keys_l, pairs, out_capacity=out_capacity)
-                for t in part2], (st,)
+        with trace.span("repro_torch.groupby.final"):
+            return [A.combine_groupby(t, keys_l, pairs,
+                                      out_capacity=out_capacity)
+                    for t in part2], (st,)
     raise ValueError(strategy)
 
 
@@ -366,8 +386,8 @@ def dist_sort(tables: Sequence[Table], by: Sequence[str] | str, *,
                          report=report, label="sort", stages=stages,
                          shuffle_mode=shuffle_mode)
         return [L.sort_by(t, by_l) for t in tables], (st,)
-    pids = _lex_splitter_pids(tables, by_l, mesh=mesh,
-                              samples_per_shard=samples_per_shard)
+    pids = functools.partial(_lex_splitter_pids, tables, by_l, mesh=mesh,
+                             samples_per_shard=samples_per_shard)
     out, st = _shuffle(tables, by_l, mesh=mesh, bucket_capacity=bucket_capacity,
                        seed=0, pids=pids, report=report, label="sort",
                        stages=stages, shuffle_mode=shuffle_mode)
@@ -529,8 +549,8 @@ def dist_window(tables: Sequence[Table], by: Sequence[str] | str, funcs, *,
     p = mesh.axis_size
     A._window_validate(tables[0], by_l, order_l, pairs)
 
-    pids = None if skip_shuffle else _lex_splitter_pids(
-        tables, keys, mesh=mesh, samples_per_shard=samples_per_shard)
+    pids = functools.partial(_lex_splitter_pids, tables, keys, mesh=mesh,
+                             samples_per_shard=samples_per_shard)
     t2, st = _shuffle(tables, keys, mesh=mesh, bucket_capacity=bucket_capacity,
                       seed=0, skip=skip_shuffle, pids=pids, report=report,
                       label="window", stages=stages, shuffle_mode=shuffle_mode)

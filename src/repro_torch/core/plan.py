@@ -46,6 +46,7 @@ from repro_torch.core import ops_agg as A
 from repro_torch.core import ops_dist as D
 from repro_torch.core import ops_local as L
 from repro_torch.core import stats as S
+from repro_torch.core import trace
 from repro_torch.core.mesh import VirtualMesh
 from repro_torch.core.repartition import (Partitioning, RangePartitioning,
                                           default_bucket_capacity,
@@ -1191,8 +1192,14 @@ class _Executor:
 
     def run(self, node: Node) -> Shards:
         hit = self.memo.get(id(node))
-        if hit is None:
+        if hit is None and isinstance(node, Scan):
             hit = self.memo[id(node)] = self._exec(node)
+        elif hit is None:
+            # the inputs first, so that each node's span holds its own work
+            for child in children(node):
+                self.run(child)
+            with trace.span(_OP_SPANS.get(type(node), "repro_torch.op")):
+                hit = self.memo[id(node)] = self._exec(node)
         return hit
 
     def _exec(self, node: Node) -> Shards:
@@ -1286,6 +1293,12 @@ class _Executor:
             raise TypeError(node)
         self.stats.extend(st)
         return out
+
+
+# each operator's span (``core/trace.py``): repro_torch.op.join, ...
+_OP_SPANS = {cls: "repro_torch.op." + cls.__name__.lower()
+             for cls in (Select, Project, Limit, Repartition, Join, GroupBy,
+                         Sort, Window, Union, Intersect, Difference, Distinct)}
 
 
 # the no-stats bucket of the range-partitioned operators (Sort, Window):

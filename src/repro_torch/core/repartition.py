@@ -30,6 +30,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from repro_torch.core import faults as FLT
+from repro_torch.core import trace
 from repro_torch.core.mesh import VirtualMesh
 from repro_torch.core.ops_local import compact
 from repro_torch.core.table import Table
@@ -219,69 +220,80 @@ def repartition(tables: Sequence[Table], part_ids: Sequence[torch.Tensor], *,
     c = t0.capacity
     cb = bucket_capacity
 
-    packs = [pack_by_partition(torch.where(t.valid_mask(), pid, -1), p, cb)
-             for t, pid in zip(tables, part_ids)]
-    send_idx = torch.stack([s for s, _ in packs])      # (p_src, p_dst, cb)
-    hist = torch.stack([h for _, h in packs])          # (p_src, p_dst)
-    sent = torch.clamp(hist, max=cb).to(torch.int32)
+    with trace.span("repro_torch.exchange.pack"):
+        packs = [pack_by_partition(torch.where(t.valid_mask(), pid, -1), p, cb)
+                 for t, pid in zip(tables, part_ids)]
+        send_idx = torch.stack([s for s, _ in packs])  # (p_src, p_dst, cb)
+        hist = torch.stack([h for _, h in packs])      # (p_src, p_dst)
+        sent = torch.clamp(hist, max=cb).to(torch.int32)
     carrier = _counts_carrier(t0)
     fault = _shuffle_fault(cb, stages, shuffle_mode)
     # garble the carrier (or the only exchanged column when none): its
     # first received chunk, counts slot included
     garble_col = carrier if carrier is not None else t0.column_names[0]
-    shard = torch.arange(p, device=dev)[:, None, None]
-    src_row = send_idx.clamp(0, max(c - 1, 0))
-    sent_mask = send_idx >= 0
+    with trace.span("repro_torch.exchange.buffers"):
+        shard = torch.arange(p, device=dev)[:, None, None]
+        src_row = send_idx.clamp(0, max(c - 1, 0))
+        sent_mask = send_idx >= 0
 
+    # one column at a time: a column's send buffer is freed once exchanged
     recv_cols = {}
     recv_counts = None
     for name in t0.columns:
-        col = torch.stack([t.columns[name] for t in tables])  # (p, c, *rest)
-        rest = tuple(col.shape[2:])
-        if c == 0:
-            buf = torch.zeros((p, p, cb) + rest, dtype=col.dtype, device=dev)
-        else:
-            buf = col[shard, src_row]  # (p, p, cb, *rest)
-            sel = sent_mask.reshape(send_idx.shape + (1,) * len(rest))
-            buf = torch.where(sel, buf, torch.zeros((), dtype=col.dtype,
-                                                    device=dev))
-        if name == carrier:
-            cnt = sent.view(col.dtype)  # bitcast, never arithmetic
-            if rest:
-                meta = torch.zeros((p, p, math.prod(rest)), dtype=col.dtype,
-                                   device=dev)
-                meta[:, :, 0] = cnt
-                meta = meta.reshape((p, p, 1) + rest)
+        with trace.span("repro_torch.exchange.buffers"):
+            col = torch.stack([t.columns[name] for t in tables])  # (p, c, *rest)
+            rest = tuple(col.shape[2:])
+            if c == 0:
+                buf = torch.zeros((p, p, cb) + rest, dtype=col.dtype,
+                                  device=dev)
             else:
-                meta = cnt[:, :, None]
-            buf = torch.cat([meta, buf], dim=2)  # (p, p, cb + 1, *rest)
-        recv = staged_all_to_all(buf, mesh, stages=stages,
-                                 shuffle_mode=shuffle_mode)
-        if fault is not None and name == garble_col:
-            width = (_chunk_bounds(buf.shape[2], stages)[0][1]
-                     if shuffle_mode != "ring" else buf.shape[2])
-            recv = _poison_chunk(recv, width)
-        if name == carrier:
-            meta_r = recv[:, :, 0]
-            if rest:
-                meta_r = meta_r.reshape(p, p, -1)[:, :, 0]
-            recv_counts = meta_r.contiguous().view(torch.int32)  # (dst, src)
-            recv = recv[:, :, 1:]
-        recv_cols[name] = recv.reshape((p, p * cb) + rest)
+                buf = col[shard, src_row]  # (p, p, cb, *rest)
+                sel = sent_mask.reshape(send_idx.shape + (1,) * len(rest))
+                buf = torch.where(sel, buf, torch.zeros((), dtype=col.dtype,
+                                                        device=dev))
+            if name == carrier:
+                cnt = sent.view(col.dtype)  # bitcast, never arithmetic
+                if rest:
+                    meta = torch.zeros((p, p, math.prod(rest)),
+                                       dtype=col.dtype, device=dev)
+                    meta[:, :, 0] = cnt
+                    meta = meta.reshape((p, p, 1) + rest)
+                else:
+                    meta = cnt[:, :, None]
+                buf = torch.cat([meta, buf], dim=2)  # (p, p, cb + 1, *rest)
+        with trace.span("repro_torch.exchange.all_to_all"):
+            recv = staged_all_to_all(buf, mesh, stages=stages,
+                                     shuffle_mode=shuffle_mode)
+            if fault is not None and name == garble_col:
+                width = (_chunk_bounds(buf.shape[2], stages)[0][1]
+                         if shuffle_mode != "ring" else buf.shape[2])
+                recv = _poison_chunk(recv, width)
+            if name == carrier:
+                meta_r = recv[:, :, 0]
+                if rest:
+                    meta_r = meta_r.reshape(p, p, -1)[:, :, 0]
+                recv_counts = meta_r.contiguous().view(torch.int32)  # (dst, src)
+                recv = recv[:, :, 1:]
+            recv_cols[name] = recv.reshape((p, p * cb) + rest)
 
     if recv_counts is None:  # no 4-byte column: separate counts collective
-        recv_counts = staged_all_to_all(
-            sent.reshape(p, p, 1), mesh, shuffle_mode=shuffle_mode).reshape(p, p)
+        with trace.span("repro_torch.exchange.all_to_all"):
+            recv_counts = staged_all_to_all(
+                sent.reshape(p, p, 1), mesh,
+                shuffle_mode=shuffle_mode).reshape(p, p)
 
-    slot = torch.arange(cb, device=dev)[None, None, :]
-    recv_valid = (slot < recv_counts[:, :, None]).reshape(p, p * cb)
-    full = torch.tensor(p * cb, dtype=torch.int32, device=dev)
-    outs = [compact(Table({k: v[i] for k, v in recv_cols.items()}, full),
-                    recv_valid[i]) for i in range(p)]
-    stats = ShuffleStats(
-        overflow=torch.clamp(hist - cb, min=0).sum(1).to(torch.int32),
-        received=recv_counts.sum(1).to(torch.int32),
-    )
+    with trace.span("repro_torch.exchange.compact"):
+        slot = torch.arange(cb, device=dev)[None, None, :]
+        recv_valid = (slot < recv_counts[:, :, None]).reshape(p, p * cb)
+        full = torch.tensor(p * cb, dtype=torch.int32, device=dev)
+        outs = [compact(Table({k: v[i] for k, v in recv_cols.items()}, full),
+                        recv_valid[i]) for i in range(p)]
+        stats = ShuffleStats(
+            overflow=torch.clamp(hist - cb, min=0).sum(1).to(torch.int32),
+            received=recv_counts.sum(1).to(torch.int32),
+        )
+    trace.count("exchange.rows_received", stats.received)
+    trace.count("exchange.slots", p * p * cb)
     return outs, stats
 
 
