@@ -766,6 +766,15 @@ SEG_F32_TOL = 2.44e-4
 # doubled tile aggregate moves the sums after it by ~88 (sqrt(7680)), a
 # lost row by 0.8 on average, so a wrong fold still shows.
 SCAN_F32_TOL = 0.5
+# groupby's final aggregation (groupby.q5): a worker's received slots hold
+# ~4% rows, then the -1 tail; row 4d times the float64 instance there
+SEG_FINAL_FILL = 0.04
+# A float64 sum of k standard-normal rows (~8 a group there, a few dozen at
+# most), folded in a binary tree by the kernel and one row at a time by the
+# plain version's atomics, is within (k - 1) x 2**-53 of the sum of |values|
+# of the exact sum either way (~1e-14 at k = 50); 1e-12 still catches a lost
+# or doubled row, a share of ~1/8 of that sum
+SEG_F64_REL_TOL = 1e-12
 # groupby two_phase and shuffle's segment_reduce launches over the main path
 # (every aggregate's partial on every shard)
 SEG_REDUCE_LAUNCHES = 120
@@ -965,7 +974,7 @@ def _instance_name(m) -> str:
     LSE-writing training instance), Li160ELi160ELi1 (the widths, the fp32
     dK/dV launch's gradients), Li8 (a bitonic tile's log size)."""
     args = m.group(2) or ""
-    t = {"f": "float", "i": "int"}.get(args[:1])
+    t = {"f": "float", "i": "int", "d": "double"}.get(args[:1])
     n = re.findall(r"Li(\d+)", args)
     label = ("" if not n else f"<{n[0]}>" if t is None else
              f"<{t}, {_OPS.get(n[0], n[0])}>")
@@ -1165,7 +1174,7 @@ def phase_kernels(dev) -> None:
         rk, rv = ref.sort_pairs_ref(k, v)
         check(torch.equal(ko, rk) and torch.equal(vo, rv), f"sort_pairs n={m}")
 
-    # segment_reduce: sum/min/max x f32/i32 x G, sorted and unsorted ids,
+    # segment_reduce: sum/min/max x f32/i32/f64 x G, sorted and unsorted ids,
     # ids out of range; integer-valued floats, so sums are exact. Sorted
     # ids (out-of-range ones at both ends) also go in as contiguous runs,
     # as groupby passes them.
@@ -1175,7 +1184,7 @@ def phase_kernels(dev) -> None:
             if sort_ids:
                 s = np.sort(s)
             seg = torch.from_numpy(s.astype(np.int32)).to(dev)
-            for dt in (np.float32, np.int32):
+            for dt in (np.float32, np.int32, np.float64):
                 vals = torch.from_numpy(rng.integers(-99, 99, n).astype(dt)).to(dev)
                 for op in ("sum", "min", "max"):
                     want = ref.segment_reduce_ref(vals, seg, g, op)
@@ -1198,7 +1207,10 @@ def phase_kernels(dev) -> None:
     say(f"[2] segment_reduce at phase 7's shape, standard-normal f32 sums: "
         f"within {seg_err['f64']:.3g} of the plain version in float64 "
         f"(tolerance {SEG_F32_TOL:g}), {seg_err['f32']:.3g} of it in float32; "
-        f"the same bits on a second run")
+        f"the same bits on a second run; f64 sums on groupby's final layout "
+        f"within {seg_err['f64_sum_rel']:.3g} of the plain version relative to "
+        f"the sum of |values| (tolerance {SEG_F64_REL_TOL:g}), the same bits "
+        f"twice")
     check_segment_scan(dev, rng)
     scan_err = check_segment_scan_edges(dev, rng)
     say(f"[2] segment_scan standard-normal f32 sums: at phase 7's shape within "
@@ -1377,13 +1389,16 @@ def check_segment_reduce_edges(dev, rng) -> dict[str, float]:
     (``contiguous_runs=True``): runs that end exactly at the 4096-row tile
     edges, one row before and one after (5 tiles + 3 rows); one run over
     2**22 + 3 rows; every row out of range (-1, and G); sum/min/max x
-    f32/i32 on integer values, bit for bit, and the same bits on a second
-    run. NaN in f32 min/max: the segments that hold a NaN come out NaN,
-    the others equal the plain version (whose atomics on the card need not
-    keep NaN). Then phase 7's shape on standard-normal data (f32 sum, 2**23
-    rows, 125 sorted groups over the first half, a -1 tail): within
-    ``SEG_F32_TOL`` of the plain version in float64, the same bits twice.
-    Returns the largest differences there (float64 and float32 plain)."""
+    f32/i32/f64 on integer values, bit for bit, and the same bits on a
+    second run. NaN in f32 and f64 min/max: the segments that hold a NaN
+    come out NaN, the others equal the plain version (whose atomics on the
+    card need not keep NaN). Then phase 7's shape on standard-normal data
+    (f32 sum, 2**23 rows, 125 sorted groups over the first half, a -1
+    tail): within ``SEG_F32_TOL`` of the plain version in float64, the same
+    bits twice; and the f64 sum on groupby's final layout (row 4d's)
+    within ``SEG_F64_REL_TOL`` of it relative to the sum of |values|, the
+    same bits twice. Returns the largest differences there (the f32 sum's
+    from the float64 and float32 plain versions, the f64 sum's relative)."""
     def exact(name, vals, ids, g):
         v = torch.from_numpy(vals).to(dev)
         seg = torch.from_numpy(ids.astype(np.int32)).to(dev)
@@ -1399,29 +1414,30 @@ def check_segment_reduce_edges(dev, rng) -> dict[str, float]:
     n = 5 * SEG_TILE + 3
     for shift in (-1, 0, 1):
         ids = np.clip((np.arange(n) - shift) // SEG_TILE, 0, None)
-        for dt in (np.float32, np.int32):
+        for dt in (np.float32, np.int32, np.float64):
             exact(f"runs ending at tile edges {shift:+d}",
                   rng.integers(-99, 99, n).astype(dt), ids, 10)
     n = (1 << 22) + 3
-    for dt in (np.float32, np.int32):
+    for dt in (np.float32, np.int32, np.float64):
         vals = rng.integers(-99, 99, n).astype(dt)
         exact("one run over all rows", vals, np.zeros(n), 3)
         exact("all rows out of range (-1)", vals, np.full(n, -1), 3)
         exact("all rows out of range (G)", vals, np.full(n, 3), 3)
 
     n = 3 * SEG_TILE + 11
-    vals = rng.integers(-99, 99, n).astype(np.float32)
-    vals[[5, SEG_TILE + 4, 2 * SEG_TILE + 900]] = np.nan
-    v = torch.from_numpy(vals).to(dev)
     seg = torch.from_numpy(np.sort(rng.integers(0, 40, n)).astype(np.int32)).to(dev)
-    nan_seg = ref.segment_reduce_ref(torch.isnan(v).to(torch.int32), seg, 40,
-                                     "sum") > 0
-    for op in ("min", "max"):
-        got = segment_reduce_tiles(v, seg, 40, op, contiguous_runs=True)
-        want = ref.segment_reduce_ref(v, seg, 40, op)
-        check(torch.equal(torch.isnan(got), nan_seg) and
-              torch.equal(got[~nan_seg], want[~nan_seg]),
-              f"segment_reduce NaN {op}")
+    for dt in (np.float32, np.float64):
+        vals = rng.integers(-99, 99, n).astype(dt)
+        vals[[5, SEG_TILE + 4, 2 * SEG_TILE + 900]] = np.nan
+        v = torch.from_numpy(vals).to(dev)
+        nan_seg = ref.segment_reduce_ref(torch.isnan(v).to(torch.int32), seg,
+                                         40, "sum") > 0
+        for op in ("min", "max"):
+            got = segment_reduce_tiles(v, seg, 40, op, contiguous_runs=True)
+            want = ref.segment_reduce_ref(v, seg, 40, op)
+            check(torch.equal(torch.isnan(got), nan_seg) and
+                  torch.equal(got[~nan_seg], want[~nan_seg]),
+                  f"segment_reduce NaN {dt.__name__} {op}")
 
     n = 2 * ROWS
     ids = np.full(n, -1, np.int32)
@@ -1438,7 +1454,31 @@ def check_segment_reduce_edges(dev, rng) -> dict[str, float]:
     check(err64 <= SEG_F32_TOL,
           f"segment_reduce standard-normal sums differ from the float64 plain "
           f"version by {err64}")
-    return {"f64": err64, "f32": err32}
+
+    seg, v = seg_final_layout(dev, rng, n)
+    got = segment_reduce_tiles(v, seg, n, "sum", contiguous_runs=True)
+    check(torch.equal(got.view(torch.int64), segment_reduce_tiles(
+        v, seg, n, "sum", contiguous_runs=True).view(torch.int64)),
+        "segment_reduce float64 sums: bits differ between two runs")
+    scale = ref.segment_reduce_ref(v.abs(), seg, n, "sum").clamp(min=1e-300)
+    rel = float(((got - ref.segment_reduce_ref(v, seg, n, "sum")).abs()
+                 / scale).max())
+    check(rel <= SEG_F64_REL_TOL,
+          f"segment_reduce float64 sums differ from the plain version by {rel} "
+          f"of the sum of |values|")
+    return {"f64": err64, "f32": err32, "f64_sum_rel": rel}
+
+
+def seg_final_layout(dev, rng, n: int):
+    """groupby's final layout at n slots (a worker's received buffers in
+    groupby.q5): ``SEG_FINAL_FILL`` of them rows, sorted into groups of
+    ~8 rows (one partial from each of 8 workers), then a -1 tail; float64
+    standard-normal values. Returns (int32 ids, float64 values) on dev."""
+    valid = int(n * SEG_FINAL_FILL)
+    ids = np.full(n, -1, np.int32)
+    ids[:valid] = np.sort(rng.integers(0, max(1, valid // 8), valid))
+    vals = rng.standard_normal(n)
+    return (torch.from_numpy(ids).to(dev), torch.from_numpy(vals).to(dev))
 
 
 def check_segment_scan(dev, rng) -> None:
@@ -3105,6 +3145,25 @@ def phase_timing(dev, rows: int) -> dict[str, dict]:
     err = (segment_reduce_tiles(vals, seg_t, n, "sum", contiguous_runs=True)
            - ref.segment_reduce_ref(vals, seg_t, n, "sum")).abs().max()
     out["segment_reduce_tiles"] = dict(
+        ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+        max_abs_err=float(err))
+
+    # segment_reduce@f64: groupby.q5's final, the float64 sum over a worker's
+    # received slots, 4% rows in groups of ~8, a -1 tail; G = n. The bound
+    # reads every id, the in-range rows' values and writes every segment
+    # once (the benchmark's segment_reduce_roofline counts the same bytes)
+    seg_t, vals = seg_final_layout(dev, rng, n)
+    idx = torch.where(seg_t >= 0, seg_t, n).to(torch.int64)
+    base = torch.zeros(n + 1, dtype=torch.float64, device=dev)
+    ms = timer(lambda: segment_reduce_tiles(vals, seg_t, n, "sum",
+                                            contiguous_runs=True))
+    plain = timer(lambda: ref.segment_reduce_ref(vals, seg_t, n, "sum"))
+    lib = timer(lambda: torch.scatter_reduce(base, 0, idx, vals, "sum"))
+    in_range = int((seg_t >= 0).sum())
+    bms, by = bound_ms(n * 4 + in_range * 8 + n * 8, in_range)
+    err = (segment_reduce_tiles(vals, seg_t, n, "sum", contiguous_runs=True)
+           - ref.segment_reduce_ref(vals, seg_t, n, "sum")).abs().max()
+    out["segment_reduce_tiles@f64"] = dict(
         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
         max_abs_err=float(err))
 
@@ -6253,6 +6312,7 @@ def main() -> None:
                                                  "@zamba", "@whisper")
         for name in LM_KERNELS] + [
         ("bucket_histogram@moe", "bucket_histogram"),
+        ("segment_reduce_tiles@f64", "segment_reduce_tiles"),
         ("flash_attention@g1", "flash_attention"),
         ("flash_attention@g6", "flash_attention"),
         ("flash_attention@g8", "flash_attention")]

@@ -6,7 +6,8 @@ The local algorithm is sort-based and keeps the compacted-front invariant:
     sort by key  ->  segment-boundary detection  ->  segment reductions
 
 with exact multi-column keys. The reductions run on the segment_reduce
-kernel for 1-D f32/i32 columns and on the plain scatter otherwise.
+kernel for 1-D f32/i32/f64 columns and on the plain scatter otherwise
+(N-D payloads, int64).
 Aggregators sum/count/min/max/mean/var/first decompose into algebraic
 partials (sum, sumsq, count, min, max, first) that combine across shards:
 ``groupby == finalize . partial_groupby`` locally, and

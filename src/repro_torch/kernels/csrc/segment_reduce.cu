@@ -8,10 +8,14 @@
 // on the groupby path) that is quadratic, so this kernel does not carry it
 // over. It needs each in-range id's rows to be one contiguous run (runs of
 // out-of-range ids may lie anywhere), which the caller promises or the
-// wrapper arranges (kernels/segment_reduce.py).
+// wrapper arranges (kernels/segment_reduce.py). Values are int32, float32 or
+// float64; every fold, partial and scratch record is in the values' type.
 //
-// Bound: bytes. Each row is read once (4 B value + 4 B id) and each segment
-// written once (4 B); the fold is one add/min/max per row.
+// Bound: bytes. Each row's id is read once (4 B), the value of each row in a
+// 128-row chunk that holds an in-range id is read once (4 B, or 8 B for
+// float64), and each segment is written once (4 B or 8 B); the fold is one
+// add/min/max per row read. A chunk whose ids are all out of range (the
+// bulk of groupby's -1 tail) costs its ids alone.
 //
 // Design: every range of rows, from one lane's four up to the whole input,
 // is summarised by the same fixed-size record: the id and partial fold of
@@ -19,11 +23,16 @@
 // Two neighbouring records merge in O(1): a run that now lies wholly inside
 // the merged range is complete and is written out; only the first and the
 // last run stay open. Three launches on one stream:
-//   1. fill: out[g] = identity for every g, 16-byte stores.
+//   1. fill: out[g] = identity for every g, 16-byte stores (4 values, or 2
+//      float64, a store).
 //   2. pass 1: a 256-thread block owns a 4096-row tile; each warp owns 512
 //      consecutive rows, read as four 128-row chunks with 16-byte loads
-//      (a lane holds 4 consecutive rows of each chunk: coalesced, no shared
-//      memory). A lane folds its 4 rows; the 32 lanes' records merge in a
+//      (a lane holds 4 consecutive rows of each chunk: one load of ids and
+//      one of values, two for float64; coalesced, no shared memory). The
+//      warp loads its 4 chunks' ids first, then the values of each chunk
+//      where some lane holds an in-range id (a warp vote); a chunk with
+//      none is never folded into anything written, so its values are not
+//      read. A lane folds its 4 rows; the 32 lanes' records merge in a
 //      binary tree over shuffles; the warp's 4 chunks merge in row order; the
 //      8 warps' records merge in a binary tree, and the tile's record goes to
 //      scratch. A chunk that is one run from end to end (the common case on
@@ -69,6 +78,19 @@ struct Fold<float, OP> {
   }
   // NaN-first: a NaN on the left wins, one on the right replaces a number
   __device__ static float apply(float a, float b) {
+    if (OP == OP_SUM) return a + b;
+    if (OP == OP_MIN) return (isnan(a) || a < b) ? a : b;
+    return (isnan(a) || a > b) ? a : b;
+  }
+};
+
+template <int OP>
+struct Fold<double, OP> {
+  __device__ static double ident() {
+    return OP == OP_SUM ? 0.0 : (OP == OP_MIN ? (double)INFINITY : -(double)INFINITY);
+  }
+  // NaN-first, as the float instance
+  __device__ static double apply(double a, double b) {
     if (OP == OP_SUM) return a + b;
     if (OP == OP_MIN) return (isnan(a) || a < b) ? a : b;
     return (isnan(a) || a > b) ? a : b;
@@ -148,17 +170,23 @@ __device__ __forceinline__ Piece<T> warp_merge(Piece<T> p, int width, T* out,
   return p;
 }
 
+// values of T in one 16-byte vector: 4, or 2 for float64
+template <typename T>
+constexpr int kPerVec = 16 / (int)sizeof(T);
+
 template <typename T, int OP>
 __global__ void seg_fill(T* __restrict__ out, int G) {
+  constexpr int kPer = kPerVec<T>;
   int4 pat;
   T* pp = reinterpret_cast<T*>(&pat);
-  pp[0] = pp[1] = pp[2] = pp[3] = Fold<T, OP>::ident();
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) pp[e] = Fold<T, OP>::ident();
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long n4 = G / 4;
-  int4* out4 = reinterpret_cast<int4*>(out);
-  for (long long i = first; i < n4; i += stride) out4[i] = pat;
-  for (long long g = n4 * 4 + first; g < G; g += stride) out[g] = pp[0];
+  const long long nvec = G / kPer;
+  int4* outv = reinterpret_cast<int4*>(out);
+  for (long long i = first; i < nvec; i += stride) outv[i] = pat;
+  for (long long g = nvec * kPer + first; g < G; g += stride) out[g] = pp[0];
 }
 
 template <typename T, int OP>
@@ -172,27 +200,47 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long long w0 = (long long)blockIdx.x * kRows + (long long)warp * kWarpRows;
 
-  // every load first: 4 rows of each chunk a lane, 16 bytes each; rows past
-  // n read as an out-of-range run
+  // the ids first: 4 rows of each chunk a lane, one 16-byte load; rows
+  // past n read as an out-of-range run
   int id[kChunks][4];
-  T v[kChunks][4];
 #pragma unroll
   for (int j = 0; j < kChunks; ++j) {
     const long long r = w0 + j * 128 + 4 * lane;
     if (vec && r + 4 <= n) {
       const int4 a = __ldg(reinterpret_cast<const int4*>(ids + r));
-      const int4 b = __ldg(reinterpret_cast<const int4*>(vals + r));
       id[j][0] = a.x, id[j][1] = a.y, id[j][2] = a.z, id[j][3] = a.w;
-      const T* bv = reinterpret_cast<const T*>(&b);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) v[j][e] = bv[e];
     } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = r + e < n;
-        id[j][e] = ok ? ids[r + e] : -1;
-        v[j][e] = ok ? vals[r + e] : F::ident();
+      for (int e = 0; e < 4; ++e) id[j][e] = r + e < n ? ids[r + e] : -1;
+    }
+  }
+  // then the values of each chunk that holds an in-range id (16-byte loads,
+  // two for float64); a chunk without one is never folded into anything
+  // written, so it keeps the identity
+  constexpr int kPer = kPerVec<T>;
+  T v[kChunks][4];
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    const long long r = w0 + j * 128 + 4 * lane;
+    bool live = false;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) live |= in_range(id[j][e], G);
+    if (__any_sync(kFull, live)) {
+      if (vec && r + 4 <= n) {
+#pragma unroll
+        for (int k = 0; k < 4 / kPer; ++k) {
+          const int4 b = __ldg(reinterpret_cast<const int4*>(vals + r) + k);
+          const T* bv = reinterpret_cast<const T*>(&b);
+#pragma unroll
+          for (int e = 0; e < kPer; ++e) v[j][k * kPer + e] = bv[e];
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[j][e] = r + e < n ? vals[r + e] : F::ident();
       }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[j][e] = F::ident();
     }
   }
 
@@ -238,8 +286,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// one block a launch: it may take all 64 registers a thread of 1024 may
+// have (the float64 records spill at the default's 32)
 template <typename T, int OP>
-__global__ void __launch_bounds__(kMergeThreads)
+__global__ void __launch_bounds__(kMergeThreads, 1)
     seg_pass2(T* __restrict__ out, int G, int ntiles, const int* __restrict__ t_fid,
               const int* __restrict__ t_lid, const T* __restrict__ t_f,
               const T* __restrict__ t_l, const int* __restrict__ t_single) {
@@ -291,7 +341,7 @@ template <typename T, int OP>
 void launch(const void* vals, const int* ids, void* out, long long n, int G,
             void* scratch_t, int* scratch_i, cudaStream_t s) {
   if (G > 0) {
-    const long long want = ((long long)G / 4 + 255) / 256;
+    const long long want = ((long long)G / kPerVec<T> + 255) / 256;
     const int blocks = (int)(want < 1 ? 1 : (want < 132 * 8 ? want : 132 * 8));
     seg_fill<T, OP><<<blocks, 256, 0, s>>>((T*)out, G);
   }
@@ -310,35 +360,43 @@ void launch(const void* vals, const int* ids, void* out, long long n, int G,
                                                t_f, t_l, t_single);
 }
 
+enum { DTYPE_INT32 = 0, DTYPE_FLOAT32 = 1, DTYPE_FLOAT64 = 2 };
+
+template <typename T>
+void launch_op(const void* vals, const int* ids, void* out, long long n, int G,
+               int op, void* scratch_t, int* scratch_i, cudaStream_t s) {
+  if (op == OP_SUM)
+    launch<T, OP_SUM>(vals, ids, out, n, G, scratch_t, scratch_i, s);
+  else if (op == OP_MIN)
+    launch<T, OP_MIN>(vals, ids, out, n, G, scratch_t, scratch_i, s);
+  else
+    launch<T, OP_MAX>(vals, ids, out, n, G, scratch_t, scratch_i, s);
+}
+
 }  // namespace
 
 // Rows per pass-1 tile; the wrapper sizes the scratch from it.
 extern "C" int repro_segment_reduce_rows_per_block() { return kRows; }
 
-// vals: n float32 (is_float) or int32; ids: n int32 whose in-range ids each
-// form one contiguous run; out: G values, 16-byte aligned. op 0 = sum, 1 =
-// min, 2 = max. scratch_t: 2 * ntiles values of the same type, scratch_i:
-// 3 * ntiles int32, ntiles = ceil(n / rows_per_block). Returns
-// cudaGetLastError().
+// vals: n values of the type dtype names (0 int32, 1 float32, 2 float64);
+// ids: n int32 whose in-range ids each form one contiguous run; out: G
+// values of that type, 16-byte aligned. op 0 = sum, 1 = min, 2 = max.
+// scratch_t: 2 * ntiles values of the same type, scratch_i: 3 * ntiles
+// int32, ntiles = ceil(n / rows_per_block). Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for another dtype or op.
 extern "C" int repro_segment_reduce(const void* vals, const int* ids, void* out,
-                                    long long n, int G, int op, int is_float,
+                                    long long n, int G, int op, int dtype,
                                     void* scratch_t, int* scratch_i,
                                     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_float) {
-    if (op == OP_SUM)
-      launch<float, OP_SUM>(vals, ids, out, n, G, scratch_t, scratch_i, s);
-    else if (op == OP_MIN)
-      launch<float, OP_MIN>(vals, ids, out, n, G, scratch_t, scratch_i, s);
-    else
-      launch<float, OP_MAX>(vals, ids, out, n, G, scratch_t, scratch_i, s);
-  } else {
-    if (op == OP_SUM)
-      launch<int, OP_SUM>(vals, ids, out, n, G, scratch_t, scratch_i, s);
-    else if (op == OP_MIN)
-      launch<int, OP_MIN>(vals, ids, out, n, G, scratch_t, scratch_i, s);
-    else
-      launch<int, OP_MAX>(vals, ids, out, n, G, scratch_t, scratch_i, s);
-  }
+  if (op < OP_SUM || op > OP_MAX) return (int)cudaErrorInvalidValue;
+  if (dtype == DTYPE_INT32)
+    launch_op<int>(vals, ids, out, n, G, op, scratch_t, scratch_i, s);
+  else if (dtype == DTYPE_FLOAT32)
+    launch_op<float>(vals, ids, out, n, G, op, scratch_t, scratch_i, s);
+  else if (dtype == DTYPE_FLOAT64)
+    launch_op<double>(vals, ids, out, n, G, op, scratch_t, scratch_i, s);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -118,6 +118,26 @@ def key_max(dtype: torch.dtype):
     return torch.iinfo(dtype).max
 
 
+_SHORT = {torch.float32: "f32", torch.int32: "i32", torch.float64: "f64"}
+
+
+def _kernel_route(seam: str, values: torch.Tensor, dtypes: tuple,
+                  use_kernel: bool | None, plain: str) -> bool:
+    """Resolve a segment seam's ``use_kernel``: ``None`` takes the kernel
+    for 1-D values of ``dtypes`` and the plain version otherwise; ``True``
+    with another shape or dtype raises."""
+    shape_ok = values.ndim == 1 and values.dtype in dtypes
+    if use_kernel is None:
+        return shape_ok
+    if use_kernel and not shape_ok:
+        kinds = "/".join(v for d, v in _SHORT.items() if d in dtypes)
+        raise ValueError(
+            f"{seam} kernel needs 1-D {kinds} values; got "
+            f"shape={tuple(values.shape)} dtype={values.dtype}. Use "
+            f"use_kernel=None for the {plain}.")
+    return use_kernel
+
+
 def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor,
                    num_segments: int, op: str = "sum", *,
                    use_kernel: bool | None = None,
@@ -126,30 +146,34 @@ def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor,
 
     values: (n, ...), reduced along the leading axis; seg_ids: (n,) int32,
     entries outside [0, num_segments) ignored; empty segments hold
-    ``ref.seg_init``. 1-D f32/i32 values go to the kernel; N-D or other
-    dtypes take the plain scatter (as the reference leaves them to XLA);
+    ``ref.seg_init``. 1-D f32/i32/f64 values go to the kernel; N-D values
+    and other dtypes (int64 among them) take the plain scatter;
     ``use_kernel=False`` and :func:`oracle_scope` force the plain version.
     ``contiguous_runs=True`` is the caller's promise that each in-range id's
     rows form one contiguous run; the kernel wrapper then skips its check.
+    ``segment_reduce.plain_calls`` counts the calls on a device tensor (not
+    the CPU's, whose kernel route is the plain version too) that took the
+    plain version outside :func:`oracle_scope`.
     """
     if op not in ("sum", "min", "max"):
         raise ValueError(op)
     if seg_ids.ndim != 1 or values.shape[0] != seg_ids.shape[0]:
         raise ValueError(f"shape mismatch {tuple(values.shape)} vs "
                          f"{tuple(seg_ids.shape)}")
-    shape_ok = values.ndim == 1 and values.dtype in (torch.float32, torch.int32)
-    if use_kernel is None:
-        use_kernel = shape_ok
-    elif use_kernel and not shape_ok:
-        raise ValueError(
-            f"segment_reduce kernel needs 1-D f32/i32 values; got "
-            f"shape={tuple(values.shape)} dtype={values.dtype}. Use "
-            f"use_kernel=None for the plain scatter.")
-    if use_kernel and not oracle_only():
+    use_kernel = _kernel_route("segment_reduce", values, seg.DTYPES,
+                               use_kernel, "plain scatter")
+    if oracle_only():
+        return ref.segment_reduce_ref(values, seg_ids, num_segments, op)
+    if use_kernel:
         return _kernel_fault(seg.segment_reduce_tiles(
             values, seg_ids.to(torch.int32), num_segments, op,
             contiguous_runs=contiguous_runs))
+    if values.device.type != "cpu":
+        segment_reduce.plain_calls += 1
     return ref.segment_reduce_ref(values, seg_ids, num_segments, op)
+
+
+segment_reduce.plain_calls = 0
 
 
 def segment_scan(values: torch.Tensor, seg_ids: torch.Tensor, op: str = "sum",
@@ -171,14 +195,9 @@ def segment_scan(values: torch.Tensor, seg_ids: torch.Tensor, op: str = "sum",
     if seg_ids.ndim != 1 or values.shape != seg_ids.shape:
         raise ValueError(f"shape mismatch {tuple(values.shape)} vs "
                          f"{tuple(seg_ids.shape)}")
-    shape_ok = values.ndim == 1 and values.dtype in (torch.float32, torch.int32)
-    if use_kernel is None:
-        use_kernel = shape_ok
-    elif use_kernel and not shape_ok:
-        raise ValueError(
-            f"segment_scan kernel needs 1-D f32/i32 values; got "
-            f"shape={tuple(values.shape)} dtype={values.dtype}. Use "
-            f"use_kernel=None for the plain scan.")
+    use_kernel = _kernel_route("segment_scan", values,
+                               (torch.float32, torch.int32), use_kernel,
+                               "plain scan")
     if use_kernel and not oracle_only():
         return _kernel_fault(scan.segment_scan_tiles(
             values, seg_ids.to(torch.int32), op, inclusive=inclusive))

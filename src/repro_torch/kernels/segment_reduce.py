@@ -9,7 +9,9 @@ tile once with 16-byte loads and reduces it in registers and shuffles to a
 fixed-size summary (first run, last run); one more block merges the tiles'
 summaries in a tree, so runs that cross tiles are never walked serially.
 No float atomics: the same inputs give the same bits on every run. See the
-source's note for the summation order.
+source's note for the summation order. Values are int32, float32 or
+float64, each folded in its own type (scratch records included); a
+128-row chunk whose ids are all out of range is read for its ids alone.
 
 The kernel needs each in-range id's rows to form one contiguous run (ids
 outside the range may lie anywhere: the kernel skips their runs). Groupby,
@@ -27,12 +29,15 @@ import torch
 from repro_torch.kernels import ref
 
 OPS = ("sum", "min", "max")
+# the values' types the kernel has an instance for, in the C interface's
+# order of dtype codes
+DTYPES = (torch.int32, torch.float32, torch.float64)
 
 
 def segment_reduce_tiles(values: torch.Tensor, seg_ids: torch.Tensor,
                          num_segments: int, op: str = "sum", *,
                          contiguous_runs: bool = False) -> torch.Tensor:
-    """``out[g] = op(values[i] : seg_ids[i] == g)`` for 1-D f32/i32 values.
+    """``out[g] = op(values[i] : seg_ids[i] == g)`` for 1-D f32/i32/f64 values.
 
     seg_ids: (n,) int32; entries outside [0, num_segments) are ignored.
     Empty segments hold ``ref.seg_init``. Any segment count.
@@ -43,8 +48,8 @@ def segment_reduce_tiles(values: torch.Tensor, seg_ids: torch.Tensor,
     """
     if op not in OPS:
         raise ValueError(op)
-    if values.ndim != 1 or values.dtype not in (torch.float32, torch.int32):
-        raise TypeError(f"segment_reduce_tiles takes 1-D f32/i32 values, got "
+    if values.ndim != 1 or values.dtype not in DTYPES:
+        raise TypeError(f"segment_reduce_tiles takes 1-D f32/i32/f64 values, got "
                         f"shape={tuple(values.shape)} dtype={values.dtype}")
     if seg_ids.shape != values.shape or seg_ids.dtype != torch.int32:
         raise TypeError("seg_ids must be int32 with the values' shape")
@@ -70,7 +75,7 @@ def segment_reduce_tiles(values: torch.Tensor, seg_ids: torch.Tensor,
     scratch_i = torch.empty(3 * nblocks, dtype=torch.int32, device=values.device)
     check("segment_reduce_tiles", lib.repro_segment_reduce(
         vals.data_ptr(), ids.data_ptr(), out.data_ptr(), n, g, OPS.index(op),
-        int(values.dtype == torch.float32), scratch_t.data_ptr(),
+        DTYPES.index(values.dtype), scratch_t.data_ptr(),
         scratch_i.data_ptr(), stream_ptr(values)))
     segment_reduce_tiles.launches += 1
     return out

@@ -325,6 +325,94 @@ def test_segment_reduce_nd_payload_takes_plain_scatter():
                             use_kernel=True)
 
 
+def _seam_recorder(monkeypatch):
+    """Replace the kernel wrapper the seam calls by one that records each
+    call's values dtype and run promise and returns the plain version."""
+    from repro_torch.kernels import segment_reduce as seg
+
+    calls = []
+
+    def record(values, seg_ids, num_segments, op="sum", *, contiguous_runs=False):
+        calls.append((values.dtype, values.device.type, contiguous_runs))
+        return tref.segment_reduce_ref(values, seg_ids, num_segments, op)
+
+    monkeypatch.setattr(seg, "segment_reduce_tiles", record)
+    return calls
+
+
+@pytest.mark.parametrize("use_kernel", [None, True])
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_segment_reduce_seam_sends_1d_float64_to_the_kernel(monkeypatch,
+                                                            use_kernel, op):
+    calls = _seam_recorder(monkeypatch)
+    r = _rng(12)
+    seg = torch.from_numpy(np.sort(r.integers(-1, 30, 500)).astype(np.int32))
+    for dtype in (torch.float64, torch.float32, torch.int32):
+        vals = torch.from_numpy(r.integers(-50, 50, 500)).to(dtype)
+        got = tops.segment_reduce(vals, seg, 30, op, use_kernel=use_kernel,
+                                  contiguous_runs=True)
+        assert torch.equal(got, tref.segment_reduce_ref(vals, seg, 30, op))
+    assert calls == [(torch.float64, "cpu", True), (torch.float32, "cpu", True),
+                     (torch.int32, "cpu", True)]
+    with tops.oracle_scope():
+        tops.segment_reduce(vals.double(), seg, 30, op, use_kernel=use_kernel)
+    assert len(calls) == 3
+
+
+def test_segment_reduce_use_kernel_takes_1d_float64():
+    r = _rng(13)
+    vals = torch.from_numpy(r.standard_normal(700))
+    seg = torch.from_numpy(r.integers(-2, 40, 700).astype(np.int32))
+    for op in ("sum", "min", "max"):
+        got = tops.segment_reduce(vals, seg, 40, op, use_kernel=True)
+        assert got.dtype == torch.float64
+        assert torch.equal(got, tref.segment_reduce_ref(vals, seg, 40, op))
+        assert torch.equal(segment_reduce_tiles(vals, seg, 40, op), got)
+
+
+@pytest.mark.parametrize("shape,dtype", [((300, 2), torch.float64),
+                                         ((300,), torch.int64),
+                                         ((300, 3), torch.float32)])
+def test_segment_reduce_nd_and_int64_stay_plain(monkeypatch, shape, dtype):
+    calls = _seam_recorder(monkeypatch)
+    r = _rng(14)
+    vals = torch.from_numpy(r.integers(-9, 9, shape)).to(dtype)
+    seg = torch.from_numpy(np.sort(r.integers(-1, 25, 300)).astype(np.int32))
+    for op in ("sum", "min", "max"):
+        with pytest.raises(ValueError, match="f32/i32/f64"):
+            tops.segment_reduce(vals, seg, 25, op, use_kernel=True)
+        got = tops.segment_reduce(vals, seg, 25, op)
+        assert torch.equal(got, tref.segment_reduce_ref(vals, seg, 25, op))
+    assert calls == []
+    with pytest.raises(TypeError, match="f32/i32/f64"):
+        segment_reduce_tiles(vals, seg, 25)
+
+
+def test_segment_reduce_plain_calls_counts_the_plain_route(monkeypatch):
+    # meta tensors stand for a card's here: the count skips the CPU, whose
+    # kernel route is the plain version too
+    calls = _seam_recorder(monkeypatch)
+    seg = torch.zeros(64, dtype=torch.int32, device="meta")
+    before = tops.segment_reduce.plain_calls
+    for dtype in (torch.float64, torch.float32, torch.int32):
+        tops.segment_reduce(torch.zeros(64, dtype=dtype, device="meta"), seg, 8)
+    assert len(calls) == 3 and tops.segment_reduce.plain_calls == before
+    tops.segment_reduce(torch.zeros(64, 2, dtype=torch.float64, device="meta"),
+                        seg, 8)
+    tops.segment_reduce(torch.zeros(64, dtype=torch.int64, device="meta"), seg,
+                        8, "max")
+    tops.segment_reduce(torch.zeros(64, dtype=torch.float64, device="meta"), seg,
+                        8, use_kernel=False)
+    assert tops.segment_reduce.plain_calls == before + 3
+    with tops.oracle_scope():  # the recovery rung is a request, not a miss
+        tops.segment_reduce(torch.zeros(64, dtype=torch.int64, device="meta"),
+                            seg, 8)
+    tops.segment_reduce(torch.zeros(64, dtype=torch.int64),
+                        torch.zeros(64, dtype=torch.int32), 8)
+    assert tops.segment_reduce.plain_calls == before + 3
+    assert len(calls) == 3
+
+
 def test_seg_init_matches_reference():
     for op in ("sum", "min", "max"):
         for t, j in ((torch.float32, jnp.float32), (torch.int32, jnp.int32)):
@@ -613,7 +701,7 @@ def test_cuda_bitonic_tile_edges_match_plain(cuda, tile):
 def test_cuda_segment_reduce_matches_plain(cuda, g, op):
     r = _rng(g)
     n = 1 << 20
-    for dtype in (np.float32, np.int32):
+    for dtype in (np.float32, np.int32, np.float64):
         vals = torch.from_numpy(r.integers(-99, 99, n).astype(dtype)).to(cuda)
         for ids in (np.sort(r.integers(-1, g + 1, n)), r.integers(-1, g + 1, n)):
             seg = torch.from_numpy(ids.astype(np.int32)).to(cuda)
@@ -637,7 +725,7 @@ def test_cuda_segment_reduce_matches_plain(cuda, g, op):
         for shift in (-1, 0, 1):
             layouts.append(np.minimum((np.arange(m) - shift) // tile, g - 1)
                            .clip(0))
-        for dtype in (np.float32, np.int32):
+        for dtype in (np.float32, np.int32, np.float64):
             vals = torch.from_numpy(r.integers(-99, 99, m).astype(dtype)).to(cuda)
             for ids in layouts:
                 seg = torch.from_numpy(ids.astype(np.int32)).to(cuda)
@@ -645,6 +733,51 @@ def test_cuda_segment_reduce_matches_plain(cuda, g, op):
                 assert torch.equal(got, tref.segment_reduce_ref(vals, seg, g, op))
                 assert torch.equal(got, segment_reduce_tiles(vals, seg, g, op,
                                                              contiguous_runs=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_cuda_segment_reduce_float64(cuda, op):
+    """The float64 instance on non-integer data: sums within 1e-12 of the
+    plain version relative to the sum of |values| (both fold in float64, in
+    other orders), the same bits on a second run; NaN and +-inf through min
+    and max as the float32 instance treats them; the fill at segment counts
+    that no 16-byte store of two doubles divides."""
+    r = _rng(21)
+    tile = 4096
+    n = 5 * tile + 3
+    ids = np.concatenate([np.sort(r.integers(0, 700, n - n // 3)),
+                          np.full(n // 3, -1)]).astype(np.int32)
+    seg = torch.from_numpy(ids).to(cuda)
+    vals = r.standard_normal(n) * 10.0 ** r.integers(-3, 4, n)
+    if op != "sum":
+        vals[[5, tile - 1, tile, 2 * tile + 900]] = np.nan
+        vals[[17, 3 * tile + 1]] = np.inf
+        vals[[40, 4 * tile + 2]] = -np.inf
+    v = torch.from_numpy(vals).to(cuda)
+    got = segment_reduce_tiles(v, seg, 700, op, contiguous_runs=True)
+    assert got.dtype == torch.float64
+    assert torch.equal(got.view(torch.int64),
+                       segment_reduce_tiles(v, seg, 700, op,
+                                            contiguous_runs=True).view(torch.int64))
+    want = tref.segment_reduce_ref(v, seg, 700, op)
+    if op == "sum":
+        scale = tref.segment_reduce_ref(v.abs(), seg, 700, "sum").clamp(min=1e-300)
+        assert float(((got - want).abs() / scale).max()) <= 1e-12
+    else:
+        nan_seg = tref.segment_reduce_ref(torch.isnan(v).to(torch.int32), seg,
+                                          700, "sum") > 0
+        assert torch.equal(torch.isnan(got), nan_seg)
+        assert torch.equal(got[~nan_seg], want[~nan_seg])
+    # the fill alone (no rows) and with a few rows, at G = 2k + 1, 4k + 1..3
+    for g in (1, 2, 3, 5, 6, 7, 1025, 4099):
+        empty = torch.zeros(0, dtype=torch.float64, device=cuda)
+        got = segment_reduce_tiles(empty, seg[:0], g, op)
+        assert torch.equal(got, tref.segment_reduce_ref(empty, seg[:0], g, op))
+        few = torch.arange(g, 0, -1, dtype=torch.int32, device=cuda) - 1
+        fv = torch.from_numpy(r.integers(-99, 99, g).astype(np.float64)).to(cuda)
+        assert torch.equal(segment_reduce_tiles(fv, few, g, op),
+                           tref.segment_reduce_ref(fv, few, g, op))
 
 
 @pytest.mark.cuda

@@ -254,6 +254,10 @@ def test_trace_cells_reduces_a_synthetic_profile():
         "repro_torch.join.local": pytest.approx(21 * ms),
         "repro_torch.join.local > cudaStreamSynchronize": pytest.approx(
             17 * ms)}
+    assert [name for name, _ in r["top_ops_ms"]][::4] == ["k2", "k1"]
+    assert dict(r["top_ops_ms"]) == pytest.approx(
+        {"k0": 10 * ms, "k1": 8 * ms, "k2": 20 * ms, "k3": 10 * ms,
+         "k4": 1 * ms, "k5": 10 * ms})
     assert r["gaps_in_a_call_unnamed"] == [
         ["bench.call", pytest.approx(198 * ms)]]
     f = tc.fills({"exchange.rows_received": 64, "exchange.slots": 128,

@@ -13,10 +13,13 @@ card from the seed, the traffic's warm-up calls), then:
 * spans: ``CALLS`` calls under the profiler inside ``trace.spanning()``,
   reduced by :func:`reduce_spans`: each span's host and device ms a call,
   the share of the device's busy time the ``repro_torch.op.*`` spans cover,
-  and each idle gap named ``<innermost program span> > <innermost host
-  operator>``;
+  the device operations that take the most time, and each idle gap named
+  ``<innermost program span> > <innermost host operator>``;
 * counters: one call inside ``trace.counting()``: rows received over the
-  exchanges' send slots, result rows over the local joins' slots;
+  exchanges' send slots, result rows over the local joins' slots; and in
+  the same call the ``segment_reduce`` seam's calls that took the plain
+  route (``kops.segment_reduce.plain_calls``) beside the kernel's launches
+  (``segment_reduce_tiles.launches``);
 * syncs: one call under ``torch.cuda.set_sync_debug_mode("warn")``, each
   warning by the program's line that made it;
 * cost: ``CALLS`` profiled calls with the spans on and off in turns (on,
@@ -52,6 +55,7 @@ from bench.profiling import (CALL_RANGE, Trace, _union_seconds,  # noqa: E402
 
 PREFIX = "repro_torch."
 CALLS = 3
+TOP_OPS = 8  # device operations listed by their time
 GAP_US = 100.0  # an idle gap this long inside a call should be named by a span
 
 
@@ -105,6 +109,10 @@ def reduce_spans(events, calls: int) -> dict:
         both = _union_seconds(ivs)[0] - _union_seconds(busy + ivs)[0]
         return busy_ms + both * 1e3 / calls if ivs else 0.0
 
+    top: Counter = Counter()
+    for name, s, e in hosts.device_ops:
+        top[name] += (e - s) / 1e3 / calls
+
     spans: dict[str, dict] = {}
     for e in ranges:
         rec = spans.setdefault(e.name, {"n": 0, "host_ms": 0.0})
@@ -144,6 +152,7 @@ def reduce_spans(events, calls: int) -> dict:
         "local_join_device_ms": local_join,
         "aggregate_device_ms": aggregate,
         "spans": spans,
+        "top_ops_ms": top.most_common(TOP_OPS),
         "idle_gaps_ms": dict(sorted(gaps.items(), key=lambda kv: -kv[1])),
         # idle gaps of 0.1 ms or more inside a call that no span names
         "gaps_in_a_call_unnamed": unnamed_in_call,
@@ -170,6 +179,8 @@ def _cell(name: str, seed: int, device, rows: int | None) -> dict:
     from bench.tables import make_tables
     from repro_torch.core import trace
     from repro_torch.core.context import DistContext
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.segment_reduce import segment_reduce_tiles
 
     cell = harness.find_cell(name)
     traffic = cell.traffic
@@ -209,9 +220,13 @@ def _cell(name: str, seed: int, device, rows: int | None) -> dict:
     res = {"cell": name, "seed": seed, "torch": torch.__version__,
            **reduce_spans(list(prof.events()), CALLS)}
     del prof
+    seam = (kops.segment_reduce.plain_calls, segment_reduce_tiles.launches)
     with trace.counting() as c:
         call()
     res.update(fills(c.resolve()))
+    res["segment_reduce"] = {
+        "plain_calls": kops.segment_reduce.plain_calls - seam[0],
+        "tiles_launches": segment_reduce_tiles.launches - seam[1]}
     seen = []
     with warnings.catch_warnings(record=True) as seen:
         warnings.simplefilter("always")
