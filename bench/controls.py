@@ -8,7 +8,8 @@ call) and judged as a run judges its results; then, for the first
 ``--control-seeds`` seeds, the control judged the same way: the plain
 reference put in the program's place with every value column carried at
 the type below the one the configuration states (``reference.common.LOWER``:
-float32 for float64, int16 for int32) and its float arithmetic run there.
+float32 for float64, int32 for int64, int16 for int32) and its float
+arithmetic run there.
 One line a seed and side, with every compared number. The benchmark's runs
 never run this.
 """
@@ -16,7 +17,6 @@ from __future__ import annotations
 
 import argparse
 import gc
-import importlib
 import json
 import sys
 import time
@@ -25,26 +25,31 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[0:1] = [str(ROOT), str(ROOT / "src")]
 
-def control_numbers(ref, tables: dict, traffic: dict, workers: int,
-                    want: dict) -> list:
+def control_numbers(cell, tables: dict, want: dict, seed: int) -> list:
     """The control's compared numbers: the reference at the lower types
     judged against the reference."""
-    got = ref.expected(tables, traffic, workers, control=True)
-    return ref.compare([got["counts"]], [got], want, traffic.get("limits", {}))
+    ref = cell.piece("reference")
+    got = ref.expected(tables, cell.traffic, cell.workers, config=cell.config,
+                       seed=seed, control=True)
+    return ref.compare([got["counts"]], [got], want,
+                       cell.traffic.get("limits", {}))
 
 
-def program_numbers(cell, op, ref, ctx, tables: dict, want: dict) -> list:
-    """One warm call of the program on ``tables``, judged against ``want``."""
-    from bench.harness import sync
+def program_numbers(cell, ctx, tables: dict, want: dict, seed: int) -> list:
+    """One warm call of the program on ``tables`` (its second), judged
+    against ``want``."""
+    from bench import harness
 
-    state = op.prepare(ctx, tables, cell.traffic)
-    for _ in range(2):
+    op = cell.piece("ops")
+    state = op.prepare(ctx, tables, cell.traffic, config=cell.config, seed=seed)
+    for call in range(2):
         out, _ = op.call(ctx, state, cell.traffic)
-        sync(ctx.device)
-    counts = out.row_counts.tolist()
-    got = op.summarize(out, counts)
+        harness.sync(ctx.device)
+    counts = harness.counts(op, out)
+    got = harness.summary(op, out, counts, call)
     del out, state
-    return ref.compare([counts], [got], want, cell.traffic.get("limits", {}))
+    return cell.piece("reference").compare([counts], [got], want,
+                                           cell.traffic.get("limits", {}))
 
 
 def main(argv=None) -> int:
@@ -63,18 +68,17 @@ def main(argv=None) -> int:
         print("no CUDA device", file=sys.stderr)
         return 2
     cell = harness.find_cell(args.workload)
-    op = importlib.import_module(f"bench.ops.{cell.traffic['op']}")
-    ref = importlib.import_module(f"bench.reference.{cell.traffic['op']}")
+    ref = cell.piece("reference")
     dev = torch.device("cuda", 0)
     ctx = DistContext(num_shards=cell.workers, device=dev)
     for i, seed in enumerate(args.seeds):
         t = time.perf_counter()
         tables = make_tables(cell.config, cell.traffic, seed, dev)
-        want = ref.expected(tables, cell.traffic, cell.workers)
-        sides = [("program", program_numbers(cell, op, ref, ctx, tables, want))]
+        want = ref.expected(tables, cell.traffic, cell.workers,
+                            config=cell.config, seed=seed)
+        sides = [("program", program_numbers(cell, ctx, tables, want, seed))]
         if i < args.control_seeds:
-            sides.append(("control", control_numbers(
-                ref, tables, cell.traffic, cell.workers, want)))
+            sides.append(("control", control_numbers(cell, tables, want, seed)))
         del tables, want
         gc.collect()
         torch.cuda.empty_cache()

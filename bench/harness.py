@@ -1,19 +1,39 @@
 """One run of one cell: set-up, the measured window or the traced calls, the
 comparison with the plain reference, and the result's line.
 
-Everything a cell needs is found by name from ``BENCHMARK.json``:
+Everything a cell needs is found by name from ``BENCHMARK.json``, as a file
+under the root that ``BENCHMARK.json`` was read from (``Cell.root``):
 
-* its configuration: the ``file`` of its ``configs`` entry (tables,
-  columns, workers, rows a worker);
+* its configuration: the ``file`` of its ``configs`` entry. A table over
+  workers gives ``workers`` (1 when left out), ``rows_per_worker`` and
+  ``tables``; a model gives its widths beside them. A ``cpu`` block is for
+  the CPU tests alone (``bench/tests``): its keys replace the
+  configuration's own there, and a run on the card never reads it;
 * its traffic: ``bench/traffic/<traffic>.json`` (the operator, its
   arguments, the loop, the warm-up, the limits of the comparison);
-* the operator's driver ``bench/ops/<op>.py`` and its plain reference
-  ``bench/reference/<op>.py``; the loop ``bench/loops/<loop>.py``;
+* the operator's module ``bench/ops/<op>.py``, its plain reference
+  ``bench/reference/<op>.py`` and the loop ``bench/loops/<loop>.py``;
 * each metric's reader ``bench/metrics/<metric>.py``, whose ``read(run)``
-  returns the number or None. A reader that names a kernel seam (``SEAM``)
-  has the harness open a profiler range around that seam in the traced
-  calls, and may give a ``meter`` that sees the seam's arguments in one
-  more call made after them.
+  returns the number or None, and which sets ``CPU_SILENT = True`` where
+  it reads only what a card gives. A reader that names a kernel seam
+  (``SEAM``) has the harness open a profiler range around that seam in
+  the traced calls, and may give a ``meter`` that sees the seam's
+  arguments in one more call made after them;
+* the faults its tests plant, ``bench/tests/faults/<op>.py``.
+
+The operator's module gives ``prepare(ctx, tables, traffic, *, config,
+seed)``, which builds the program's state from the tables (a model draws
+its weights from ``seed`` there, with ``tables.weights``);
+``call(ctx, state, traffic)``, which makes one call through the program's
+entry and returns ``(out, report)``; ``summarize(out, counts)``, what of a
+result the comparison keeps; and optionally ``counts(out)``, a call's
+per-worker counts (else ``out.row_counts``). The reference gives
+``expected(tables, traffic, workers, *, config, seed, control=False)``,
+worked out again from tables made anew from the seed, and ``compare(calls,
+checked, want, limits)``, the compared numbers as (name, value, limit);
+each summary in ``checked`` has the call's number in the run (from 0, the
+warm-up calls first) under ``"call"``, for a program whose calls carry
+state.
 
 A later cell adds files and entries; none of this module needs an edit.
 """
@@ -21,7 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
-import importlib
+import hashlib
 import importlib.util
 import json
 import random
@@ -52,6 +72,8 @@ class Run:
     # one record a call in the window: seconds, rows, counts, ok
     calls: list = dataclasses.field(default_factory=list)
     trace: profiling.Trace | None = None
+    # the cell as run: a reader takes widths and sizes from its config
+    cell: Cell | None = None
 
 
 def load_json(path: Path) -> dict:
@@ -59,11 +81,22 @@ def load_json(path: Path) -> dict:
         return json.load(f)
 
 
-def load_file(path: Path, name: str):
-    """Import a reader by its file, so any metric name can have one."""
-    spec = importlib.util.spec_from_file_location(f"bench_reader_{name}", path)
+def load_piece(root: Path, kind: str, name: str):
+    """``<root>/bench/<kind>/<name>.py`` imported by its file, once a
+    process, so any name can have one and a root made elsewhere (a test's)
+    is read as the checkout's is."""
+    path = (Path(root) / "bench" / kind / f"{name}.py").resolve()
+    key = "bench_piece_" + hashlib.sha1(str(path).encode()).hexdigest()[:16]
+    if key in sys.modules:
+        return sys.modules[key]
+    spec = importlib.util.spec_from_file_location(key, path)
     mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    sys.modules[key] = mod
+    try:
+        spec.loader.exec_module(mod)
+    except BaseException:
+        del sys.modules[key]
+        raise
     return mod
 
 
@@ -75,10 +108,18 @@ class Cell:
     traffic: dict
     end_to_end: list
     per_layer: list
+    root: Path = ROOT
 
     @property
     def workers(self) -> int:
-        return int(self.config["workers"])
+        return int(self.config.get("workers", 1))
+
+    def piece(self, kind: str):
+        """The cell's module of ``kind``: its loop (``loops``), else its
+        operator's (``ops``, ``reference``, ``tests/faults``)."""
+        name = self.traffic.get("loop", "closed") if kind == "loops" \
+            else self.traffic["op"]
+        return load_piece(self.root, kind, name)
 
 
 def _applies(metric: dict, cell: str) -> bool:
@@ -98,12 +139,24 @@ def find_cell(workload: str, root: Path = ROOT) -> Cell:
         config=load_json(root / cfg_entry["file"]),
         traffic=load_json(root / "bench" / "traffic" / f"{w['traffic']}.json"),
         end_to_end=[m for m in bench["end_to_end"] if _applies(m, workload)],
-        per_layer=[m for m in bench["per_layer"] if _applies(m, workload)])
+        per_layer=[m for m in bench["per_layer"] if _applies(m, workload)],
+        root=root)
 
 
 def readers(metrics: list, root: Path = ROOT) -> dict:
-    return {m["name"]: load_file(root / "bench" / "metrics" / f"{m['name']}.py",
-                                 m["name"]) for m in metrics}
+    return {m["name"]: load_piece(root, "metrics", m["name"]) for m in metrics}
+
+
+def counts(op, out) -> list[int]:
+    """A call's per-worker counts: the operator's ``counts(out)`` where it
+    has one, else the result's ``row_counts``."""
+    own = getattr(op, "counts", None)
+    return own(out) if own is not None else out.row_counts.tolist()
+
+
+def summary(op, out, call_counts: list[int], call: int) -> dict:
+    """What the comparison keeps of call ``call``'s result."""
+    return {**op.summarize(out, call_counts), "call": call}
 
 
 def banned_modules() -> list[str]:
@@ -150,13 +203,15 @@ class _Caller:
                  device: torch.device):
         self.op, self.ctx, self.state, self.traffic = op, ctx, state, traffic
         self.rows, self.device = rows, device
-        self.last = None
+        self.last = None  # (the call's number in the run, its result)
+        self.made = 0
         self.sample: int | None = None
         self.checked: list = []
 
     def step(self, i: int, around=None) -> dict:
         """Call i; ``around`` wraps the program's call alone."""
         self.last = None  # each result released before the next call
+        n, self.made = self.made, self.made + 1
         rec = {"rows": self.rows, "ok": True, "elided": True}
 
         def thunk():
@@ -168,15 +223,15 @@ class _Caller:
             print(f"call {i} failed: {type(e).__name__}: {e}", file=sys.stderr)
             rec["ok"] = False
             return rec
-        rec["counts"] = out.row_counts.tolist()
+        rec["counts"] = counts(self.op, out)
         rec["elided"] = all(r.get("elided", False) for r in report)
         rec["report"] = report
         if i == self.sample:
             # the comparison's work, which the loop leaves out of the window
             t = time.perf_counter()
-            self.checked.append(self.op.summarize(out, rec["counts"]))
+            self.checked.append(summary(self.op, out, rec["counts"], n))
             rec["check_s"] = time.perf_counter() - t
-        self.last = out
+        self.last = n, out
         return rec
 
 
@@ -235,25 +290,22 @@ def _traced(caller: _Caller, run: Run, cell_readers: dict, t0: float) -> None:
 
 
 def run_cell(cell: Cell, *, seed: int, seconds: float, trace: bool,
-             device: torch.device, t0: float,
-             rows_per_worker: int | None = None) -> tuple[dict, list]:
+             device: torch.device, t0: float) -> tuple[dict, list]:
     """One run. Returns the result's line (without the device's name) and
     the compared numbers as (name, value, limit)."""
     from repro_torch.core.context import DistContext
 
-    traffic = cell.traffic
-    op = importlib.import_module(f"bench.ops.{traffic['op']}")
-    ref = importlib.import_module(f"bench.reference.{traffic['op']}")
-    loop = importlib.import_module(f"bench.loops.{traffic.get('loop', 'closed')}")
+    traffic, config = cell.traffic, cell.config
+    op, ref, loop = (cell.piece(k) for k in ("ops", "reference", "loops"))
     metrics = cell.per_layer if trace else cell.end_to_end
-    cell_readers = readers(metrics)
+    cell_readers = readers(metrics, cell.root)
     cuda = device.type == "cuda"
 
     ctx = DistContext(num_shards=cell.workers, device=device)
-    tables = make_tables(cell.config, traffic, seed, device, rows_per_worker)
+    tables = make_tables(config, traffic, seed, device)
     rows = input_rows(tables)
-    caller = _Caller(op, ctx, op.prepare(ctx, tables, traffic), traffic, rows,
-                     device)
+    caller = _Caller(op, ctx, op.prepare(ctx, tables, traffic, config=config,
+                                         seed=seed), traffic, rows, device)
     del tables, ctx  # the program's state holds what it needs
     for i in range(int(traffic.get("warmup_calls", 2))):
         t = time.perf_counter()
@@ -262,7 +314,7 @@ def run_cell(cell: Cell, *, seed: int, seconds: float, trace: bool,
     setup_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
-    run = Run()
+    run = Run(cell=cell)
     if trace:
         _traced(caller, run, cell_readers, t0)
     else:
@@ -270,7 +322,9 @@ def run_cell(cell: Cell, *, seed: int, seconds: float, trace: bool,
     run.peak_bytes = torch.cuda.max_memory_allocated(device) if cuda else 0
     checked = caller.checked
     if caller.last is not None:
-        checked.append(op.summarize(caller.last, run.calls[-1]["counts"]))
+        n, out = caller.last
+        checked.append(summary(op, out, run.calls[-1]["counts"], n))
+        del out
 
     # the program's state is freed before the reference runs, so the
     # reference neither sets the peak nor finds its memory taken
@@ -278,8 +332,9 @@ def run_cell(cell: Cell, *, seed: int, seconds: float, trace: bool,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    tables = make_tables(cell.config, traffic, seed, device, rows_per_worker)
-    want = ref.expected(tables, traffic, cell.workers)
+    tables = make_tables(config, traffic, seed, device)
+    want = ref.expected(tables, traffic, cell.workers, config=config,
+                        seed=seed)
     del tables
     compared = [("failed_calls", float(sum(not c["ok"] for c in run.calls)), 0.0)]
     if traffic.get("require_elided"):

@@ -3,6 +3,9 @@ one minus the union of the device's operation intervals over the
 window's length."""
 from bench import profiling
 
+# the CPU gives no device operations
+CPU_SILENT = True
+
 
 def read(run):
     t = run.trace

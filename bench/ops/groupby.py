@@ -7,7 +7,7 @@ import torch
 from bench.ops.common import dist_table
 
 
-def prepare(ctx, tables: dict, traffic: dict):
+def prepare(ctx, tables: dict, traffic: dict, *, config=None, seed=None):
     (name,) = traffic["inputs"]
     return dist_table(tables[name])
 

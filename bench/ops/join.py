@@ -6,7 +6,7 @@ from __future__ import annotations
 from bench.ops.common import dist_table, exact_summary
 
 
-def prepare(ctx, tables: dict, traffic: dict):
+def prepare(ctx, tables: dict, traffic: dict, *, config=None, seed=None):
     left, right = (dist_table(tables[name]) for name in traffic["inputs"])
     pre = traffic.get("prepartition")
     if pre:

@@ -11,7 +11,7 @@ BLOCK_ROWS = 1 << 22
 # the control's type for each type a configuration states: the nearest
 # below it
 LOWER = {torch.float64: torch.float32, torch.float32: torch.bfloat16,
-         torch.int32: torch.int16}
+         torch.int64: torch.int32, torch.int32: torch.int16}
 
 
 def flat(table: dict[str, torch.Tensor], control: bool = False,

@@ -45,10 +45,10 @@ def _aggregate(x: torch.Tensor, inv: torch.Tensor, groups: int,
     return out
 
 
-def expected(tables: dict, traffic: dict, workers: int,
-             control: bool = False) -> dict:
+def expected(tables: dict, traffic: dict, workers: int, *, config=None,
+             seed=None, control: bool = False) -> dict:
     call = traffic["call"]
-    key, seed = call["keys"], int(call.get("seed", 7))
+    key, hash_seed = call["keys"], int(call.get("seed", 7))
     (name,) = traffic["inputs"]
     t = flat({c: tables[name][c] for c in [key, *call["aggs"]]}, control,
              (key,))
@@ -82,7 +82,7 @@ def expected(tables: dict, traffic: dict, workers: int,
         for op in float_ops:
             if op in scale:
                 scales[f"{col}_{op}"] = scale[op]()
-    shard = partition_of([keys], workers, seed)
+    shard = partition_of([keys], workers, hash_seed)
     return {"counts": torch.bincount(shard, minlength=workers).tolist(),
             "key": key, "rows": {k: v.cpu() for k, v in rows.items()},
             "scales": {k: v.cpu() for k, v in scales.items()},

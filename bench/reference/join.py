@@ -10,10 +10,10 @@ from bench.reference.digest import shard_digests
 from bench.reference.hashing import partition_of
 
 
-def expected(tables: dict, traffic: dict, workers: int,
-             control: bool = False) -> dict:
+def expected(tables: dict, traffic: dict, workers: int, *, config=None,
+             seed=None, control: bool = False) -> dict:
     call = traffic["call"]
-    on, seed = call["on"], int(call.get("seed", 7))
+    on, hash_seed = call["on"], int(call.get("seed", 7))
     left_name, right_name = traffic["inputs"]
     a = flat(tables[left_name], control, (on,))
     b = flat(tables[right_name], control, (on,))
@@ -34,7 +34,7 @@ def expected(tables: dict, traffic: dict, workers: int,
         bi = perm[torch.repeat_interleave(lo, cnt) + off]
         cols = {c: v[ai] for c, v in a.items()}
         cols.update({(c + "_r" if c in a else c): v[bi] for c, v in b.items()})
-        shard = partition_of([cols[on]], workers, seed)
+        shard = partition_of([cols[on]], workers, hash_seed)
         digests += shard_digests(cols, shard, workers)
         counts += torch.bincount(shard, minlength=workers)
     return {"counts": counts.tolist(), "digests": digests.tolist()}

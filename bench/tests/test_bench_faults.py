@@ -1,126 +1,67 @@
 """The comparison fails what it must. The control (the plain reference in
 the program's place, each value column at the type below its own) comes
-out not correct on every cell; so
-does a run whose timed path is broken underneath, once for each fault a
-cell can have: half the input left out, the exchange between workers
-left out, an answer altered where it is produced. (No cell keeps state
-from call to call, so "a step that returns its state unchanged" has no
-counterpart here.)"""
-import importlib
-
+out not correct on every cell; so does a run whose timed path is broken
+underneath, once for each fault a cell can have: half the input left out,
+the exchange between workers left out, an answer altered where it is
+produced, a call that returns its state unchanged. Each operator declares
+in ``bench/tests/faults/<op>.py`` how a fault is planted in its cells, or
+why they cannot have it; such a fault collects no case for them."""
 import pytest
 import torch
 
-from bench import controls, harness
+from bench import controls
 from bench.tables import make_tables
-from bench.tests.helpers import cells, run
+from bench.tests.helpers import all_cells, find, on_cpu, run
 from repro_torch.core import context as C
-from repro_torch.core import ops_dist
-
-ENTRY = {"join": "join", "groupby": "groupby"}
 
 
-# rows a worker for the control: 8 x 8192 record ids pass 2**15, which the
-# join's control (its payloads at int16) cannot carry
-CONTROL_ROWS = 8192
+def cells_with(fault: str) -> list[str]:
+    """The cells whose operator can have ``fault``."""
+    return [w for w in all_cells()
+            if callable(getattr(find(w).piece("tests/faults"), fault))]
+
+
+def planted_run(workload: str, fault: str, monkeypatch) -> None:
+    cell = find(workload)
+    plant = getattr(cell.piece("tests/faults"), fault)
+    plant(monkeypatch, cell, cell.piece("ops"))
+    result, compared = run(workload)
+    assert not result["correct"], compared
 
 
 @pytest.mark.parametrize("seed", [11, 2**31 + 12, 2**35 + 13])
-@pytest.mark.parametrize("workload", cells())
+@pytest.mark.parametrize("workload", all_cells())
 def test_control_fails_and_program_passes(workload, seed):
-    cell = harness.find_cell(workload)
-    op = importlib.import_module(f"bench.ops.{cell.traffic['op']}")
-    ref = importlib.import_module(f"bench.reference.{cell.traffic['op']}")
+    cell = on_cpu(find(workload))
+    ref = cell.piece("reference")
     cpu = torch.device("cpu")
-    tables = make_tables(cell.config, cell.traffic, seed, cpu, CONTROL_ROWS)
-    want = ref.expected(tables, cell.traffic, cell.workers)
+    tables = make_tables(cell.config, cell.traffic, seed, cpu,
+                         cell.config["control_rows"])
+    want = ref.expected(tables, cell.traffic, cell.workers,
+                        config=cell.config, seed=seed)
     ctx = C.DistContext(num_shards=cell.workers, device=cpu)
-    program = controls.program_numbers(cell, op, ref, ctx, tables, want)
+    program = controls.program_numbers(cell, ctx, tables, want, seed)
     assert all(v <= lim for _, v, lim in program), program
-    control = controls.control_numbers(ref, tables, cell.traffic,
-                                       cell.workers, want)
+    control = controls.control_numbers(cell, tables, want, seed)
     assert any(v > lim for _, v, lim in control), control
 
 
-def _half(orig):
-    """The entry sees only the first half of each worker's rows."""
-    def entry(self, *tables, **kw):
-        halved = [C.DistTable(t.columns, t.row_counts // 2, t.partitioning,
-                              t.stats) if isinstance(t, C.DistTable) else t
-                  for t in tables]
-        return orig(self, *halved, **kw)
-    return entry
-
-
-def _altered(orig):
-    """One value of the result's last column by name (a payload or an
-    aggregate) changed by one as the entry returns it."""
-    def entry(self, *args, **kw):
-        out, stats = orig(self, *args, **kw)
-        name = sorted(out.columns)[-1]
-        col = out.columns[name].clone()
-        col[0, 0] += 1
-        return C.DistTable({**out.columns, name: col}, out.row_counts,
-                           out.partitioning, out.stats), stats
-    return entry
-
-
-def _entry_name(workload):
-    return ENTRY[harness.find_cell(workload).traffic["op"]]
-
-
-@pytest.mark.parametrize("workload", cells())
+@pytest.mark.parametrize("workload", cells_with("half_input"))
 def test_half_the_input_left_out(workload, monkeypatch):
-    if workload == "join.copartitioned":
-        # its calls go through a lazy frame: halve the partitioned inputs
-        monkeypatch.setattr(C.DistContext, "partition_by",
-                            _half(C.DistContext.partition_by))
-    else:
-        name = _entry_name(workload)
-        monkeypatch.setattr(C.DistContext, name,
-                            _half(getattr(C.DistContext, name)))
-    result, compared = run(workload)
-    assert not result["correct"], compared
+    planted_run(workload, "half_input", monkeypatch)
 
 
-@pytest.mark.parametrize("workload", cells())
+@pytest.mark.parametrize("workload", cells_with("exchange_left_out"))
 def test_exchange_left_out(workload, monkeypatch):
-    real = ops_dist._shuffle
-
-    def no_exchange(tables, keys, **kw):
-        kw["skip"] = True
-        return real(tables, keys, **kw)
-
-    monkeypatch.setattr(ops_dist, "_shuffle", no_exchange)
-    result, compared = run(workload)
-    assert not result["correct"], compared
+    planted_run(workload, "exchange_left_out", monkeypatch)
 
 
-@pytest.mark.parametrize("workload", cells())
+@pytest.mark.parametrize("workload", cells_with("answer_altered"))
 def test_answer_altered(workload, monkeypatch):
-    if workload == "join.copartitioned":
-        monkeypatch.setattr(C.DistContext, "submit",
-                            _submit_altered(C.DistContext.submit))
-    else:
-        name = _entry_name(workload)
-        monkeypatch.setattr(C.DistContext, name,
-                            _altered(getattr(C.DistContext, name)))
-    result, compared = run(workload)
-    assert not result["correct"], compared
+    planted_run(workload, "answer_altered", monkeypatch)
 
 
-def _submit_altered(orig):
-    """The lazy frame's route: the result's last column altered
-    once the future resolves, for plans with a join."""
-    def submit(self, plan, tabs, **kw):
-        fut = orig(self, plan, tabs, **kw)
-        if type(plan).__name__ != "Join":
-            return fut
-        inner = fut.result_with_stats
+@pytest.mark.parametrize("workload", cells_with("state_unchanged"))
+def test_state_left_unchanged(workload, monkeypatch):
+    planted_run(workload, "state_unchanged", monkeypatch)
 
-        def altered():
-            out, stats = inner()
-            return _altered(lambda *a, **k: (out, stats))(None)
-        fut.result_with_stats = altered
-        return fut
-    return submit

@@ -9,23 +9,24 @@ import pytest
 import torch
 
 from bench import harness, run as bench_run
-from bench.tests.helpers import cells, run
+from bench.tests.helpers import all_cells, find, on_cpu, run
 
 
 @pytest.mark.parametrize("trace", [False, True], ids=["window", "traced"])
-@pytest.mark.parametrize("workload", cells())
+@pytest.mark.parametrize("workload", all_cells())
 def test_program_matches_reference(workload, trace):
     result, compared = run(workload, trace=trace)
     assert result["correct"], compared
     assert result["failed"] == 0 and result["attempted"] >= 1
     assert [n for n, _, _ in compared][0] == "failed_calls"
-    metrics = harness.find_cell(workload)
-    want = metrics.per_layer if trace else metrics.end_to_end
-    # the CPU has no device trace and no sync counter: those readers give
-    # nothing, every other metric of the cell is there
-    cpu_silent = {"peak_gib", "host_syncs_per_call", "device_idle_share",
-                  "hash_partition_roofline", "segment_reduce_roofline"}
-    assert {m["name"] for m in want} - cpu_silent == set(result["metrics"])
+    cell = find(workload)
+    want = cell.per_layer if trace else cell.end_to_end
+    # a reader of what only a card gives (a device trace, the sync counter,
+    # device memory) says so and gives nothing here; every other metric of
+    # the cell is there
+    silent = {name for name, r in harness.readers(want, cell.root).items()
+              if getattr(r, "CPU_SILENT", False)}
+    assert {m["name"] for m in want} - silent == set(result["metrics"])
     if trace:
         assert set(result["breakdown"]) == {"device_ops", "idle_gaps"}
         assert result["device"]["window_s"] > 0
@@ -44,7 +45,7 @@ def test_result_line_shape(monkeypatch, capsys):
 
     def cpu_run(cell, **kw):
         kw["device"] = torch.device("cpu")
-        return real(cell, rows_per_worker=128, **kw)
+        return real(on_cpu(cell), **kw)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
@@ -124,3 +125,27 @@ def test_groupby_table_follows_its_source():
     v3 = x["v3"]
     assert v3.dtype == torch.float64 and 0 <= float(v3.min()) < float(v3.max()) < 100
     assert torch.equal(torch.round(v3 * 1e6) / 1e6, v3)
+
+
+@pytest.mark.parametrize("dist", ["permutation", "uniform_int", "row_index"])
+def test_int64_columns_follow_the_seed_past_2_31(dist):
+    from bench.reference.common import LOWER
+    from bench.tables import make_tables
+
+    low = 2**33 + 5
+    spec = {"dtype": "int64", "distribution": dist, "low": low, "levels": 1000}
+    config = {"workers": 4, "rows_per_worker": 64, "tables": {"t": {"k": spec}}}
+    cpu = torch.device("cpu")
+    a, b, c = (make_tables(config, {"inputs": ["t"]}, s, cpu)["t"]["k"]
+               for s in (2**40 + 3, 2**40 + 3, 2**40 + 4))
+    assert a.dtype == torch.int64 and a.shape == (4, 64)
+    assert torch.equal(a, b) and int(a.min()) >= low > 2**31
+    if dist == "row_index":
+        assert torch.equal(a.reshape(-1), torch.arange(low, low + 256))
+    else:
+        assert not torch.equal(a, c)
+    if dist == "permutation":
+        assert torch.equal(a.reshape(-1).sort().values, torch.arange(low, low + 256))
+    if dist == "uniform_int":
+        assert int(a.max()) < low + 1000
+    assert LOWER[torch.int64] == torch.int32
